@@ -1,0 +1,227 @@
+"""Parameter system: JSON files + override maps -> dataclasses of tensors
+(`mpcc_manipulator_tpu/params.py`).
+
+Each group loads from the same ``assets/params/*.json`` files as the JAX
+package, and every key can be overridden through a ``{key: value}`` map
+(the reference's ``ParamValue`` semantics).  Host-side setup is numpy /
+plain Python; the result is a tree of scalar and vector tensors on the
+requested device.
+
+Solver structure lives in :class:`SQPConfig`, which keeps the JAX field
+names.  Values the port does not run yet are rejected where they would be
+used (`solver/sqp.py::check_supported`), never silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Mapping
+
+import torch
+
+from .system import PANDA, System
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_PARAM_DIR = os.path.join(_REPO_ROOT, "assets", "params")
+
+
+def param_path(name: str, param_dir: str | None = None) -> str:
+    """Resolve a parameter JSON file name inside the asset directory."""
+    return os.path.join(param_dir or DEFAULT_PARAM_DIR, name)
+
+
+def _load_json(file: str) -> dict:
+    with open(file, "r") as f:
+        return json.load(f)
+
+
+def _get(js: Mapping[str, Any], overrides: Mapping[str, float] | None, key: str):
+    """Reference override-merge semantics: override map wins over JSON value."""
+    if overrides is not None and key in overrides:
+        return overrides[key]
+    return js[key]
+
+
+@dataclasses.dataclass
+class ModelParams:
+    """Projection / progress / constraint-tolerance parameters (model.json)."""
+
+    max_dist_proj: torch.Tensor
+    desired_ee_velocity: torch.Tensor
+    s_trust_region: torch.Tensor
+    deacc_ratio: torch.Tensor
+    tol_sing: torch.Tensor
+    tol_selcol: torch.Tensor
+    tol_envcol: torch.Tensor
+
+
+@dataclasses.dataclass
+class CostParams:
+    """MPCC cost weights (cost.json)."""
+
+    q_c: torch.Tensor
+    q_c_N_mult: torch.Tensor
+    q_l: torch.Tensor
+    q_vs: torch.Tensor
+    q_ori: torch.Tensor
+    q_sing: torch.Tensor
+    r_dq: torch.Tensor
+    r_ddq: torch.Tensor
+    r_dVs: torch.Tensor
+    q_c_red_ratio: torch.Tensor
+    q_l_inc_ratio: torch.Tensor
+    q_ori_red_ratio: torch.Tensor
+
+
+@dataclasses.dataclass
+class BoundsParams:
+    """Box bounds on state, input, and joint acceleration (bounds.json)."""
+
+    x_l: torch.Tensor    # (nx,)
+    x_u: torch.Tensor
+    u_l: torch.Tensor    # (nu,)
+    u_u: torch.Tensor
+    ddq_l: torch.Tensor  # (dof,)
+    ddq_u: torch.Tensor
+
+
+@dataclasses.dataclass
+class NormalizationParams:
+    """Diagonal state/input scalings T_x, T_u (normalization.json)."""
+
+    t_x: torch.Tensor    # (nx,)
+    t_u: torch.Tensor    # (nu,)
+
+    @property
+    def t_x_inv(self) -> torch.Tensor:
+        return 1.0 / self.t_x
+
+    @property
+    def t_u_inv(self) -> torch.Tensor:
+        return 1.0 / self.t_u
+
+
+@dataclasses.dataclass
+class SQPParams:
+    """Runtime-tunable SQP scalars (sqp.json)."""
+
+    eps_prim: torch.Tensor
+    eps_dual: torch.Tensor
+    line_search_tau: torch.Tensor
+    line_search_eta: torch.Tensor
+    line_search_rho: torch.Tensor
+
+
+@dataclasses.dataclass
+class MPCCParams:
+    """All runtime-tunable parameters of one MPCC instance."""
+
+    model: ModelParams
+    cost: CostParams
+    bounds: BoundsParams
+    normalization: NormalizationParams
+    sqp: SQPParams
+
+
+@dataclasses.dataclass(frozen=True)
+class SQPConfig:
+    """Static SQP structure (field names of the JAX `SQPConfig`).
+
+    The defaults are the one configuration the port runs: real-time
+    iteration (one warm-started SQP iteration per tick), the structured
+    interior-point QP through the K1 kernel route with adaptive centering,
+    the K4 kinematics route with the analytic manipulability gradient, and
+    the plain (``"xla"``-named) stage-QP assembly.
+    """
+
+    max_iter: int = 1
+    line_search_max_iter: int = 5
+    rti: bool = True
+    do_SOC: bool = False
+    use_BFGS: bool = False
+    qp_max_iter: int = 400
+    qp_check_every: int = 25
+    qp_warm_start: bool = True
+    qp_backend: str = "xla"
+    line_search: str = "filter"
+    qp_solver: str = "riccati_pallas"
+    ipm_max_iter: int = 25
+    fleet_mode: bool = False
+    nn_bf16: bool = False
+    ipm_scheme: str = "adaptive"
+    ipm_warm_start: bool = True
+    ipm_warm_clip_lo: float = 0.1
+    ipm_warm_clip_hi: float = 100.0
+    mani_grad: str = "analytic"
+    ipm_interpret: bool | None = None
+    qp_assembly: str = "xla"
+    kin_backend: str = "pallas"
+
+
+_X_KEYS = ["q1", "q2", "q3", "q4", "q5", "q6", "q7", "s", "vs"]
+_U_KEYS = ["dq1", "dq2", "dq3", "dq4", "dq5", "dq6", "dq7", "dVs"]
+_DDQ_KEYS = ["ddq1", "ddq2", "ddq3", "ddq4", "ddq5", "ddq6", "ddq7"]
+
+
+def load_params(param_dir: str | None = None,
+                overrides: Mapping[str, Mapping[str, float]] | None = None,
+                dtype=torch.float64, device="cpu",
+                system: System = PANDA) -> tuple[MPCCParams, SQPConfig]:
+    """Load the full parameter set.
+
+    ``overrides`` is a dict of groups (``param``, ``cost``, ``bounds``,
+    ``normalization``, ``sqp``), each a ``{key: value}`` map merged over the
+    JSON defaults.  The returned :class:`SQPConfig` carries the sqp.json
+    structure keys (``max_iter``, ``line_search_max_iter``, ``do_SOC``,
+    ``use_BFGS``); everything else keeps its default.
+    """
+    if system.base_dof != 0:
+        raise NotImplementedError(
+            "only the fixed-base Panda is ported (Husky+Panda: ROADMAP item 12)")
+    ov = overrides or {}
+
+    def group(file, key):
+        js = _load_json(param_path(file, param_dir))
+        return lambda k: _get(js, ov.get(key), k)
+
+    def t(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    m = group("model.json", "param")
+    model = ModelParams(
+        max_dist_proj=t(m("max_dist_proj")),
+        desired_ee_velocity=t(m("desired_ee_velocity")),
+        s_trust_region=t(m("s_trust_region")),
+        deacc_ratio=t(m("deaccelerate_ratio")),
+        tol_sing=t(m("tol_sing")), tol_selcol=t(m("tol_selcol")),
+        tol_envcol=t(m("tol_envcol")))
+    c = group("cost.json", "cost")
+    cost = CostParams(
+        q_c=t(c("qC")), q_c_N_mult=t(c("qCNmult")), q_l=t(c("qL")),
+        q_vs=t(c("qVs")), q_ori=t(c("qOri")), q_sing=t(c("qSing")),
+        r_dq=t(c("rdq")), r_ddq=t(c("rddq")), r_dVs=t(c("rdVs")),
+        q_c_red_ratio=t(c("qC_reduction_ratio")),
+        q_l_inc_ratio=t(c("qL_increase_ratio")),
+        q_ori_red_ratio=t(c("qOri_reduction_ratio")))
+    b = group("bounds.json", "bounds")
+    vec = lambda g, keys, suffix: t([float(g(k + suffix)) for k in keys])
+    bounds = BoundsParams(
+        x_l=vec(b, _X_KEYS, "l"), x_u=vec(b, _X_KEYS, "u"),
+        u_l=vec(b, _U_KEYS, "l"), u_u=vec(b, _U_KEYS, "u"),
+        ddq_l=vec(b, _DDQ_KEYS, "l"), ddq_u=vec(b, _DDQ_KEYS, "u"))
+    n = group("normalization.json", "normalization")
+    normalization = NormalizationParams(
+        t_x=vec(n, _X_KEYS, ""), t_u=vec(n, _U_KEYS, ""))
+    s = group("sqp.json", "sqp")
+    sqp = SQPParams(
+        eps_prim=t(s("eps_prim")), eps_dual=t(s("eps_dual")),
+        line_search_tau=t(s("line_search_tau")),
+        line_search_eta=t(s("line_search_eta")),
+        line_search_rho=t(s("line_search_rho")))
+    cfg = SQPConfig(max_iter=int(s("max_iter")),
+                    line_search_max_iter=int(s("line_search_max_iter")),
+                    do_SOC=bool(s("do_SOC")), use_BFGS=bool(s("use_BFGS")))
+    return MPCCParams(model=model, cost=cost, bounds=bounds,
+                      normalization=normalization, sqp=sqp), cfg

@@ -1,0 +1,114 @@
+"""K1: the interior-point QP solve as one CUDA kernel launch
+(`csrc/qp_ipm.cu`), replacing the TPU kernel `_ipm_kernel` of
+`mpcc_manipulator_tpu/solver/qp_ipm_pallas.py`.
+
+:func:`solve_qp_ipm_k` takes the kernel-direct :class:`StageQPK` blocks.
+On CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
+the plain version, :func:`solve_qp_ipm_plain` (the structured IPM of
+`solver/qp_ipm.py` on the repacked QP).  Inputs and outputs keep the JAX
+wrapper's layout, so the packed ``s_rows``/``lam_rows`` carry unchanged
+from solve to solve.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ocp.qp_stages import StageQPK, qpk_to_qps
+from ..ops import cuda_build
+from ..system import PANDA, System
+from .qp_ipm import (EPS_IPM, IPMSolution, groups_to_rows, rows_to_groups,
+                     solve_qp_ipm_s)
+
+_INPUT_FIELDS = ("hxx", "hux", "huu", "r2", "gx", "gu", "gxu", "e", "bd",
+                 "a_sv", "tx", "tu", "t_rate")
+
+
+def solve_qp_ipm_plain(qp: StageQPK, max_iter: int = 25,
+                       warm_s: torch.Tensor | None = None,
+                       warm_lam: torch.Tensor | None = None,
+                       system: System = PANDA) -> IPMSolution:
+    """Plain PyTorch version of K1 (any device)."""
+    return solve_qp_ipm_s(qpk_to_qps(qp, system), max_iter=max_iter,
+                          warm_s=warm_s, warm_lam=warm_lam)
+
+
+def _expected_shapes(b: int, n: int, system: System) -> dict:
+    nx, nu, dof, npc = system.nx, system.nu, system.dof, system.npc
+    return dict(
+        hxx=(b, n + 1, nx, nx), hux=(b, n, nu, nx), huu=(b, n, nu, nu),
+        r2=(b, n, dof), gx=(b, n + 1, nx), gu=(b, n, nu), gxu=(b, n, dof),
+        e=(b, n, nx), bd=(b, nx, nu), a_sv=(b,), tx=(b, nx), tu=(b, nu),
+        t_rate=(b, dof), d_xu=(b, n, nx), d_xl=(b, n, nx), d_uu=(b, n, nu),
+        d_ul=(b, n, nu), d_ru=(b, n, dof), d_rl=(b, n, dof),
+        d_p=(b, n, npc), cpx=(b, n, npc, nx), cpu=(b, n, npc, nu))
+
+
+def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
+                   warm_s: torch.Tensor | None = None,
+                   warm_lam: torch.Tensor | None = None,
+                   system: System = PANDA) -> IPMSolution:
+    """Solve a batch of stage QPs: K1 on CUDA, the plain version on CPU.
+
+    ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage) warm-start iterates;
+    ``None`` is the cold start (all ones).
+    """
+    dev = qp.e.device
+    if dev.type == "cpu":
+        return solve_qp_ipm_plain(qp, max_iter, warm_s, warm_lam, system)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_qp_ipm_k: unsupported device {dev}")
+    if (system.nx, system.nu, system.dof, system.npc) != (9, 8, 7, 11):
+        raise NotImplementedError("K1 is compiled for the Panda dims "
+                                  "(Husky+Panda: ROADMAP item 12)")
+    b, n_st = qp.e.shape[:2]
+    nx, nc = system.nx, system.nc_stage
+    for name, shape in _expected_shapes(b, n_st, system).items():
+        t = getattr(qp, name)
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"StageQPK.{name}: need float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"StageQPK.{name}: need a contiguous {shape}, "
+                             f"got {tuple(t.shape)}")
+    warm = []
+    for w in (warm_s, warm_lam):
+        if w is None:
+            warm.append(torch.ones(b, n_st, nc, dtype=torch.float32,
+                                   device=dev))
+            continue
+        if w.shape != (b, n_st + 1, nc) or w.device != dev:
+            raise ValueError(f"warm start: need ({b}, {n_st + 1}, {nc}) on "
+                             f"{dev}, got {tuple(w.shape)} on {w.device}")
+        warm.append(rows_to_groups(w.to(torch.float32), nx).contiguous())
+    d_cat = torch.cat([qp.d_xu, qp.d_xl, qp.d_uu, qp.d_ul, qp.d_ru, qp.d_rl,
+                       qp.d_p], dim=-1).contiguous()
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(b, n_st + 1, system.nxt, **f32)
+    du = torch.empty(b, n_st, system.nu, **f32)
+    lam = torch.empty(b, n_st, nc, **f32)
+    s = torch.empty(b, n_st, nc, **f32)
+    iters = torch.empty(b, dtype=torch.int32, device=dev)
+    solved = torch.empty(b, dtype=torch.int32, device=dev)
+    mu = torch.empty(b, **f32)
+
+    ptrs = [getattr(qp, f).data_ptr() for f in _INPUT_FIELDS]
+    ptrs += [d_cat.data_ptr(), qp.cpx.data_ptr(), qp.cpu.data_ptr(),
+             warm[0].data_ptr(), warm[1].data_ptr()]
+    ptrs += [t.data_ptr() for t in (dx, du, lam, s, iters, solved, mu)]
+    lib = cuda_build.library()
+    solve_qp_ipm_k.launches += 1
+    err = lib.mpcc_ipm_solve(*ptrs, b, n_st, int(max_iter),
+                             ctypes.c_float(EPS_IPM),
+                             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "K1 qp_ipm kernel")
+    return IPMSolution(dx_tilde=dx, du=du, lam=groups_to_rows(lam, 0.0, nx),
+                       iters=iters.long(), solved=solved > 0, mu=mu,
+                       s_rows=groups_to_rows(s, 1.0, nx),
+                       lam_rows=groups_to_rows(lam, 1.0, nx))
+
+
+solve_qp_ipm_k.launches = 0

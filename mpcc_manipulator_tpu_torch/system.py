@@ -1,0 +1,85 @@
+"""System descriptor: the robot platform as a frozen dataclass of integers
+(`mpcc_manipulator_tpu/system.py`).
+
+Only the fixed-base Panda is ported so far; the mobile Husky+Panda is
+ROADMAP item 12.  ``horizon`` stays a field, but only N=10 is exercised.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+N = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class System:
+    """Static dimensional description of one robot platform."""
+
+    name: str            # "panda"
+    base_dof: int        # 0 (fixed base)
+    arm_dof: int = 7
+    num_links: int = 9   # env-collision distance rows (link0..7 + hand)
+    horizon: int = N     # MPC horizon (knots 0..horizon)
+
+    @property
+    def dof(self) -> int:
+        return self.base_dof + self.arm_dof
+
+    @property
+    def nx(self) -> int:
+        """State dim: [q(dof), s, vs]."""
+        return self.dof + 2
+
+    @property
+    def nu(self) -> int:
+        """Input dim: [dq(dof), dVs]."""
+        return self.dof + 1
+
+    @property
+    def npc(self) -> int:
+        """Polytopic rows/knot: self-collision, singularity, env rows."""
+        return 2 + self.num_links
+
+    @property
+    def s_idx(self) -> int:
+        return self.dof
+
+    @property
+    def vs_idx(self) -> int:
+        return self.dof + 1
+
+    @property
+    def dvs_idx(self) -> int:
+        return self.dof
+
+    @property
+    def n_var(self) -> int:
+        return self.nx * (self.horizon + 1) + self.nu * self.horizon
+
+    @property
+    def n_eq(self) -> int:
+        return self.nx * (self.horizon + 1)
+
+    @property
+    def n_constr(self) -> int:
+        return (self.n_eq + self.nx * (self.horizon + 1)
+                + 2 * self.nu * self.horizon + self.npc * (self.horizon + 1))
+
+    @property
+    def nxt(self) -> int:
+        """Augmented stage state x~ = [x; u_prev]."""
+        return self.nx + self.nu
+
+    @property
+    def nzt(self) -> int:
+        return self.nxt + self.nu
+
+    @property
+    def nc_stage(self) -> int:
+        """Inequality rows per stage: state box x2, input box x2, rate rows
+        x2 (all dof inputs), polytopic."""
+        return 2 * self.nx + 2 * self.nu + 2 * self.dof + self.npc
+
+
+PANDA = System(name="panda", base_dof=0)

@@ -1,0 +1,102 @@
+"""K4 (`ops/kinematics_kernel.py`): its plain version against the JAX
+kinematics kernel and the XLA reference, and the RobotData A/B.
+
+The CUDA kernel itself is compared with this plain version on the card by
+``chip_smoke.py`` (there is no CUDA compiler on the CPU test machines).
+
+Tolerances:
+* float32 vs `kin_sweep(interpret=True)`: the JAX kernel test's contract
+  (tests/test_pallas_kinematics.py): atol 2e-6 on p, R, jv, jw; rtol 2e-5
+  on m; rtol 2e-3 / atol 2e-4 on dm;
+* float64 vs the XLA reference: 1e-9 relative to the block's scale.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpcc_manipulator_tpu.models import collision_nn as jcnn
+from mpcc_manipulator_tpu.models import kinematics as jkin
+from mpcc_manipulator_tpu.ocp.robot_data import \
+    compute_robot_data as j_robot_data
+from mpcc_manipulator_tpu.ops import pallas_kinematics as pkin
+from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
+from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import (kin_sweep,
+                                                              kin_sweep_plain)
+from mpcc_manipulator_tpu_torch.problem import X0_HOME
+
+torch.set_num_threads(1)
+
+NAMES = ["p_ee", "r_ee", "jv", "jw", "manipul", "d_manipul"]
+
+
+def _qs(b=2, k=4, seed=3):
+    rng = np.random.default_rng(seed)
+    return X0_HOME[:7] + 0.3 * rng.standard_normal((b, k, 7))
+
+
+def test_plain_matches_pallas_kernel_f32():
+    qs = _qs()
+    ref = jax.vmap(lambda q: pkin.kin_sweep(q, interpret=True))(
+        jnp.asarray(qs, dtype=jnp.float32))
+    got = kin_sweep_plain(torch.tensor(qs, dtype=torch.float32))
+    tol = [dict(atol=2e-6)] * 4 + [dict(rtol=2e-5, atol=1e-6),
+                                   dict(rtol=2e-3, atol=2e-4)]
+    for name, g, r, t in zip(NAMES, got, ref, tol):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name, **t)
+
+
+def test_plain_matches_xla_reference_f64():
+    qs = _qs(seed=4)
+
+    def ref_one(q):
+        p_ee, r_ee, origins, axes = jkin.fk_chain(q)
+        jv = jnp.cross(axes, p_ee[None, :] - origins).T
+        m, d = jkin.manipulability_and_grad_from_frames(p_ee, origins, axes)
+        return p_ee, r_ee, jv, axes.T, m, d
+
+    ref = jax.vmap(jax.vmap(ref_one))(jnp.asarray(qs))
+    got = kin_sweep_plain(torch.tensor(qs, dtype=torch.float64))
+    for name, g, r in zip(NAMES, got, ref):
+        r = np.asarray(r)
+        scale = max(1.0, float(np.abs(r).max()))
+        assert float(np.abs(g.numpy() - r).max()) <= 1e-9 * scale, name
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing."""
+    qs = torch.tensor(_qs(seed=5), dtype=torch.float64)
+    before = kin_sweep.launches
+    for g, r in zip(kin_sweep(qs), kin_sweep_plain(qs)):
+        assert torch.equal(g, r)
+    assert kin_sweep.launches == before
+
+
+@pytest.mark.parametrize("obs", [[3.0, 3.0, 3.0], [0.45, 0.05, 0.55]],
+                         ids=["far_obstacle", "near_obstacle"])
+def test_robot_data_matches_jax(obs):
+    """Full RobotData (K4 route + collision NNs) against the JAX XLA path
+    with the analytic manipulability gradient, float64."""
+    qs = _qs(b=3, k=5, seed=6)
+    radius = np.array([0.0, 3.0, 5.0])
+    jsel = jcnn.load_self_collision_nn(dtype=jnp.float64)
+    jenv = jcnn.load_env_collision_nn(dtype=jnp.float64)
+    ref = jax.vmap(lambda q, r: j_robot_data(
+        q, jnp.asarray(obs), r, jsel, jenv, mani_grad="analytic"))(
+        jnp.asarray(qs), jnp.asarray(radius))
+    got = compute_robot_data(
+        torch.tensor(qs), torch.tensor([obs] * 3, dtype=torch.float64),
+        torch.tensor(radius), cnn.load_self_collision_nn(),
+        cnn.load_env_collision_nn())
+    for f in ref.__dataclass_fields__:
+        r = np.asarray(getattr(ref, f), dtype=np.float64)
+        g = getattr(got, f).numpy()
+        if f == "obs_radius":
+            r = np.broadcast_to(r[:, None], g.shape)
+        assert g.shape == r.shape, f
+        scale = max(1.0, float(np.abs(r).max()))
+        assert float(np.abs(g - r).max()) <= 1e-9 * scale, f

@@ -1,0 +1,189 @@
+"""The port's MPCC tick (`mpcc_manipulator_tpu_torch.mpc.mpc_step`) against
+the JAX package's `mpc_step`, closed loop, float64 on the CPU.
+
+The JAX side runs its plain path of the same algorithm (structured IPM,
+XLA kinematics, analytic manipulability gradient, RTI with warm-started
+interior point), one single-scenario call per lane so that it compiles
+once; the port runs the four lanes as one batch through its plain
+versions (CPU tensors).  Both packages compute on identical parameters,
+track and network weights (carried over by ``convert``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpcc_manipulator_tpu.models import dynamics as jdyn
+from mpcc_manipulator_tpu.mpc import mpc_step as jax_mpc_step
+from mpcc_manipulator_tpu.params import SQPConfig as JaxSQPConfig
+from mpcc_manipulator_tpu_torch import convert
+from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+from mpcc_manipulator_tpu_torch.params import SQPConfig
+from mpcc_manipulator_tpu_torch.problem import X0_HOME
+
+torch.set_num_threads(1)
+
+TS = 0.01
+N_TICKS = 15
+BATCH = 4
+# float64 closed loop: the two implementations differ only in summation
+# order, so states agree to roundoff amplified over 15 ticks
+STATE_TOL = 1e-8
+
+JAX_CFG = JaxSQPConfig(max_iter=1, rti=True, qp_solver="riccati_struct",
+                       kin_backend="xla", mani_grad="analytic",
+                       ipm_warm_start=True, ipm_max_iter=25)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    from __graft_entry__ import _build_problem
+    track, params, _, sel_nn, env_nn, carry, _, u0, obs = _build_problem(
+        jnp.float64, small=False)
+    np_tree = lambda t: jax.tree.map(np.asarray, t)
+    port = dict(track=convert.track(np_tree(track)),
+                params=convert.mpcc_params(np_tree(params)),
+                sel_nn=convert.mlp(np_tree(sel_nn)),
+                env_nn=convert.mlp(np_tree(env_nn)))
+    rng = np.random.default_rng(7)
+    x0 = X0_HOME[None] + 0.01 * rng.standard_normal((BATCH, 9))
+    x0[:, 7:] = np.abs(x0[:, 7:])
+    return (track, params, sel_nn, env_nn, carry, u0, obs), port, x0
+
+
+def test_mpc_step_matches_jax_closed_loop(problem):
+    (track, params, sel_nn, env_nn, carry0, u0, obs), port, x0 = problem
+    step = jax.jit(lambda c, x, u: jax_mpc_step(
+        track, params, sel_nn, env_nn, c, x, u, obs,
+        jnp.asarray(0.0, jnp.float64), ts=TS, cfg=JAX_CFG))
+
+    carries = [carry0] * BATCH
+    xj = [jnp.asarray(x0[i]) for i in range(BATCH)]
+    uj = [u0] * BATCH
+    dt = torch.float64
+    carry = init_carry(BATCH, dt)
+    x = torch.tensor(x0, dtype=dt)
+    u = torch.zeros(BATCH, 8, dtype=dt)
+    obs_t = torch.tensor(np.asarray(obs), dtype=dt).expand(BATCH, 3)
+    rad = torch.zeros(BATCH, dtype=dt)
+    cfg = SQPConfig()
+    for t in range(N_TICKS):
+        carry, out = mpc_step(port["track"], port["params"], port["sel_nn"],
+                              port["env_nn"], carry, x, u, obs_t, rad,
+                              ts=TS, cfg=cfg)
+        u = out.u0
+        x = sim_time_step(out.x0_updated, u, TS)
+        for i in range(BATCH):
+            carries[i], oj = step(carries[i], xj[i], uj[i])
+            uj[i] = oj.u0
+            xj[i] = jdyn.sim_time_step(oj.x0_updated, oj.u0, TS)
+            assert bool(out.ok[i]) == bool(oj.ok), (t, i)
+            assert int(out.status[i]) == int(oj.status), (t, i)
+            assert int(out.qp_iters[i]) == int(oj.qp_iters), (t, i)
+        x_ref = np.stack([np.asarray(v) for v in xj])
+        gap = float(np.abs(x.numpy() - x_ref).max())
+        assert gap < STATE_TOL, (t, gap)
+    assert bool(out.ok.all())
+    # the loop made progress along the track
+    assert float(x[:, 7].min()) > float(torch.tensor(x0[:, 7]).min())
+
+
+def test_rti_passes_oracle_conformance_gate():
+    """The port's RTI closed loop against the converged numpy oracle, 100
+    ticks, float64, held to the envelope of the JAX package's gate
+    (tests/test_rti.py) at that gate's IPM settings: cold interior-point
+    start, at most 40 Newton iterations.  (With the slice's interior-point
+    warm start both packages reach worst_q 8.5e-4 on this loop.)"""
+    import tests.test_conformance_oracle as tco
+    from tests.oracle import nlp, solver as osol
+    params, track, tr_o, p_o, sel_o, env_o, sel_j, env_j = \
+        tco.setup.__wrapped__()
+    np_tree = lambda t: jax.tree.map(np.asarray, t)
+    ptrack = convert.track(np_tree(track))
+    pparams = convert.mpcc_params(np_tree(params))
+    psel, penv = convert.mlp(np_tree(sel_j)), convert.mlp(np_tree(env_j))
+    cfg = SQPConfig(ipm_warm_start=False, ipm_max_iter=40)
+    mpc_o = osol.OracleMPC(tr_o, p_o, sel_o, env_o, ts=tco.TS)
+    dt = torch.float64
+    carry = init_carry(1, dt)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=dt)
+    rad = torch.zeros(1, dtype=dt)
+    x_o, u_o = tco.X0.copy(), np.zeros(8)
+    x_p, u_p = torch.tensor(tco.X0[None]), torch.zeros(1, 8, dtype=dt)
+    worst = np.zeros(3)
+    for i in range(100):
+        ok_o, x_upd, u_o, _, _ = mpc_o.step(x_o, u_o)
+        x_o = nlp.sim_time_step(x_upd, u_o, tco.TS)
+        carry, out = mpc_step(ptrack, pparams, psel, penv, carry, x_p, u_p,
+                              obs, rad, ts=tco.TS, cfg=cfg)
+        u_p = out.u0
+        x_p = torch.tensor(nlp.sim_time_step(
+            out.x0_updated[0].numpy(), u_p[0].numpy(), tco.TS))[None]
+        assert ok_o and bool(out.ok[0]), i
+        d = np.abs(x_o - x_p[0].numpy())
+        worst = np.maximum(worst, [d[:7].max(), d[7], d[8]])
+    assert worst[0] < 7.5e-4, worst
+    assert worst[1] < 2.5e-4, worst
+    assert worst[2] < 4e-3, worst
+    assert x_o[7] > 0.15 and float(x_p[0, 7]) > 0.15
+
+
+@pytest.mark.parametrize("change", [
+    dict(qp_assembly="pallas"), dict(ipm_scheme="mehrotra"),
+    dict(qp_solver="admm"), dict(do_SOC=True), dict(line_search="merit"),
+    dict(use_BFGS=True), dict(fleet_mode=True), dict(rti=False),
+    dict(nn_bf16=True), dict(mani_grad="fd"), dict(qp_solver="riccati"),
+    dict(kin_backend="xla"), dict(ipm_interpret=True)],
+    ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_off_slice_settings_raise(change):
+    """A setting the port does not run yet raises; none is ignored."""
+    import dataclasses
+    from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
+    check_supported(SQPConfig())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        check_supported(dataclasses.replace(SQPConfig(), **change))
+
+
+def test_warm_start_helpers_match_jax():
+    """Horizon shift (with the x[N-1] <- x[N-2] quirk), cold start and the
+    s unwrap, float64."""
+    from mpcc_manipulator_tpu import mpc as jmpc
+    from mpcc_manipulator_tpu_torch import mpc as pmpc
+    rng = np.random.default_rng(9)
+    z = rng.standard_normal((3, 179))
+    x0 = rng.standard_normal((3, 9))
+    ref = jax.vmap(lambda a, b: jmpc._unwrap_s(
+        jmpc._shift_warm_start(a, b, TS), 0.5))(jnp.asarray(z),
+                                                 jnp.asarray(x0))
+    got = pmpc._unwrap_s(pmpc._shift_warm_start(
+        torch.tensor(z), torch.tensor(x0), TS), torch.tensor(0.5))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-12)
+    ref = jax.vmap(lambda b: jmpc._cold_start(b, jnp.float64))(
+        jnp.asarray(x0))
+    assert np.array_equal(pmpc._cold_start(torch.tensor(x0)).numpy(),
+                          np.asarray(ref))
+
+
+def test_build_problem_matches_jax(problem):
+    """The port's own problem builder gives the JAX builder's track,
+    parameters and networks."""
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    _, port, _ = problem
+    track, params, sel_nn, env_nn = build_problem(torch.float64)
+    for name in ("sx", "sy", "sz", "sr"):
+        mine, ref = getattr(track, name), getattr(port["track"], name)
+        for f in ("a", "b", "c", "d", "r", "omega"):
+            if hasattr(ref, f):
+                np.testing.assert_allclose(getattr(mine, f).numpy(),
+                                           getattr(ref, f).numpy(),
+                                           rtol=0, atol=1e-12)
+    np.testing.assert_allclose(track.s_knots.numpy(),
+                               port["track"].s_knots.numpy(), rtol=0,
+                               atol=1e-12)
+    assert torch.equal(params.cost.q_c, port["params"].cost.q_c)
+    for a, b in zip(env_nn.layers, port["env_nn"].layers):
+        assert torch.equal(a.weight, b.weight)
