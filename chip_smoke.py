@@ -5,16 +5,30 @@
 Phases (the first failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA device -> fail;
-2. build the CUDA kernels from ``mpcc_manipulator_tpu_torch/csrc``;
+2. build the CUDA kernels from ``mpcc_manipulator_tpu_torch/csrc`` (one
+   nvcc per source, all at once);
 3. K4 (kinematics sweep) against its plain PyTorch version at (1024, 11, 7);
 4. K1 (interior-point QP solve) against its plain version on the StageQPK of
    1024 perturbed home states, cold and warm started;
-5. the closed loop: 1024 scenarios x 30 ticks of ``mpc_step`` + the plant
-   step; every lane ok every tick, finite states, s strictly increasing
-   once the start transient has passed, and each kernel launched once per
-   tick;
-6. 8 of those lanes for 10 ticks through the plain path on the CPU in
-   float64, held to the repo's closed-loop envelope.
+5. K2 (stage-QP assembly) against its plain version at 1024 lanes, every
+   block: on the main path's track at the first tick's iterate and at a
+   0.02-perturbed trial point, then in the three regions of the JAX kernel
+   test (interior, endpoint and taper, obstacle near with the weight
+   scheduling firing); NaN iterates propagating as in the plain version;
+6. K3 (line-search evaluation) against its plain version at 1024 lanes at
+   0.02-perturbed iterates, one candidate and five candidates per lane, on
+   the main path's track and in the three regions;
+7. the main path, the default configuration (RTI, K1-K4): 1024 scenarios x
+   30 ticks of ``mpc_step`` + the plant step; every lane ok every tick,
+   finite states, s strictly increasing once the start transient has
+   passed, and each kernel launched once per tick;
+8. the converged mode (``rti=False, max_iter=20``): 1024 x 10 ticks, then 3
+   ticks each with the second-order correction and with the merit line
+   search; every lane ok, and each kernel launched as often as the SQP
+   iterations run call for;
+9. 8 lanes through the plain path on the CPU in float64, held to the
+   repo's closed-loop envelope: the RTI loop closed loop (10 ticks), the
+   converged loop tick by tick from the GPU run's inputs (5 ticks).
 
 The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -22,6 +36,7 @@ The line before last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -41,6 +56,18 @@ CHECK_TICKS = 10
 S_RISING_FROM = 15     # tick from which s must rise on every lane
 K4_SINGULAR_BELOW = 0.01   # the controller's singularity buffer (tol_sing)
 K1_LAM_WELL_POSED = 100.0  # duals above sit on the clamped s-row margin
+# K2 / K3: the JAX kernel tests' float32 contract
+# (tests/test_pallas_assembly.py: 5e-4 x max(1, max|block|); rtol = atol)
+K23_TOL = 5e-4
+CANDIDATES = 5         # the merit line search's step lengths
+COST_WEIGHTS = ("q_c", "q_l", "q_vs", "q_ori", "q_sing", "r_dq", "r_ddq",
+                "r_dVs")
+# NaN iterates: (lane, index in z) -- s of knot 4, and dq_3 of u_6
+NAN_ENTRIES = [(17, 4 * 9 + 7), (33, 11 * 9 + 6 * 8 + 2)]
+CONVERGED = dict(rti=False, max_iter=20)   # the bench's MPCC_RTI=0 run
+CONV_TICKS = 10
+OPTION_TICKS = 3
+CONV_CHECK_TICKS = 5
 # closed-loop envelope of the repo (tests/test_rti.py: RTI vs the oracle)
 ENVELOPE = {"q": 7.5e-4, "s": 2.5e-4, "vs": 4e-3}
 
@@ -75,6 +102,24 @@ def check_close(name, got, ref, atol, rtol=0.0) -> float:
             f"{name}: max |err| {float(err.max()):.3e} exceeds atol {atol} "
             f"rtol {rtol}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def kernel_wrappers() -> dict:
+    from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
+        build_qp_stages_k_kernel, eval_point_kernel)
+    from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import solve_qp_ipm_k
+    return {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
+            "K3": eval_point_kernel, "K4": kin_sweep}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def perturbed_states(batch: int, dtype, device) -> torch.Tensor:
@@ -122,22 +167,68 @@ def phase_k4(device) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def stage_qp_batch(problem, batch, dtype, device):
-    """The StageQPK the first tick builds for ``batch`` perturbed states
-    (cold-start horizon at each state)."""
+def main_path_inputs(problem, device):
+    """The first tick's iterate on the main path's own track, float32:
+    ``(z, trial z, candidates, current u, RobotData)``.  z is the cold-start
+    horizon at the ``BATCH`` perturbed home states; the trial points are
+    z + 0.02 N(0,1) and the candidates ``CANDIDATES`` such draws per lane
+    (so the inputs, their rates and the smoothness pair are non-zero);
+    current u is 0.02 N(0,1); the RobotData is z's, as the SQP loop holds
+    it for every iterate of a tick."""
     from mpcc_manipulator_tpu_torch.mpc import _cold_start, _unwrap_s
-    from mpcc_manipulator_tpu_torch.ocp import qp_data, qp_stages
+    from mpcc_manipulator_tpu_torch.ocp import qp_data
     from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
-    track, params, sel_nn, env_nn = problem
-    x0 = perturbed_states(batch, dtype, device)
-    z0 = _unwrap_s(_cold_start(x0), track.length)
-    xs0, _ = qp_data.split_z(z0)
-    obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=dtype, device=device)
-    rb = compute_robot_data(xs0[..., :7].contiguous(), obs.expand(batch, 3),
-                            torch.zeros(batch, dtype=dtype, device=device),
-                            sel_nn, env_nn)
-    u0 = torch.zeros(batch, 8, dtype=dtype, device=device)
-    return qp_stages.build_qp_stages_k(track, z0, rb, params, u0, TS)
+    track, _, sel_nn, env_nn = problem
+    f32 = dict(dtype=torch.float32, device=device)
+    x0 = perturbed_states(BATCH, torch.float32, device)
+    z = _unwrap_s(_cold_start(x0), track.length)
+    rng = np.random.default_rng(SEED + 11)
+    draw = lambda *shape: torch.tensor(0.02 * rng.standard_normal(shape),
+                                       **f32)
+    zt = z + draw(*z.shape)
+    zc = z[:, None] + draw(BATCH, CANDIDATES, z.shape[-1])
+    cu = draw(BATCH, 8)
+    xs, _ = qp_data.split_z(z)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], **f32)
+    rb = compute_robot_data(xs[..., :7].contiguous(), obs.expand(BATCH, 3),
+                            torch.zeros(BATCH, **f32), sel_nn, env_nn)
+    return z, zt, zc, cu, rb
+
+
+def single_term_params(problem, device) -> list:
+    """``(weight, params)`` for each cost weight: the main path's
+    parameters with every other weight zero and this one scaled so that its
+    term's median over the main path's trial points is 10 in magnitude.  A
+    kernel that drops or misweights one term then fails the contract even
+    where the full objective hides it (the input costs are ~1e-4 of it)."""
+    from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
+        eval_point_plain)
+    track, params = problem[:2]
+    _, zt, _, cu, rb = main_path_inputs(problem, device)
+    cost = params.cost
+    zero = {w: torch.zeros_like(getattr(cost, w)) for w in COST_WEIGHTS}
+    alone = lambda w, scale: dataclasses.replace(
+        params, cost=dataclasses.replace(
+            cost, **{**zero, w: getattr(cost, w) * scale}))
+    out = []
+    for w in COST_WEIGHTS:
+        med = abs(float(eval_point_plain(track, zt, rb, alone(w, 1.0), cu,
+                                         TS)[0].median()))
+        if not med > 0.0:
+            raise AssertionError(f"K2/K3: the {w} term is zero on the main "
+                                 "path's trial points")
+        out.append((w, alone(w, 10.0 / med)))
+    return out
+
+
+def stage_qp_batch(problem, device):
+    """The StageQPK the first tick builds for the ``BATCH`` perturbed states
+    (cold-start horizon at each state, current u zero)."""
+    from mpcc_manipulator_tpu_torch.ocp import qp_stages
+    track, params = problem[:2]
+    z, _, _, _, rb = main_path_inputs(problem, device)
+    u0 = torch.zeros(BATCH, 8, dtype=torch.float32, device=device)
+    return qp_stages.build_qp_stages_k(track, z, rb, params, u0, TS)
 
 
 def compare_ipm(label, sol, ref) -> float:
@@ -173,7 +264,7 @@ def compare_ipm(label, sol, ref) -> float:
 def phase_k1(problem, device) -> dict:
     from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
         solve_qp_ipm_k, solve_qp_ipm_plain)
-    qpk = stage_qp_batch(problem, BATCH, torch.float32, device)
+    qpk = stage_qp_batch(problem, device)
     cold = solve_qp_ipm_k(qpk)
     cold_ref = solve_qp_ipm_plain(qpk)
     torch.cuda.synchronize()
@@ -197,24 +288,272 @@ def phase_k1(problem, device) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def closed_loop(problem, x0, ticks):
+# ------------------------------------------------------------ K2 and K3
+
+
+def assembly_problem(device):
+    """The JAX kernel test's problem (`tests/test_pallas_assembly.py`): a
+    circle around the home EE position with the identity orientation, so
+    the heading error sits near pi and the rotation log's near-pi branch
+    fires on some knots."""
+    from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
+    from mpcc_manipulator_tpu_torch.models import kinematics as kin
+    from mpcc_manipulator_tpu_torch.params import load_params
+    from mpcc_manipulator_tpu_torch.splines import arc_length as als
+    x0 = np.array([0., 0., 0., -np.pi / 2, 0., np.pi / 2, np.pi / 4, 0.05,
+                   0.1])
+    ee = kin.ee_position(torch.tensor(x0[:7])).numpy()
+    nt = 60
+    phi = np.linspace(0, 2 * np.pi, nt)
+    track = als.gen_6d_spline(
+        np.linspace(0, 0.3, nt) + ee[0], 0.15 * np.cos(phi) - 0.15 + ee[1],
+        0.15 * np.sin(phi) + ee[2], np.tile(np.eye(3), (nt, 1, 1)),
+        dtype=torch.float32, device=device)
+    params, _ = load_params(dtype=torch.float32, device=device)
+    nets = (cnn.load_self_collision_nn(dtype=torch.float32, device=device),
+            cnn.load_env_collision_nn(dtype=torch.float32, device=device))
+    return track, params, nets, x0, ee
+
+
+def region_inputs(aproblem, region: str, device):
+    """(z, trial z, current u, RobotData) for ``BATCH`` lanes of a region,
+    the JAX test's draw: home state + 0.002 N(0,1), each lane's knot s
+    pinned to the region (spread by 0.003 per knot)."""
+    from mpcc_manipulator_tpu_torch.ocp import qp_data
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    track, _, (sel_nn, env_nn), x0, ee = aproblem
+    length = float(track.length)
+    s_values, obs, radius = {
+        "interior": ([0.05, 0.3, 0.6], [3.0, 3.0, 3.0], 0.0),
+        "endpoint_taper": ([length - 0.05, length - 0.005, length + 0.1],
+                           [3.0, 3.0, 3.0], 0.0),
+        "obstacle_scheduling": ([0.02, 0.1, 0.2],
+                                [ee[0] + 0.18, ee[1], ee[2]], 5.0),
+    }[region]
+    rng = np.random.default_rng(SEED + 7)
+    z = (np.tile(np.concatenate([np.tile(x0, 11), np.zeros(80)]), (BATCH, 1))
+         + 0.002 * rng.standard_normal((BATCH, 179)))
+    lane = np.arange(BATCH)
+    for k in range(11):
+        z[:, k * 9 + 7] = np.asarray(s_values)[lane % 3] + 0.003 * k
+        if region == "obstacle_scheduling":
+            # every third lane's wrist near-singular (m ~ 0.018): the
+            # proximity weight scheduling fires there
+            z[lane % 3 == 0, k * 9 + 5] = 0.05
+    zt = z + 0.02 * rng.standard_normal(z.shape)
+    cu = 0.02 * rng.standard_normal((BATCH, 8))
+    f32 = dict(dtype=torch.float32, device=device)
+    z, zt, cu = (torch.tensor(a, **f32) for a in (z, zt, cu))
+    xs, _ = qp_data.split_z(z)
+    rb = compute_robot_data(xs[..., :7].contiguous(),
+                            torch.tensor(obs, **f32).expand(BATCH, 3),
+                            torch.full((BATCH,), radius, **f32), sel_nn,
+                            env_nn)
+    return z, zt, cu, rb
+
+
+REGIONS = ("interior", "endpoint_taper", "obstacle_scheduling")
+
+
+def k2_cases(problem, aproblem, device):
+    """(label, track, params, z, current u, RobotData): the main path's
+    iterate and trial point on its own track, whose objective and blocks
+    are O(10) (the circle track's heading error near pi scales them by
+    ~q_ori pi^2), the trial point with one cost term at a time, then the
+    three regions of the JAX kernel test."""
+    z, zt, _, cu, rb = main_path_inputs(problem, device)
+    yield "main path", *problem[:2], z, cu, rb
+    yield "main path trial", *problem[:2], zt, cu, rb
+    for w, params in single_term_params(problem, device):
+        yield f"main path trial, {w} alone", problem[0], params, zt, cu, rb
+    for region in REGIONS:
+        z, _, cu, rb = region_inputs(aproblem, region, device)
+        yield region, *aproblem[:2], z, cu, rb
+
+
+def phase_k2(problem, aproblem, device) -> dict:
+    from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
+        build_qp_stages_k_kernel, build_qp_stages_k_plain)
+    err = 0.0
+    for region, track, params, z, cu, rb in k2_cases(problem, aproblem,
+                                                     device):
+        m = params.model
+        got = build_qp_stages_k_kernel(track, z, rb, params, cu, TS)
+        ref = build_qp_stages_k_plain(track, z, rb, params, cu, TS)
+        torch.cuda.synchronize()
+        worst = (0.0, "")
+        for f in dataclasses.fields(ref):
+            r, g = getattr(ref, f.name), getattr(got, f.name)
+            if g.shape != r.shape or not g.is_contiguous():
+                raise AssertionError(f"K2 {f.name}: {tuple(g.shape)}, "
+                                     f"expected contiguous {tuple(r.shape)}")
+            scale = max(1.0, float(r.abs().max()))
+            e = check_close(f"K2 {region} {f.name}", g, r, K23_TOL * scale)
+            err = max(err, e)
+            worst = max(worst, (e / scale, f.name))
+        ratio = torch.minimum(rb.sel_dist / (m.tol_selcol * 2.0),
+                              rb.manipul / (m.tol_sing * 2.0))
+        env_h = (0.01 * (rb.env_dist - 1.2 * rb.obs_radius[..., None])
+                 - 0.01 * m.tol_envcol)
+        print(f"K2 vs plain, {region}, {BATCH} lanes: every block within "
+              f"{K23_TOL} x max(1, max|block|); worst {worst[1]} "
+              f"{worst[0]:.3e} of its scale; "
+              f"min scheduling ratio {float(ratio.min()):.3f}, min env h "
+              f"{float(env_h.min()):.4f}")
+        if region == "obstacle_scheduling" and not (
+                float(ratio.min()) < 1.0 and float(env_h.min()) < 0.0):
+            raise AssertionError("K2: the obstacle region does not fire the "
+                                 "scheduling and the env barrier")
+
+    # NaN iterates reach every output the plain version's NaN reaches
+    track, params = aproblem[:2]
+    z, _, cu, rb = region_inputs(aproblem, "interior", device)
+    z_nan = z.clone()
+    for lane, idx in NAN_ENTRIES:
+        z_nan[lane, idx] = float("nan")
+    got = build_qp_stages_k_kernel(track, z_nan, rb, params, cu, TS)
+    ref = build_qp_stages_k_plain(track, z_nan, rb, params, cu, TS)
+    torch.cuda.synchronize()
+    lanes = torch.tensor([lane for lane, _ in NAN_ENTRIES], device=device)
+    n_nan = 0
+    for f in dataclasses.fields(ref):
+        rn = torch.isnan(getattr(ref, f.name)[lanes])
+        gn = torch.isnan(getattr(got, f.name)[lanes])
+        if bool((rn & ~gn).any()):
+            raise AssertionError(f"K2 NaN: {f.name} finite where the plain "
+                                 "version is NaN")
+        n_nan += int(rn.sum())
+    guard = ("hxx", "gx", "cpx", "d_p", "d_xu", "d_xl")
+    for i in range(len(NAN_ENTRIES)):
+        if not any(bool(torch.isnan(getattr(got, f)[lanes[i]]).any())
+                   for f in guard):
+            raise AssertionError("K2 NaN: the SQP's NaN guard would not see "
+                                 f"lane {int(lanes[i])}")
+    print(f"K2 NaN iterates (lanes {lanes.tolist()}): NaN on all {n_nan} "
+          "entries where the plain version is NaN; the NaN guard's blocks "
+          "carry it")
+
+    track, params = problem[:2]
+    z, _, _, cu, rb = main_path_inputs(problem, device)
+    ms = cuda_time(lambda: build_qp_stages_k_kernel(track, z, rb, params, cu,
+                                                    TS), 50)
+    plain_ms = cuda_time(lambda: build_qp_stages_k_plain(track, z, rb, params,
+                                                         cu, TS), 10)
+    print(f"K2 assembly at batch {BATCH} (main path): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    return {"name": "K2 stage-QP assembly (build_qp_stages_k_kernel)",
+            "route": "cuda",
+            "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
+            "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:290",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_k3(label, got, ref) -> float:
+    """K3's (obj, vio) against the plain version's, rtol = atol; prints the
+    case's error and the objective's scale, which sets the tolerance."""
+    (obj, vio), (robj, rvio) = got, ref
+    err = max(check_close(f"K3 {label} obj", obj, robj, K23_TOL, K23_TOL),
+              check_close(f"K3 {label} vio", vio, rvio, K23_TOL, K23_TOL))
+    print(f"K3 vs plain, {label}: max|err| {err:.3e}; objective median "
+          f"{float(robj.median()):.3f}, max {float(robj.max()):.3f}; max "
+          f"violation {float(rvio.max()):.3f}")
+    return err
+
+
+def phase_k3(problem, aproblem, device) -> dict:
+    from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
+        eval_point_kernel, eval_point_plain)
+    # the main path: trial points and the candidate axis (CANDIDATES
+    # iterates per lane against the lane's one RobotData) on its own track
+    track, params = problem[:2]
+    _, zt_main, zc_main, cu_main, rb_main = main_path_inputs(problem, device)
+    got = eval_point_kernel(track, zt_main, rb_main, params, cu_main, TS)
+    ref = eval_point_plain(track, zt_main, rb_main, params, cu_main, TS)
+    err = check_k3("main path trial", got, ref)
+    vio_max = float(ref[1].max())
+    got = eval_point_kernel(track, zc_main, rb_main, params, cu_main, TS)
+    ref = eval_point_plain(track, zc_main, rb_main, params, cu_main, TS)
+    err = max(err, check_k3(f"main path x{CANDIDATES} candidates", got, ref))
+    for w, p_w in single_term_params(problem, device):
+        err = max(err, check_k3(
+            f"main path trial, {w} alone",
+            eval_point_kernel(track, zt_main, rb_main, p_w, cu_main, TS),
+            eval_point_plain(track, zt_main, rb_main, p_w, cu_main, TS)))
+    # the three regions of the JAX kernel test, and a candidate axis there
+    track, params = aproblem[:2]
+    for region in REGIONS:
+        _, zt, cu, rb = region_inputs(aproblem, region, device)
+        ref = eval_point_plain(track, zt, rb, params, cu, TS)
+        err = max(err, check_k3(region, eval_point_kernel(
+            track, zt, rb, params, cu, TS), ref))
+        vio_max = max(vio_max, float(ref[1].max()))
+    if not vio_max > 0.1:
+        raise AssertionError(f"K3: the perturbation does not violate "
+                             f"(max violation {vio_max:.3e})")
+    _, zt, cu, rb = region_inputs(aproblem, "interior", device)
+    rng = torch.Generator(device=device).manual_seed(SEED)
+    zc = (zt[:, None] + 0.01 * torch.randn(BATCH, CANDIDATES, zt.shape[-1],
+                                           generator=rng, device=device))
+    err = max(err, check_k3(
+        f"interior x{CANDIDATES} candidates",
+        eval_point_kernel(track, zc, rb, params, cu, TS),
+        eval_point_plain(track, zc, rb, params, cu, TS)))
+    # NaN iterates reach the objective or the violation as in the plain
+    z_nan = zt.clone()
+    for lane, idx in NAN_ENTRIES:
+        z_nan[lane, idx] = float("nan")
+    got = eval_point_kernel(track, z_nan, rb, params, cu, TS)
+    ref = eval_point_plain(track, z_nan, rb, params, cu, TS)
+    for g, r in zip(got, ref):
+        if bool((torch.isnan(r) & ~torch.isnan(g)).any()):
+            raise AssertionError("K3 NaN: finite where the plain version is "
+                                 "NaN")
+    torch.cuda.synchronize()
+    track, params = problem[:2]
+    main = (rb_main, params, cu_main, TS)
+    ms = cuda_time(lambda: eval_point_kernel(track, zt_main, *main), 50)
+    plain_ms = cuda_time(lambda: eval_point_plain(track, zt_main, *main), 10)
+    ms_c = cuda_time(lambda: eval_point_kernel(track, zc_main, *main), 50)
+    plain_ms_c = cuda_time(lambda: eval_point_plain(track, zc_main, *main), 5)
+    print(f"K3 vs plain, main path + 3 regions, {BATCH} lanes: max|err| "
+          f"{err:.3e} (rtol = atol = {K23_TOL}), max violation "
+          f"{vio_max:.3f}; NaN lanes propagate; batch {BATCH} (main path): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; x{CANDIDATES} "
+          f"candidates: kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms")
+    return {"name": "K3 line-search evaluation (eval_point_kernel)",
+            "route": "cuda",
+            "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
+            "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:756",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+# ------------------------------------------------------------ closed loops
+
+
+def closed_loop(problem, x0, ticks, cfg, record: int = 0):
     """``ticks`` closed-loop ticks from states ``x0``; returns per-tick
-    host times, outputs' ok flags and the plant states."""
+    host times, ok flags, plant states, IPM and SQP iterations, and for the
+    first ``record`` lanes each tick's inputs (state, input, carry) on the
+    CPU."""
     from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
-    from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, init_carry, mpc_step
     track, params, sel_nn, env_nn = problem
     b, dtype, dev = x0.shape[0], x0.dtype, x0.device
     carry = init_carry(b, dtype, dev)
     x, u = x0, torch.zeros(b, 8, dtype=dtype, device=dev)
     obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=dtype, device=dev).expand(b, 3)
     rad = torch.zeros(b, dtype=dtype, device=dev)
-    times, oks, states, iters = [], [], [], []
+    times, oks, states, iters, sqp_iters, inputs = [], [], [], [], [], []
     for _ in range(ticks):
+        if record:
+            inputs.append((x[:record].cpu(), u[:record].cpu(), MPCCarry(**{
+                f.name: getattr(carry, f.name)[:record].cpu()
+                for f in dataclasses.fields(MPCCarry)})))
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry, out = mpc_step(track, params, sel_nn, env_nn, carry, x, u,
-                              obs, rad, ts=TS)
+                              obs, rad, ts=TS, cfg=cfg)
         u = out.u0
         x = sim_time_step(out.x0_updated, u, TS)
         if dev.type == "cuda":
@@ -223,22 +562,27 @@ def closed_loop(problem, x0, ticks):
         oks.append(out.ok.cpu())
         states.append(x.cpu())
         iters.append(out.qp_iters.cpu())
-    return times, torch.stack(oks), torch.stack(states), torch.stack(iters)
+        sqp_iters.append(out.sqp_iters.cpu())
+    return (times, torch.stack(oks), torch.stack(states), torch.stack(iters),
+            torch.stack(sqp_iters), inputs)
+
+
+def check_ok(label, oks, states):
+    if not bool(oks.all()):
+        bad = (~oks).nonzero()[:5].tolist()
+        raise AssertionError(f"{label}: not-ok (tick, lane) e.g. {bad}")
+    if not bool(torch.isfinite(states).all()):
+        raise AssertionError(f"{label}: non-finite states")
 
 
 def phase_closed_loop(problem, device, card):
-    from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
-    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import solve_qp_ipm_k
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
     x0 = perturbed_states(BATCH, torch.float32, device)
-    kin_sweep.launches = 0
-    solve_qp_ipm_k.launches = 0
-    times, oks, states, iters = closed_loop(problem, x0, TICKS)
-    launches = {"K4": kin_sweep.launches, "K1": solve_qp_ipm_k.launches}
-    if not bool(oks.all()):
-        bad = (~oks).nonzero()[:5].tolist()
-        raise AssertionError(f"closed loop: not-ok (tick, lane) e.g. {bad}")
-    if not bool(torch.isfinite(states).all()):
-        raise AssertionError("closed loop: non-finite states")
+    reset_counts()
+    times, oks, states, iters, _, _ = closed_loop(problem, x0, TICKS,
+                                                  SQPConfig())
+    launches = read_counts()
+    check_ok("closed loop", oks, states)
     # The perturbed start puts the EE up to ~1 cm off the track, and the
     # per-tick projection may move s back while contouring pulls the arm
     # in (measured on the CPU in float32: 283 of 1024 lanes at the first
@@ -255,9 +599,9 @@ def phase_closed_loop(problem, device, card):
             raise AssertionError(f"closed loop: {name} launched {n} times "
                                  f"in {TICKS} ticks")
     med = statistics.median(times[1:])
-    print(f"closed loop {BATCH} x {TICKS} ticks on {card}: all ok; "
-          f"median tick {med * 1e3:.3f} ms (first {times[0] * 1e3:.1f} ms), "
-          f"{BATCH / med:.1f} solves/s; mean IPM iters "
+    print(f"closed loop (RTI, K1-K4) {BATCH} x {TICKS} ticks on {card}: all "
+          f"ok; median tick {med * 1e3:.3f} ms (first {times[0] * 1e3:.1f} "
+          f"ms), {BATCH / med:.1f} solves/s; mean IPM iters "
           f"{iters.float().mean():.2f}, max {int(iters.max())}; "
           f"non-increasing s lane-ticks {int(back.sum())}; "
           f"s {float(s[0].mean()):.5f} -> {float(s[-1].mean()):.5f}; "
@@ -265,24 +609,97 @@ def phase_closed_loop(problem, device, card):
     return x0, states, launches
 
 
-def phase_cpu_check(x0_gpu, states_gpu):
+def phase_converged(problem, x0, card):
+    """The converged mode and its two options; each run's kernel launches
+    against the SQP iterations it ran (the loop runs until its slowest
+    lane is done)."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    runs = [("converged", dict(), CONV_TICKS, dict(K1=1, K2=1, K3=1)),
+            ("converged + SOC", dict(do_SOC=True), OPTION_TICKS,
+             dict(K1=2, K2=1, K3=1)),
+            ("converged + merit", dict(line_search="merit"), OPTION_TICKS,
+             dict(K1=1, K2=1, K3=2))]
+    conv = None
+    for label, change, ticks, per_iter in runs:
+        reset_counts()
+        times, oks, states, iters, sqp_iters, inputs = closed_loop(
+            problem, x0, ticks, SQPConfig(**CONVERGED, **change),
+            record=CHECK_LANES if conv is None else 0)
+        launches = read_counts()
+        check_ok(label, oks, states)
+        run_iters = int(sqp_iters.max(1).values.sum())
+        want = {k: per_iter[k] * run_iters for k in per_iter}
+        want["K4"] = ticks
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{want} for {run_iters} SQP iterations")
+        med = statistics.median(times[1:])
+        print(f"{label} {BATCH} x {ticks} ticks on {card}: all ok; SQP "
+              f"iterations per lane-tick mean "
+              f"{sqp_iters.float().mean():.3f}, max {int(sqp_iters.max())}; "
+              f"{run_iters} run; mean IPM iters per lane-tick "
+              f"{iters.float().mean():.2f}; median tick {med * 1e3:.3f} ms; "
+              f"launches {launches}")
+        if conv is None:
+            conv = (states, inputs)
+    return conv
+
+
+def envelope_gaps(label, states, states_gpu) -> None:
+    d = (states - states_gpu.to(torch.float64)).abs()
+    gaps = {"q": float(d[..., :7].max()), "s": float(d[..., 7].max()),
+            "vs": float(d[..., 8].max())}
+    print(f"CPU float64 cross-check ({label}), {d.shape[1]} lanes x "
+          f"{d.shape[0]} ticks: max |dq| {gaps['q']:.3e}, |ds| "
+          f"{gaps['s']:.3e}, |dvs| {gaps['vs']:.3e} (envelope {ENVELOPE})")
+    for k, v in gaps.items():
+        if not v < ENVELOPE[k]:
+            raise AssertionError(f"CPU float64 check ({label}): |d {k}| "
+                                 f"{v:.3e} >= {ENVELOPE[k]}")
+
+
+def phase_cpu_check_rti(x0_gpu, states_gpu):
+    """The RTI loop, closed loop from the same states."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
     from mpcc_manipulator_tpu_torch.problem import build_problem
     problem64 = build_problem(torch.float64, "cpu")
     x0 = x0_gpu[:CHECK_LANES].cpu().to(torch.float64)
-    _, oks, states, _ = closed_loop(problem64, x0, CHECK_TICKS)
+    _, oks, states, _, _, _ = closed_loop(problem64, x0, CHECK_TICKS,
+                                          SQPConfig())
     if not bool(oks.all()):
-        raise AssertionError("CPU float64 check: a lane was not ok")
-    d = (states - states_gpu[:CHECK_TICKS, :CHECK_LANES].to(torch.float64)
-         ).abs()
-    gaps = {"q": float(d[..., :7].max()), "s": float(d[..., 7].max()),
-            "vs": float(d[..., 8].max())}
-    for k, v in gaps.items():
-        if not v < ENVELOPE[k]:
-            raise AssertionError(f"CPU float64 check: |d {k}| {v:.3e} >= "
-                                 f"{ENVELOPE[k]}")
-    print(f"CPU float64 cross-check, {CHECK_LANES} lanes x {CHECK_TICKS} "
-          f"ticks: max |dq| {gaps['q']:.3e}, |ds| {gaps['s']:.3e}, "
-          f"|dvs| {gaps['vs']:.3e} (envelope {ENVELOPE})")
+        raise AssertionError("CPU float64 check (RTI): a lane was not ok")
+    envelope_gaps("RTI, closed loop", states,
+                  states_gpu[:CHECK_TICKS, :CHECK_LANES])
+
+
+def phase_cpu_check_converged(inputs, states_gpu):
+    """The converged loop, tick by tick: each float64 tick starts from the
+    GPU run's state, input and carry of that tick.  (Closed loop the two
+    drift apart: from the second SQP iteration on, the filter compares
+    violations that are roundoff -- ~1e-16 in float64, ~1e-7 in float32 --
+    so the two precisions accept different steps; measured on the CPU,
+    float32 against float64 on 8 lanes x 5 ticks: |dq| 9.0e-4, |ds| 5.9e-4,
+    |dvs| 2.7e-2, against 4.7e-4, 5.2e-7, 1.0e-4 tick by tick.)"""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    problem64 = build_problem(torch.float64, "cpu")
+    f64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
+    obs = torch.tensor([[3.0, 3.0, 3.0]] * CHECK_LANES, dtype=torch.float64)
+    rad = torch.zeros(CHECK_LANES, dtype=torch.float64)
+    states = []
+    for x, u, carry in inputs[:CONV_CHECK_TICKS]:
+        carry64 = MPCCarry(**{f.name: f64(getattr(carry, f.name))
+                              for f in dataclasses.fields(MPCCarry)})
+        _, out = mpc_step(*problem64, carry64, f64(x), f64(u), obs, rad,
+                          ts=TS, cfg=SQPConfig(**CONVERGED))
+        if not bool(out.ok.all()):
+            raise AssertionError("CPU float64 check (converged): a lane was "
+                                 "not ok")
+        states.append(sim_time_step(out.x0_updated, out.u0, TS))
+    envelope_gaps("converged, tick by tick", torch.stack(states),
+                  states_gpu[:CONV_CHECK_TICKS, :CHECK_LANES])
 
 
 def main() -> int:
@@ -307,11 +724,16 @@ def main() -> int:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     problem = build_problem(torch.float32, device)
-    kernels = [phase_k4(device), phase_k1(problem, device)]
+    aproblem = assembly_problem(device)
+    kernels = [phase_k1(problem, device),
+               phase_k2(problem, aproblem, device),
+               phase_k3(problem, aproblem, device), phase_k4(device)]
     x0, states, launches = phase_closed_loop(problem, device, card)
-    kernels[0]["launches"] = launches["K4"]
-    kernels[1]["launches"] = launches["K1"]
-    phase_cpu_check(x0, states)
+    for k in kernels:
+        k["launches"] = launches[k["name"][:2]]
+    states_conv, inputs = phase_converged(problem, x0, card)
+    phase_cpu_check_rti(x0, states)
+    phase_cpu_check_converged(inputs, states_conv)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ Per tick and per scenario:
    with every knot at x0 -- both computed, selected per lane;
 4. one RobotData sweep over the N+1 knots (K4 + the collision NNs), frozen
    for the tick;
-5. the RTI SQP iteration (`solver/sqp.py`, K1 inside);
+5. the SQP loop (`solver/sqp.py`: K2, K1 and K3 inside), one iteration
+   under RTI (the default);
 6. the status machine: 5-strike tolerance of MAX_ITER_EXCEEDED.
 
 Everything is batch-first: x0 (B, nx), u0 (B, nu), obs_pos (B, 3),

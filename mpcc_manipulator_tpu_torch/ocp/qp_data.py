@@ -105,6 +105,12 @@ def constraint_values(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     return constr, lvec, uvec
 
 
+def constraint_norm(constr, l, u):
+    """Per-lane l1 violation of ``l <= c <= u``."""
+    return (torch.clamp(l - constr, min=0.0).sum(-1)
+            + torch.clamp(constr - u, min=0.0).sum(-1))
+
+
 def denormalize_step(step: torch.Tensor, params: MPCCParams,
                      system: System = PANDA) -> torch.Tensor:
     """Normalized QP step (B, n_var) -> raw decision-space step."""

@@ -59,7 +59,9 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
         sel_dist=sel[:, 0].reshape(b, k),
         d_sel_dist=d_sel[:, 0].reshape(b, k, dof),
         env_dist=env.reshape(b, k, n_links),
-        # the joint columns only (the reference slices off the obstacle ones)
-        d_env_dist=d_env_full[:, :, :dof].reshape(b, k, n_links, dof),
+        # the joint columns only (the reference slices off the obstacle
+        # ones), contiguous as K2 and K3 read them
+        d_env_dist=d_env_full[:, :, :dof].reshape(b, k, n_links, dof)
+        .contiguous(),
         obs_radius=obs_radius.to(qs.dtype)[:, None].expand(b, k),
     )

@@ -1,0 +1,300 @@
+"""K2 and K3: the stage-QP assembly and the line-search evaluation as CUDA
+kernels (`csrc/assembly.cu`), replacing the TPU kernels `_assembly_kernel`
+and `_eval_kernel` of `mpcc_manipulator_tpu/ops/pallas_assembly.py`.
+
+:func:`build_qp_stages_k_kernel` assembles the :class:`StageQPK` blocks of
+one SQP iteration; :func:`eval_point_kernel` returns the objective and the
+l1 constraint violation at one iterate per scenario, or at ``A`` candidate
+iterates per scenario (``z`` of shape (B, A, n_var), all against the
+scenario's one RobotData: the merit line search's step lengths).  On CUDA
+tensors each launches its kernel (or raises); on CPU tensors each runs its
+plain version, :func:`build_qp_stages_k_plain` /
+:func:`eval_point_plain`.
+
+The kernels read the track, the parameters and the dynamics from one packed
+float32 table (:func:`pack_tables`), built once per ``(track, params, ts)``
+and cached on the device.  The cache key holds every tensor of the track
+and the parameters by identity and version counter, so a field replaced by
+a new tensor or edited in place builds a new table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ocp import qp_data
+from ..ocp import qp_stages as qps
+from ..ocp.qp_stages import StageQPK
+from ..ocp.robot_data import RobotData
+from ..params import MPCCParams
+from ..splines.arc_length import TrackSpline
+from ..system import PANDA, System
+from . import cuda_build
+
+# scalar slots of the table, in the order `csrc/assembly.cu` reads them
+# (the JAX kernel's `_SC_KEYS` plus r_ddq)
+SC_KEYS = [
+    "delta", "length", "ax_last", "ay_last", "az_last",
+    *[f"r_last_{i}" for i in range(9)],
+    "q_c", "q_c_N_mult", "q_l", "q_vs", "q_ori", "q_sing", "r_dq", "r_dVs",
+    "q_c_red_ratio", "q_l_inc_ratio", "q_ori_red_ratio",
+    "tol_selcol", "tol_sing", "tol_envcol",
+    "v_des", "deacc_ratio", "s_trust", "r_ddq",
+]
+
+
+# Plain PyTorch version of K2 (any device): the plain assembly itself
+build_qp_stages_k_plain = qps.build_qp_stages_k
+
+
+def eval_point_plain(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+                     params: MPCCParams, current_u: torch.Tensor, ts,
+                     system: System = PANDA):
+    """Plain PyTorch version of K3 (any device): ``(objective, l1
+    violation)`` at ``z`` (B, n_var) -> (B,) each, or at ``z`` (B, A,
+    n_var) -> (B, A) each, one candidate at a time."""
+    if z.dim() == 3:
+        outs = [eval_point_plain(track, z[:, a], rb, params, current_u, ts,
+                                 system) for a in range(z.shape[1])]
+        return (torch.stack([o for o, _ in outs], 1),
+                torch.stack([v for _, v in outs], 1))
+    obj = qp_data.total_objective(track, z, rb, params, system=system)
+    constr, lo, hi = qp_data.constraint_values(track, z, rb, params,
+                                               current_u, ts, system)
+    return obj, qp_data.constraint_norm(constr, lo, hi)
+
+
+def pack_tables(track: TrackSpline, params: MPCCParams, ts,
+                system: System = PANDA) -> torch.Tensor:
+    """The kernels' shared float32 table, on the track's device:
+    ``[scalars (SC_KEYS) | t_x | t_u | x_l | x_u | u_l | u_u | ddq_l |
+    ddq_u | Ad (nx*nx) | Bd (nx*nu) | position coefficients (nseg, 12) |
+    rotation table (nseg-1, 14)]``."""
+    m, c, bnd = params.model, params.cost, params.bounds
+    nrm = params.normalization
+    f64 = lambda t: torch.as_tensor(t).detach().to("cpu", torch.float64)
+    r_last = f64(track.sr.r[-1]).reshape(9)
+    scal = dict(
+        delta=track.sx.delta, length=track.length, ax_last=track.sx.a[-1],
+        ay_last=track.sy.a[-1], az_last=track.sz.a[-1],
+        q_c=c.q_c, q_c_N_mult=c.q_c_N_mult, q_l=c.q_l, q_vs=c.q_vs,
+        q_ori=c.q_ori, q_sing=c.q_sing, r_dq=c.r_dq, r_dVs=c.r_dVs,
+        q_c_red_ratio=c.q_c_red_ratio, q_l_inc_ratio=c.q_l_inc_ratio,
+        q_ori_red_ratio=c.q_ori_red_ratio, tol_selcol=m.tol_selcol,
+        tol_sing=m.tol_sing, tol_envcol=m.tol_envcol,
+        v_des=m.desired_ee_velocity, deacc_ratio=m.deacc_ratio,
+        s_trust=m.s_trust_region, r_ddq=c.r_ddq,
+        **{f"r_last_{i}": r_last[i] for i in range(9)})
+    ad, bd = qp_data._discrete_ab(ts, torch.float64, "cpu", system)
+    ptbl = torch.stack([f64(getattr(getattr(track, ch), f))
+                        for ch in ("sx", "sy", "sz")
+                        for f in ("a", "b", "c", "d")], dim=1)
+    nseg = ptbl.shape[0]
+    rtbl = torch.cat([f64(track.sr.r[:nseg - 1]).reshape(nseg - 1, 9),
+                      f64(track.sr.omega), f64(track.sr.c)[:, None],
+                      f64(track.sr.d)[:, None]], dim=1)
+    parts = [torch.stack([f64(scal[k]).reshape(()) for k in SC_KEYS])]
+    parts += [f64(v).reshape(-1) for v in (
+        nrm.t_x, nrm.t_u, bnd.x_l, bnd.x_u, bnd.u_l, bnd.u_u, bnd.ddq_l,
+        bnd.ddq_u, ad, bd, ptbl, rtbl)]
+    return torch.cat(parts).to(torch.float32).to(track.length.device)
+
+
+def _shared_blocks(params: MPCCParams, ts, system: System):
+    """The scenario-independent StageQPK blocks (as in
+    `ocp/qp_stages.py::build_qp_stages_k`): a_sv, bd, tx, tu, t_rate, r2."""
+    tx, tu = params.normalization.t_x, params.normalization.t_u
+    dtype, dev = tx.dtype, tx.device
+    dof, n_h = system.dof, system.horizon
+    tx_inv = params.normalization.t_x_inv
+    tudq = tu[:dof]
+    a_sv = (torch.tensor(float(ts), dtype=dtype, device=dev)
+            * tx[system.vs_idx] * tx_inv[system.s_idx])
+    _, bd_raw = qp_data._discrete_ab(ts, dtype, dev, system)
+    pair_mask = torch.cat([torch.zeros(1, dtype=dtype, device=dev),
+                           torch.ones(n_h - 1, dtype=dtype, device=dev)])
+    r2 = (2.0 * params.cost.r_ddq * pair_mask)[:, None] * (tudq * tudq)[None]
+    return dict(a_sv=a_sv, bd=tx_inv[:, None] * bd_raw * tu[None, :], tx=tx,
+                tu=tu, t_rate=tudq / ts, r2=r2)
+
+
+_CACHE: dict = {}
+
+
+def _stamp(obj, leaves: list):
+    """Hashable state of a tree of dataclasses, each tensor as (identity,
+    version counter); the tensors are appended to ``leaves``, which a cache
+    entry keeps alive so that their identities stay unique."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return id(obj), (-1 if obj.is_inference() else obj._version)
+    if dataclasses.is_dataclass(obj):
+        return tuple(_stamp(getattr(obj, f.name), leaves)
+                     for f in dataclasses.fields(obj))
+    return obj
+
+
+def tables(track: TrackSpline, params: MPCCParams, ts,
+           system: System = PANDA):
+    """(packed table, shared blocks) for this track and parameter state,
+    cached while every tensor of both is the same object at the same
+    version (an inference tensor has no version counter: never cached)."""
+    leaves: list = []
+    key = (_stamp(track, leaves), _stamp(params, leaves), float(ts),
+           system)
+    hit = _CACHE.get(key)
+    if hit is None:
+        hit = (leaves, pack_tables(track, params, ts, system),
+               _shared_blocks(params, ts, system))
+        if not any(t.is_inference() for t in leaves):
+            if len(_CACHE) >= 8:
+                _CACHE.clear()
+            _CACHE[key] = hit
+    return hit[1], hit[2]
+
+
+def _cached(track: TrackSpline, params: MPCCParams, ts, system: System,
+            dev):
+    """:func:`tables`, checked against the kernels' own table length and
+    the device."""
+    tbl, shared = tables(track, params, ts, system)
+    want = cuda_build.library().mpcc_assembly_table_len(track.sx.a.shape[0])
+    if tbl.numel() != want:
+        raise AssertionError(f"assembly table: {tbl.numel()} floats, the "
+                             f"kernels read {want}")
+    for name, t in [("track", tbl), *shared.items()]:
+        _check_cuda(f"{name} table", t, tuple(t.shape), dev)
+    return tbl, shared
+
+
+def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
+    if t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on "
+                         f"{t.device}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _check_system(system: System, what: str) -> None:
+    if (system.nx, system.nu, system.dof, system.num_links) != (9, 8, 7, 9):
+        raise NotImplementedError(f"{what} is compiled for the Panda dims "
+                                  "(Husky+Panda: ROADMAP item 12)")
+
+
+def _robot_inputs(rb: RobotData, b: int, k: int, dev, fields,
+                  system: System) -> list:
+    """The RobotData fields a kernel reads, checked; the obstacle radius is
+    the scenario's (every knot carries the same one), as (B,)."""
+    dof, nl = system.dof, system.num_links
+    shapes = dict(ee_pos=(b, k, 3), ee_rot=(b, k, 3, 3), jv=(b, k, 3, dof),
+                  jw=(b, k, 3, dof), manipul=(b, k), d_manipul=(b, k, dof),
+                  sel_dist=(b, k), d_sel_dist=(b, k, dof),
+                  env_dist=(b, k, nl), d_env_dist=(b, k, nl, dof))
+    out = []
+    for f in fields:
+        t = getattr(rb, f)
+        _check_cuda(f"RobotData.{f}", t, shapes[f], dev)
+        out.append(t)
+    if tuple(rb.obs_radius.shape) != (b, k):
+        raise ValueError(f"RobotData.obs_radius: need ({b}, {k}), got "
+                         f"{tuple(rb.obs_radius.shape)}")
+    radius = rb.obs_radius[:, 0]
+    _check_cuda("RobotData.obs_radius[:, 0]", radius, (b,), dev)
+    return out + [radius]
+
+
+_K2_ROBOT = ("ee_pos", "ee_rot", "jv", "jw", "manipul", "d_manipul",
+             "sel_dist", "d_sel_dist", "env_dist", "d_env_dist")
+_K3_ROBOT = ("ee_pos", "ee_rot", "manipul", "d_manipul", "sel_dist",
+             "d_sel_dist", "env_dist", "d_env_dist")
+_K2_OUT = ("hxx", "huu", "gx", "gu", "gxu", "e", "d_xu", "d_xl", "d_uu",
+           "d_ul", "d_ru", "d_rl", "d_p", "cpx", "cpu")
+
+
+def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
+                             rb: RobotData, params: MPCCParams,
+                             current_u: torch.Tensor, ts,
+                             exact_heading_jac: bool = False,
+                             system: System = PANDA) -> StageQPK:
+    """Assemble the batch's StageQPK: K2 on CUDA, the plain version on CPU.
+
+    ``z`` (B, n_var), ``current_u`` (B, nu), ``rb`` over the N+1 knots."""
+    dev = z.device
+    if dev.type == "cpu":
+        return build_qp_stages_k_plain(track, z, rb, params, current_u, ts,
+                                       exact_heading_jac, system)
+    if dev.type != "cuda":
+        raise ValueError(f"build_qp_stages_k_kernel: unsupported device {dev}")
+    _check_system(system, "K2")
+    nx, nu, dof, npc = system.nx, system.nu, system.dof, system.npc
+    n_h = system.horizon
+    b = z.shape[0]
+    _check_cuda("z", z, (b, system.n_var), dev)
+    _check_cuda("current_u", current_u, (b, nu), dev)
+    robot = _robot_inputs(rb, b, n_h + 1, dev, _K2_ROBOT, system)
+    tables, shared = _cached(track, params, ts, system, dev)
+    kw = dict(dtype=torch.float32, device=dev)
+    shapes = dict(hxx=(n_h + 1, nx, nx), huu=(n_h, nu, nu), gx=(n_h + 1, nx),
+                  gu=(n_h, nu), gxu=(n_h, dof), e=(n_h, nx), d_xu=(n_h, nx),
+                  d_xl=(n_h, nx), d_uu=(n_h, nu), d_ul=(n_h, nu),
+                  d_ru=(n_h, dof), d_rl=(n_h, dof), d_p=(n_h, npc),
+                  cpx=(n_h, npc, nx), cpu=(n_h, npc, nu))
+    outs = {f: torch.empty((b,) + shapes[f], **kw) for f in _K2_OUT}
+    lib = cuda_build.library()
+    build_qp_stages_k_kernel.launches += 1
+    err = lib.mpcc_assembly(
+        z.data_ptr(), current_u.data_ptr(),
+        *[t.data_ptr() for t in robot], tables.data_ptr(),
+        *[outs[f].data_ptr() for f in _K2_OUT],
+        b, n_h, track.sx.a.shape[0], float(ts),
+        -1.0 if exact_heading_jac else 1.0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "K2 assembly kernel")
+    per_b = lambda t: t.expand((b,) + t.shape).contiguous()
+    return StageQPK(hux=torch.zeros(b, n_h, nu, nx, **kw),
+                    **{k: per_b(v) for k, v in shared.items()}, **outs)
+
+
+build_qp_stages_k_kernel.launches = 0
+
+
+def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+                      params: MPCCParams, current_u: torch.Tensor, ts,
+                      system: System = PANDA):
+    """``(objective, l1 violation)`` at ``z`` (B, n_var) -> (B,) each, or
+    at ``A`` candidates per scenario, ``z`` (B, A, n_var) -> (B, A) each:
+    K3 on CUDA, the plain version on CPU."""
+    dev = z.device
+    if dev.type == "cpu":
+        return eval_point_plain(track, z, rb, params, current_u, ts, system)
+    if dev.type != "cuda":
+        raise ValueError(f"eval_point_kernel: unsupported device {dev}")
+    _check_system(system, "K3")
+    if z.dim() not in (2, 3):
+        raise ValueError(f"eval_point_kernel: z must be (B, n_var) or "
+                         f"(B, A, n_var), got {tuple(z.shape)}")
+    b = z.shape[0]
+    n_cand = z.shape[1] if z.dim() == 3 else 1
+    _check_cuda("z", z, tuple(z.shape[:-1]) + (system.n_var,), dev)
+    _check_cuda("current_u", current_u, (b, system.nu), dev)
+    robot = _robot_inputs(rb, b, system.horizon + 1, dev, _K3_ROBOT,
+                          system)
+    tables, _ = _cached(track, params, ts, system, dev)
+    obj = torch.empty(z.shape[:-1], dtype=torch.float32, device=dev)
+    vio = torch.empty_like(obj)
+    lib = cuda_build.library()
+    eval_point_kernel.launches += 1
+    err = lib.mpcc_eval_point(
+        z.data_ptr(), current_u.data_ptr(),
+        *[t.data_ptr() for t in robot], tables.data_ptr(),
+        obj.data_ptr(), vio.data_ptr(), b, n_cand, system.horizon,
+        track.sx.a.shape[0], float(ts),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "K3 eval kernel")
+    return obj, vio
+
+
+eval_point_kernel.launches = 0

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use, from the sources in this checkout only, into
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects link into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, from the sources in this checkout only, into
 ``build/torch_kernels/`` at the repository root; the library name carries a
 hash of the sources, so an edited source never loads a stale build.
 Nothing here runs at import time.
@@ -22,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources() -> list[str]:
@@ -56,14 +57,29 @@ def build() -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    tag = f"{path}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src}:\n{log}" for src, p, log
+                  in zip(_sources(), procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run([_nvcc(), "-shared", "-o", f"{tag}.tmp", *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{tag}.tmp", path)
+    return path, "".join(logs)
 
 
 _P = ctypes.c_void_p
@@ -80,6 +96,12 @@ def library() -> ctypes.CDLL:
     lib.mpcc_ipm_solve.argtypes = ([_P] * 18 + [_P] * 7
                                    + [_I, _I, _I, _F, _P])
     lib.mpcc_ipm_solve.restype = _I
+    lib.mpcc_assembly.argtypes = [_P] * 29 + [_I, _I, _I, _F, _F, _P]
+    lib.mpcc_assembly.restype = _I
+    lib.mpcc_eval_point.argtypes = [_P] * 14 + [_I, _I, _I, _I, _F, _P]
+    lib.mpcc_eval_point.restype = _I
+    lib.mpcc_assembly_table_len.argtypes = [_I]
+    lib.mpcc_assembly_table_len.restype = _I
     lib.mpcc_error_string.argtypes = [_I]
     lib.mpcc_error_string.restype = ctypes.c_char_p
     return lib

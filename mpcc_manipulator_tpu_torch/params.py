@@ -129,11 +129,13 @@ class MPCCParams:
 class SQPConfig:
     """Static SQP structure (field names of the JAX `SQPConfig`).
 
-    The defaults are the one configuration the port runs: real-time
-    iteration (one warm-started SQP iteration per tick), the structured
-    interior-point QP through the K1 kernel route with adaptive centering,
-    the K4 kinematics route with the analytic manipulability gradient, and
-    the plain (``"xla"``-named) stage-QP assembly.
+    The defaults are the JAX bench's configuration: real-time iteration
+    (one warm-started SQP iteration per tick), the structured interior-point
+    QP through the K1 kernel route with adaptive centering, the K4
+    kinematics route with the analytic manipulability gradient, and the K2
+    assembly / K3 line-search route (``qp_assembly="pallas"``; ``"xla"``
+    selects the plain assembly and evaluation).  The converged mode is
+    ``rti=False`` with ``max_iter`` up to 20 (the bench's ``MPCC_RTI=0``).
     """
 
     max_iter: int = 1
@@ -156,7 +158,7 @@ class SQPConfig:
     ipm_warm_clip_hi: float = 100.0
     mani_grad: str = "analytic"
     ipm_interpret: bool | None = None
-    qp_assembly: str = "xla"
+    qp_assembly: str = "pallas"
     kin_backend: str = "pallas"
 
 

@@ -1,0 +1,161 @@
+"""Per-layer profile of the batched closed-loop tick on one GPU.
+
+    python -m mpcc_manipulator_tpu_torch.profile_tick [--batch 1024]
+
+For the default configuration (RTI) and the converged mode, each layer of
+the tick is timed on the host clock with a ``torch.cuda.synchronize()``
+before and after it (which slows the tick), summed over ``--ticks`` ticks
+after ``--warmup`` ticks, and printed per tick.  Then ``torch.profiler``
+traces three unwrapped RTI ticks and prints the device time and the number
+of device kernels, counted from the device-side kernel events only (each
+aten operator's row also carries the device time of the kernels it
+launched, so a sum over all rows counts that time twice).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from . import mpc as mpc_mod
+from .models.dynamics import sim_time_step
+from .ops import assembly_kernel as ak
+from .params import SQPConfig
+from .problem import X0_HOME, build_problem
+from .solver import sqp as sqp_mod
+
+TS = 0.01
+
+# (label, module, attribute) of each timed layer
+LAYERS = [
+    ("projection", mpc_mod.als, "project_on_spline"),
+    ("RobotData (K4 + NN)", mpc_mod, "compute_robot_data"),
+    ("assembly (K2 + shared blocks)", ak, "build_qp_stages_k_kernel"),
+    ("line-search eval (K3)", ak, "eval_point_kernel"),
+    ("IPM solve (K1 + warm-start repack)", sqp_mod, "solve_qp_ipm_k"),
+    ("solve_ocp total", sqp_mod, "solve_ocp"),
+]
+
+
+def _wrap(label, fn, acc):
+    # wraps() copies the kernel wrappers' launch counters, which they
+    # update through their module-level name while the wrapper stands in
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[label] += time.perf_counter() - t0
+        return out
+    return timed
+
+
+def _start(batch, dev):
+    rng = np.random.default_rng(0)
+    x = torch.tensor(X0_HOME[None] + 0.01 * rng.standard_normal((batch, 9)),
+                     dtype=torch.float32, device=dev)
+    u = torch.zeros(batch, 8, device=dev)
+    carry = mpc_mod.init_carry(batch, torch.float32, dev)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], device=dev).expand(batch, 3)
+    return x, u, carry, obs, torch.zeros(batch, device=dev)
+
+
+def _ticks(problem, state, n, cfg):
+    x, u, carry, obs, rad = state
+    for _ in range(n):
+        carry, out = mpc_mod.mpc_step(*problem, carry, x, u, obs, rad, ts=TS,
+                                      cfg=cfg)
+        u = out.u0
+        x = sim_time_step(out.x0_updated, u, TS)
+    return (x, u, carry, obs, rad), out
+
+
+def layer_profile(problem, batch, dev, cfg, warmup, ticks):
+    """(median wrapped tick s, mean SQP iterations, {layer: s per tick})."""
+    acc = collections.defaultdict(float)
+    saved = [(mod, name, getattr(mod, name)) for _, mod, name in LAYERS]
+    state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
+    times, iters = [], []
+    try:
+        for label, mod, name in LAYERS:
+            setattr(mod, name, _wrap(label, getattr(mod, name), acc))
+        for _ in range(ticks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = _ticks(problem, state, 1, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            iters.append(float(out.sqp_iters.float().mean()))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return (statistics.median(times), float(np.mean(iters)),
+            {k: v / ticks for k, v in acc.items()})
+
+
+def device_profile(problem, batch, dev, warmup, ticks=3):
+    """(device kernel s, kernels launched, profiled wall s, median
+    unprofiled tick s) over ``ticks`` RTI ticks, the first three from the
+    profiler's device-side kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = _ticks(problem, _start(batch, dev), warmup, SQPConfig())
+    plain = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = _ticks(problem, state, 1, SQPConfig())
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _ticks(problem, state, ticks, SQPConfig())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    return busy_us * 1e-6, len(kernels), wall, statistics.median(plain), prof
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--ticks", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_tick: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    problem = build_problem(torch.float32, dev)
+    for label, cfg in [("RTI (default)", SQPConfig()),
+                       ("converged", SQPConfig(rti=False, max_iter=20))]:
+        med, iters, layers = layer_profile(problem, args.batch, dev, cfg,
+                                           args.warmup, args.ticks)
+        print(f"== {label}, batch {args.batch}: wrapped tick median "
+              f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}")
+        for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
+            print(f"   {k}: {v * 1e3:.3f} ms/tick")
+    busy, n_kernels, wall, tick, prof = device_profile(
+        problem, args.batch, dev, args.warmup)
+    print(f"profiler, 3 RTI ticks: device kernel time {busy * 1e3:.3f} ms "
+          f"in {wall * 1e3:.1f} ms wall (profiled); {n_kernels} device "
+          f"kernels, {n_kernels / 3:.0f} per tick; unprofiled tick median "
+          f"{tick * 1e3:.3f} ms, device busy {busy / 3 / tick:.1%} of it")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=12))
+
+
+if __name__ == "__main__":
+    main()

@@ -132,10 +132,9 @@ def test_rti_passes_oracle_conformance_gate():
 
 
 @pytest.mark.parametrize("change", [
-    dict(qp_assembly="pallas"), dict(ipm_scheme="mehrotra"),
-    dict(qp_solver="admm"), dict(do_SOC=True), dict(line_search="merit"),
-    dict(use_BFGS=True), dict(fleet_mode=True), dict(rti=False),
-    dict(nn_bf16=True), dict(mani_grad="fd"), dict(qp_solver="riccati"),
+    dict(ipm_scheme="mehrotra"), dict(qp_solver="admm"),
+    dict(use_BFGS=True), dict(fleet_mode=True), dict(nn_bf16=True),
+    dict(mani_grad="fd"), dict(qp_solver="riccati"),
     dict(kin_backend="xla"), dict(ipm_interpret=True)],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_off_slice_settings_raise(change):
@@ -145,6 +144,19 @@ def test_off_slice_settings_raise(change):
     check_supported(SQPConfig())
     with pytest.raises(NotImplementedError, match="not ported"):
         check_supported(dataclasses.replace(SQPConfig(), **change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(qp_assembly="pallas"), dict(do_SOC=True), dict(line_search="merit"),
+    dict(rti=False)],
+    ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_slice_settings_are_supported(change):
+    """The kernel assembly route, SOC, the merit line search and the
+    converged mode run in the port (the kernel route is the default)."""
+    import dataclasses
+    from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
+    check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
+                                        **change))
 
 
 def test_warm_start_helpers_match_jax():
