@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch + CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -18,17 +18,31 @@ Phases (the first failure exits non-zero and prints no result line):
 6. K3 (line-search evaluation) against its plain version at 1024 lanes at
    0.02-perturbed iterates, one candidate and five candidates per lane, on
    the main path's track and in the three regions;
-7. the main path, the default configuration (RTI, K1-K4): 1024 scenarios x
-   30 ticks of ``mpc_step`` + the plant step; every lane ok every tick,
-   finite states, s strictly increasing once the start transient has
-   passed, and each kernel launched once per tick;
-8. the converged mode (``rti=False, max_iter=20``): 1024 x 10 ticks, then 3
+7. K5 (the fused ADMM loop) against its plain version: the JAX kernel
+   test's random QPs (n=40, m=70) at batch 256, its MPCC-sized QP, and the
+   dense QPs (``build_qp`` -> Ruiz -> K^-1) of the first tick at the 1024
+   perturbed home states, cold and warm; a NaN lane runs to its budget,
+   comes out NaN and leaves the other lanes bit-identical;
+8. the Riccati path, the default configuration (RTI, K1-K4): 1024
+   scenarios x 30 ticks of ``mpc_step`` + the plant step; every lane ok
+   every tick, finite states, s strictly increasing once the start
+   transient has passed, and each kernel launched once per tick;
+9. the converged mode (``rti=False, max_iter=20``): 1024 x 10 ticks, then 3
    ticks each with the second-order correction and with the merit line
    search; every lane ok, and each kernel launched as often as the SQP
    iterations run call for;
-9. 8 lanes through the plain path on the CPU in float64, held to the
-   repo's closed-loop envelope: the RTI loop closed loop (10 ticks), the
-   converged loop tick by tick from the GPU run's inputs (5 ticks).
+10. the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
+    MPCC_QP_BACKEND=pallas`` ablation, ``qp_max_iter=200``): 1024 x 10
+    ticks, every lane ok, K5 launched twice per tick and K4 once, K1-K3
+    never; then the converged ADMM mode (``rti=False, max_iter=20,
+    qp_max_iter=400``) 3 ticks each plain, with BFGS, SOC and the merit
+    line search, K5 launched twice per SQP iteration (four times with SOC);
+11. 8 lanes through the plain path on the CPU in float64, held to the
+    repo's closed-loop envelope: the RTI loop closed loop (10 ticks), the
+    converged loop tick by tick from the GPU run's inputs (5 ticks), and the
+    ADMM RTI loop tick by tick from the GPU run's inputs (10 ticks, the
+    plain ``"xla"`` ADMM route; the float32 plain K5 route's gap to it is
+    printed beside).
 
 The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -52,6 +66,7 @@ TICKS = 30
 TS = 0.01
 SEED = 0
 CHECK_LANES = 8
+KNOTS = 11             # N + 1 at the Panda's horizon N = 10
 CHECK_TICKS = 10
 S_RISING_FROM = 15     # tick from which s must rise on every lane
 K4_SINGULAR_BELOW = 0.01   # the controller's singularity buffer (tol_sing)
@@ -70,6 +85,22 @@ OPTION_TICKS = 3
 CONV_CHECK_TICKS = 5
 # closed-loop envelope of the repo (tests/test_rti.py: RTI vs the oracle)
 ENVELOPE = {"q": 7.5e-4, "s": 2.5e-4, "vs": 4e-3}
+# the dense ADMM path: the JAX bench's ablation (bench.py, MPCC_QP_SOLVER=
+# admm MPCC_QP_BACKEND=pallas), and its converged mode (api.MPCC)
+ADMM_RTI = dict(qp_solver="admm", qp_backend="pallas", qp_assembly="xla",
+                qp_max_iter=200, qp_check_every=25)
+ADMM_CONVERGED = dict(ADMM_RTI, rti=False, max_iter=20, qp_max_iter=400)
+ADMM_TICKS = 10
+K5_RANDOM_BATCH = 256
+K5_NAN_LANE = 5
+# K5 against its plain version: the JAX kernel test's contract
+# (tests/test_pallas_admm.py): x within 5e-3 on random QPs, 1e-2 on the
+# MPCC-sized one (and the main path's), residuals below 1e-3 / 1e-2
+K5_X_TOL = {"random": 5e-3, "mpcc_sized": 1e-2, "main path": 1e-2}
+K5_RES = (1e-3, 1e-2)
+# the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -104,13 +135,28 @@ def check_close(name, got, ref, atol, rtol=0.0) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def kernel_wrappers() -> dict:
+    from mpcc_manipulator_tpu_torch.ops.admm_kernel import fused_admm
     from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
         build_qp_stages_k_kernel, eval_point_kernel)
     from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
     from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import solve_qp_ipm_k
     return {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
-            "K3": eval_point_kernel, "K4": kin_sweep}
+            "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm}
 
 
 def reset_counts() -> None:
@@ -161,10 +207,14 @@ def phase_k4(device) -> dict:
           f"{int(well.sum())} configurations; {int((~well).sum())} with "
           f"m < {K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
           f"{near[1]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # bytes: the configurations in, the six outputs out; operations: ~3
+    # kFLOP per configuration (the 7-joint chain, 3x7 Jacobians, J J', a
+    # 6x6 Cholesky and the 7 x 6x6 gradient solves)
     return {"name": "K4 kinematics sweep (kin_sweep)", "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_kinematics.py:228",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(qs, *got), 3e3 * qs[..., 0].numel())}
 
 
 def main_path_inputs(problem, device):
@@ -281,11 +331,19 @@ def phase_k1(problem, device) -> dict:
         lambda: solve_qp_ipm_plain(qpk, warm_s=ws, warm_lam=wl), 3)
     print(f"K1 warm solve at batch {BATCH}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
+    # bytes: every StageQPK block and the warm rows in, the step, duals,
+    # slacks and verdicts out; operations: ~0.2 MFLOP per Newton iteration
+    # and scenario (csrc/qp_ipm.cu), times the iterations these inputs take
+    ins = [getattr(qpk, f.name) for f in dataclasses.fields(qpk)]
+    outs = [warm.dx_tilde, warm.du, warm.lam, warm.s_rows, warm.iters,
+            warm.solved, warm.mu]
     return {"name": "K1 interior-point QP solve (solve_qp_ipm_k)",
             "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/qp_ipm.cu",
             "replaces": "mpcc_manipulator_tpu/solver/qp_ipm_pallas.py:64",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(*ins, ws, wl, *outs),
+                    2e5 * float(warm.iters.sum()))}
 
 
 # ------------------------------------------------------------ K2 and K3
@@ -372,6 +430,7 @@ def k2_cases(problem, aproblem, device):
 
 
 def phase_k2(problem, aproblem, device) -> dict:
+    from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
     from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
         build_qp_stages_k_kernel, build_qp_stages_k_plain)
     err = 0.0
@@ -441,11 +500,21 @@ def phase_k2(problem, aproblem, device) -> dict:
                                                          cu, TS), 10)
     print(f"K2 assembly at batch {BATCH} (main path): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
+    # bytes: the iterate, current input, the RobotData fields K2 reads and
+    # its table in, the blocks it writes out; operations: ~3 kFLOP per
+    # (scenario, knot) (spline, Rodrigues and log, three 3 x nx Jacobians
+    # and their Gauss-Newton products, the polytopic rows)
+    got = build_qp_stages_k_kernel(track, z, rb, params, cu, TS)
+    robot = [getattr(rb, f) for f in ak._K2_ROBOT]
+    table = ak.pack_tables(track, params, TS)
     return {"name": "K2 stage-QP assembly (build_qp_stages_k_kernel)",
             "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:290",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(z, cu, *robot, table, *(getattr(got, f) for f
+                                                    in ak._K2_OUT)),
+                    3e3 * BATCH * KNOTS)}
 
 
 def check_k3(label, got, ref) -> float:
@@ -520,11 +589,206 @@ def phase_k3(problem, aproblem, device) -> dict:
           f"{vio_max:.3f}; NaN lanes propagate; batch {BATCH} (main path): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; x{CANDIDATES} "
           f"candidates: kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms")
+    # bytes: the trial points, current input, the RobotData fields K3
+    # reads and the table in, (obj, vio) out; operations: ~1.5 kFLOP per
+    # (lane, knot) (one stage cost and its constraint rows)
+    from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
+    robot = [getattr(rb_main, f) for f in ak._K3_ROBOT]
     return {"name": "K3 line-search evaluation (eval_point_kernel)",
             "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:756",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(zt_main, cu_main, *robot,
+                           ak.pack_tables(track, params, TS))
+                    + 8 * BATCH, 1.5e3 * BATCH * KNOTS)}
+
+
+# ------------------------------------------------------------ K5
+
+
+def random_qps(batch: int, device):
+    """The JAX kernel test's random QPs (`tests/test_pallas_admm.py`, n=40,
+    m=70, ~60 one-sided rows), one per seed 0..batch-1, float32."""
+    qps = []
+    for seed in range(batch):
+        rng = np.random.default_rng(seed)
+        n, m = 40, 70
+        q_half = rng.standard_normal((n, n))
+        lo = np.concatenate([rng.standard_normal(10), -1e30 * np.ones(m - 10)])
+        qps.append((q_half @ q_half.T + 0.5 * np.eye(n),
+                    rng.standard_normal(n), rng.standard_normal((m, n)), lo,
+                    np.concatenate([lo[:10], rng.uniform(0.5, 2.0, m - 10)])))
+    return [torch.tensor(np.stack(v), dtype=torch.float32, device=device)
+            for v in zip(*qps)]
+
+
+def mpcc_sized_qp(device):
+    """The JAX kernel test's QP with the MPCC dimensions (179 x 479): box
+    rows, 90 dense rows of which 45 equalities, all-zero rows with
+    l = u = 0 (like the dVs rate slots), batch 1."""
+    n, m = 179, 479
+    rng = np.random.default_rng(2)
+    qh = rng.standard_normal((n, n)) * 0.1
+    a = np.zeros((m, n))
+    a[:n] = np.eye(n)
+    a[n:n + 90] = rng.standard_normal((90, n)) * 0.3
+    lo, hi = np.full(m, -1e30), np.full(m, 1e30)
+    lo[:n], hi[:n] = -2.0, 2.0
+    lo[n:n + 45] = hi[n:n + 45] = 0.3
+    lo[n + 90:] = hi[n + 90:] = 0.0
+    qp = (qh @ qh.T + np.eye(n), rng.standard_normal(n), a, lo, hi)
+    return [torch.tensor(v[None], dtype=torch.float32, device=device)
+            for v in qp]
+
+
+def main_path_qps(problem, device):
+    """The dense QPs (P, q, A, l - c, u - c) the ADMM path builds at the
+    first tick's iterate: the cold-start horizon at the ``BATCH`` perturbed
+    states, current u zero."""
+    from mpcc_manipulator_tpu_torch.ocp import qp_data
+    track, params = problem[:2]
+    z, _, _, _, rb = main_path_inputs(problem, device)
+    u0 = torch.zeros(BATCH, 8, dtype=torch.float32, device=device)
+    p, q, a, lo, hi, _, constr = qp_data.build_qp(track, z, rb, params, u0,
+                                                  TS)
+    return [p, q, a, lo - constr, hi - constr]
+
+
+def k5_inputs(qp, warm=None) -> list:
+    """K5's arguments for a batch of QPs: Ruiz scaling, per-row rho and the
+    explicit K^-1 (`solver/qp_admm.equilibrated`), then x0, z0, y0 (zeros,
+    or ``warm``)."""
+    from mpcc_manipulator_tpu_torch.solver import qp_admm
+    p_s, q_s, a_s, l_s, u_s, d, e, c, rho, kinv = qp_admm.equilibrated(*qp)
+    b, m, n = a_s.shape
+    if warm is None:
+        warm = (q_s.new_zeros(b, n), q_s.new_zeros(b, m),
+                q_s.new_zeros(b, m))
+    return [t.contiguous() for t in (kinv, p_s, a_s, q_s, rho, l_s, u_s, d,
+                                     e, c, *warm)]
+
+
+def k5_flops(args, it) -> float:
+    """Float32 operations of one K5 launch on ``args`` whose lanes ran
+    ``it`` iterations: per iteration A'w, rhs' K^-1 and A x (4mn + 2n^2)
+    plus the elementwise updates; per test x'P, y'A (2n^2 + 2mn) and the
+    maxima; A x0 once at entry."""
+    b, m, n = args[2].shape
+    it = it.double()
+    per_iter = 4 * m * n + 2 * n * n + 10 * m + 4 * n
+    per_test = 2 * n * n + 2 * m * n + 10 * (m + n)
+    return float((it * per_iter + (it / 25 + 1) * per_test).sum()
+                 + b * 2 * m * n)
+
+
+def compare_k5(label, args, max_iter, x_tol):
+    """K5 against its plain version on the same arguments; returns (max
+    |dx|, the kernel's outputs).
+
+    The JAX test's residual bounds hold on its two random seeds; in float32
+    they do not hold on every lane of 256 random QPs or of the main path's
+    QPs, for the plain version either (measured on the CPU: dual residual
+    up to 1.7e-2 on the random QPs through ``solve_qp``, primal up to
+    2.0e-2 on the main path at 400 iterations).  Where a lane has not
+    converged, its residual at the cap is roundoff-driven noise of the
+    trajectory, and two float32 summation orders differ there by tens of
+    percent.  So the kernel is held on the batch: it meets the bounds on
+    no fewer lanes than the plain version (less 1 % of the lanes), and its
+    largest residuals stay within twice the plain version's."""
+    from mpcc_manipulator_tpu_torch.ops.admm_kernel import (
+        fused_admm, fused_admm_plain)
+    from mpcc_manipulator_tpu_torch.solver.qp_admm import residuals
+    got = fused_admm(*args, max_iter=max_iter)
+    ref = fused_admm_plain(*args, max_iter=max_iter)
+    torch.cuda.synchronize()
+    err = check_close(f"K5 {label} x", got[0], ref[0], x_tol)
+    d_it = (got[3] - ref[3]).abs()
+    scaled = (args[1], args[3], args[2], args[7], args[8], args[9])
+    r_k = residuals(*scaled, *got[:3])[:2]
+    r_p = residuals(*scaled, *ref[:3])[:2]
+    meets = int(((r_p[0] < K5_RES[0]) & (r_p[1] < K5_RES[1])).sum())
+    kernel_meets = int(((r_k[0] < K5_RES[0]) & (r_k[1] < K5_RES[1])).sum())
+    worst_k = [float(r.max()) for r in r_k]
+    worst_p = [float(r.max()) for r in r_p]
+    print(f"K5 vs plain, {label}, {args[0].shape[0]} lanes, max_iter "
+          f"{max_iter}: max|dx| {err:.3e} (tol {x_tol}); iterations kernel "
+          f"mean {got[3].double().mean():.2f} max {int(got[3].max())}, "
+          f"plain mean {ref[3].double().mean():.2f}; |d it| max "
+          f"{int(d_it.max())}, > 0 on {int((d_it > 0).sum())} lanes, > one "
+          f"chunk on {int((d_it > 25).sum())}; residuals max kernel "
+          f"{worst_k[0]:.3e} / {worst_k[1]:.3e}, plain {worst_p[0]:.3e} / "
+          f"{worst_p[1]:.3e}; within {K5_RES}: plain {meets}, kernel "
+          f"{kernel_meets} lanes")
+    lanes = args[0].shape[0]
+    if (kernel_meets < meets - 0.01 * lanes
+            or not all(k <= 2.0 * p for k, p in zip(worst_k, worst_p))):
+        raise AssertionError(f"K5 {label}: residuals not held (within the "
+                             f"bounds on {kernel_meets} lanes against "
+                             f"{meets}; max {worst_k} against {worst_p})")
+    if float((d_it > 25).double().mean()) > 0.01:
+        raise AssertionError(f"K5 {label}: iteration counts differ by more "
+                             "than one chunk on more than 1 % of lanes")
+    return err, got
+
+
+def phase_k5(problem, device) -> dict:
+    from mpcc_manipulator_tpu_torch.ops import cuda_build
+    from mpcc_manipulator_tpu_torch.ops.admm_kernel import (
+        fused_admm, fused_admm_plain)
+    lib = cuda_build.library()
+    print(f"K5 dynamic shared memory: {lib.mpcc_admm_smem_bytes(179, 479)} "
+          f"bytes per block at n=179, m=479; "
+          f"{lib.mpcc_admm_smem_bytes(40, 70)} at n=40, m=70")
+    err, _ = compare_k5("random QPs (n=40, m=70)",
+                        k5_inputs(random_qps(K5_RANDOM_BATCH, device)), 500,
+                        K5_X_TOL["random"])
+    err = max(err, compare_k5("MPCC-sized QP", k5_inputs(mpcc_sized_qp(
+        device)), 1000, K5_X_TOL["mpcc_sized"])[0])
+    qps = main_path_qps(problem, device)
+    cold_args = k5_inputs(qps)
+    e, cold = compare_k5("main path, cold", cold_args,
+                         ADMM_CONVERGED["qp_max_iter"], K5_X_TOL["main path"])
+    err = max(err, e)
+    warm_args = k5_inputs(qps, cold[:3])
+    err = max(err, compare_k5("main path, warm from the cold solve",
+                              warm_args, ADMM_CONVERGED["qp_max_iter"],
+                              K5_X_TOL["main path"])[0])
+
+    # a NaN lane runs to its budget and leaves every other lane unchanged
+    budget = ADMM_RTI["qp_max_iter"]
+    clean = fused_admm(*cold_args, max_iter=budget)
+    nan_args = list(cold_args)
+    nan_args[3] = cold_args[3].clone()
+    nan_args[3][K5_NAN_LANE, 0] = float("nan")
+    dirty = fused_admm(*nan_args, max_iter=budget)
+    torch.cuda.synchronize()
+    keep = torch.ones(BATCH, dtype=torch.bool, device=device)
+    keep[K5_NAN_LANE] = False
+    if not (bool(torch.isnan(dirty[0][K5_NAN_LANE]).all())
+            and int(dirty[3][K5_NAN_LANE]) == budget
+            and all(torch.equal(d[keep], c[keep])
+                    for d, c in zip(dirty, clean))):
+        raise AssertionError("K5 NaN lane: not NaN, not run to its budget, "
+                             "or another lane changed")
+    print(f"K5 NaN in q of lane {K5_NAN_LANE}: x NaN, {budget} iterations, "
+          f"the other {BATCH - 1} lanes bit-identical")
+
+    # time one launch at the RTI budget on the main path's cold QPs
+    ms = cuda_time(lambda: fused_admm(*cold_args, max_iter=budget), 20)
+    plain_ms = cuda_time(lambda: fused_admm_plain(*cold_args,
+                                                  max_iter=budget), 3)
+    x, z, y, it = fused_admm(*cold_args, max_iter=budget)
+    b = bound(nbytes(*cold_args, x, z, y) + 4 * BATCH,
+              k5_flops(cold_args, it))
+    print(f"K5 at batch {BATCH}, main path cold, max_iter {budget} (mean "
+          f"{it.double().mean():.2f} iterations): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    return {"name": "K5 fused ADMM loop (fused_admm)", "route": "cuda",
+            "source": "mpcc_manipulator_tpu_torch/csrc/admm.cu",
+            "replaces": "mpcc_manipulator_tpu/ops/pallas_admm.py:39",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 # ------------------------------------------------------------ closed loops
@@ -595,7 +859,7 @@ def phase_closed_loop(problem, device, card):
             f"closed loop: s not strictly increasing after tick "
             f"{S_RISING_FROM}; non-increasing lanes per tick {back.tolist()}")
     for name, n in launches.items():
-        if n != TICKS:
+        if n != (0 if name == "K5" else TICKS):
             raise AssertionError(f"closed loop: {name} launched {n} times "
                                  f"in {TICKS} ticks")
     med = statistics.median(times[1:])
@@ -629,7 +893,7 @@ def phase_converged(problem, x0, card):
         check_ok(label, oks, states)
         run_iters = int(sqp_iters.max(1).values.sum())
         want = {k: per_iter[k] * run_iters for k in per_iter}
-        want["K4"] = ticks
+        want.update(K4=ticks, K5=0)
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want} for {run_iters} SQP iterations")
@@ -643,6 +907,60 @@ def phase_converged(problem, x0, card):
         if conv is None:
             conv = (states, inputs)
     return conv
+
+
+def phase_admm_rti(problem, x0, card):
+    """The dense ADMM path under RTI: 1024 x ``ADMM_TICKS`` ticks, K5 twice
+    per tick (phase 1 and phase 2 of each QP solve), K4 once."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    reset_counts()
+    times, oks, states, iters, _, inputs = closed_loop(
+        problem, x0, ADMM_TICKS, SQPConfig(**ADMM_RTI), record=CHECK_LANES)
+    launches = read_counts()
+    check_ok("ADMM RTI", oks, states)
+    want = dict(K1=0, K2=0, K3=0, K4=ADMM_TICKS, K5=2 * ADMM_TICKS)
+    if launches != want:
+        raise AssertionError(f"ADMM RTI: launches {launches}, expected "
+                             f"{want}")
+    med = statistics.median(times[1:])
+    s = states[:, :, 7]
+    at_cap = float((iters >= ADMM_RTI["qp_max_iter"]).double().mean())
+    print(f"ADMM RTI (K4 + K5) {BATCH} x {ADMM_TICKS} ticks on {card}: all "
+          f"ok; median tick {med * 1e3:.3f} ms (first "
+          f"{times[0] * 1e3:.1f} ms), {BATCH / med:.1f} solves/s; mean ADMM "
+          f"iterations per lane-tick {iters.double().mean():.2f}, at the "
+          f"cap {at_cap:.3f} of lane-ticks; s {float(s[0].mean()):.5f} -> "
+          f"{float(s[-1].mean()):.5f}; launches {launches}")
+    return states, inputs, launches
+
+
+def phase_admm_converged(problem, x0, card):
+    """The converged ADMM mode and its three options; K5 launches against
+    the SQP iterations run (2 per iteration, 4 with SOC)."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    runs = [("ADMM converged", dict(), 2),
+            ("ADMM converged + BFGS", dict(use_BFGS=True), 2),
+            ("ADMM converged + SOC", dict(do_SOC=True), 4),
+            ("ADMM converged + merit", dict(line_search="merit"), 2)]
+    for label, change, per_iter in runs:
+        reset_counts()
+        times, oks, states, iters, sqp_iters, _ = closed_loop(
+            problem, x0, OPTION_TICKS, SQPConfig(**ADMM_CONVERGED, **change))
+        launches = read_counts()
+        check_ok(label, oks, states)
+        run_iters = int(sqp_iters.max(1).values.sum())
+        want = dict(K1=0, K2=0, K3=0, K4=OPTION_TICKS,
+                    K5=per_iter * run_iters)
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{want} for {run_iters} SQP iterations")
+        print(f"{label} {BATCH} x {OPTION_TICKS} ticks on {card}: all ok; "
+              f"SQP iterations per lane-tick mean "
+              f"{sqp_iters.double().mean():.3f}, max {int(sqp_iters.max())};"
+              f" {run_iters} run; mean ADMM iterations per lane-tick "
+              f"{iters.double().mean():.2f}; median tick "
+              f"{statistics.median(times[1:]) * 1e3:.3f} ms; launches "
+              f"{launches}")
 
 
 def envelope_gaps(label, states, states_gpu) -> None:
@@ -702,6 +1020,42 @@ def phase_cpu_check_converged(inputs, states_gpu):
                   states_gpu[:CONV_CHECK_TICKS, :CHECK_LANES])
 
 
+def phase_cpu_check_admm(inputs, states_gpu):
+    """The ADMM RTI loop tick by tick from the GPU run's inputs (state,
+    input, carry with the ADMM warm start): the float64 plain ``"xla"``
+    ADMM route held to the envelope; the float32 plain K5 route beside it
+    (its gap to float64 printed, measured in this run)."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    out_states = {}
+    for dtype, backend in ((torch.float64, "xla"), (torch.float32, "pallas")):
+        problem = build_problem(dtype, "cpu")
+        cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+        obs = torch.tensor([[3.0, 3.0, 3.0]] * CHECK_LANES, dtype=dtype)
+        rad = torch.zeros(CHECK_LANES, dtype=dtype)
+        cfg = SQPConfig(**dict(ADMM_RTI, qp_backend=backend))
+        states = []
+        for x, u, carry in inputs:
+            c = MPCCarry(**{f.name: cast(getattr(carry, f.name))
+                            for f in dataclasses.fields(MPCCarry)})
+            _, out = mpc_step(*problem, c, cast(x), cast(u), obs, rad, ts=TS,
+                              cfg=cfg)
+            if not bool(out.ok.all()):
+                raise AssertionError(f"CPU check (ADMM RTI, {dtype}): a "
+                                     "lane was not ok")
+            states.append(sim_time_step(out.x0_updated, out.u0, TS))
+        out_states[backend] = torch.stack(states).to(torch.float64)
+    d = (out_states["pallas"] - out_states["xla"]).abs()
+    print(f"CPU, ADMM RTI tick by tick: float32 plain K5 route against the "
+          f"float64 'xla' route: max |dq| {float(d[..., :7].max()):.3e}, "
+          f"|ds| {float(d[..., 7].max()):.3e}, |dvs| "
+          f"{float(d[..., 8].max()):.3e}")
+    envelope_gaps("ADMM RTI, tick by tick", out_states["xla"],
+                  states_gpu[:len(inputs), :CHECK_LANES])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -727,13 +1081,20 @@ def main() -> int:
     aproblem = assembly_problem(device)
     kernels = [phase_k1(problem, device),
                phase_k2(problem, aproblem, device),
-               phase_k3(problem, aproblem, device), phase_k4(device)]
+               phase_k3(problem, aproblem, device), phase_k4(device),
+               phase_k5(problem, device)]
+    # each path's kernels carry the launches of that path's own run
     x0, states, launches = phase_closed_loop(problem, device, card)
-    for k in kernels:
-        k["launches"] = launches[k["name"][:2]]
     states_conv, inputs = phase_converged(problem, x0, card)
+    states_admm, inputs_admm, launches_admm = phase_admm_rti(problem, x0,
+                                                              card)
+    for k in kernels:
+        name = k["name"][:2]
+        k["launches"] = (launches_admm if name == "K5" else launches)[name]
+    phase_admm_converged(problem, x0, card)
     phase_cpu_check_rti(x0, states)
     phase_cpu_check_converged(inputs, states_conv)
+    phase_cpu_check_admm(inputs_admm, states_admm)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,29 +44,29 @@ def _from_fields(cls, obj, dtype, device):
     return cls(**kw)
 
 
-def mlp(jax_mlp, dtype=torch.float64, device="cpu") -> CollisionMLP:
+def mlp(jax_mlp, dtype=torch.float64, device="cuda") -> CollisionMLP:
     """JAX ``MLPParams`` (weights/biases tuples) -> :class:`CollisionMLP`."""
     return CollisionMLP(jax_mlp.weights, jax_mlp.biases, dtype, device)
 
 
 def mpcc_params(jax_params, dtype=torch.float64,
-                device="cpu") -> params.MPCCParams:
+                device="cuda") -> params.MPCCParams:
     """JAX ``MPCCParams`` -> the port's :class:`~.params.MPCCParams`."""
     return _from_fields(params.MPCCParams, jax_params, dtype, device)
 
 
-def track(jax_track, dtype=torch.float64, device="cpu") -> TrackSpline:
+def track(jax_track, dtype=torch.float64, device="cuda") -> TrackSpline:
     """JAX ``TrackSpline`` (coefficient tables) -> :class:`TrackSpline`."""
     return _from_fields(TrackSpline, jax_track, dtype, device)
 
 
-def carry(jax_carry, dtype=torch.float64, device="cpu") -> mpc.MPCCarry:
-    """JAX ``MPCCarry`` (leading batch axis) -> :class:`~.mpc.MPCCarry`;
-    the ADMM warm-start fields ``qp_x``/``qp_y`` are not carried."""
+def carry(jax_carry, dtype=torch.float64, device="cuda") -> mpc.MPCCarry:
+    """JAX ``MPCCarry`` (leading batch axis) -> :class:`~.mpc.MPCCarry`,
+    every field (the ADMM warm start ``qp_x``/``qp_y`` included)."""
     return _from_fields(mpc.MPCCarry, jax_carry, dtype, device)
 
 
-def stage_qpk(jax_qpk, dtype=torch.float64, device="cpu") -> StageQPK:
+def stage_qpk(jax_qpk, dtype=torch.float64, device="cuda") -> StageQPK:
     """Batched JAX ``StageQPK`` (leading batch axis on every field) ->
     :class:`StageQPK`, contiguous."""
     return _from_fields(StageQPK, jax_qpk, dtype, device)

@@ -38,7 +38,7 @@ class CollisionMLP(nn.Module):
     """A ReLU MLP with NeRF-encoded input; weights are (out, in) as in the
     reference parameter files."""
 
-    def __init__(self, weights, biases, dtype=torch.float64, device="cpu"):
+    def __init__(self, weights, biases, dtype=torch.float64, device="cuda"):
         super().__init__()
         self.layers = nn.ModuleList()
         for w, b in zip(weights, biases):
@@ -88,7 +88,7 @@ def _load_npz(kind: str, n_layers: int):
             [data[f"bias_{i}"] for i in range(n_layers)])
 
 
-def load_self_collision_nn(dtype=torch.float64, device="cpu") -> CollisionMLP:
+def load_self_collision_nn(dtype=torch.float64, device="cuda") -> CollisionMLP:
     """7-DOF self-collision min-distance model (output in cm)."""
     ws, bs = _load_npz("self", len(SELF_HIDDEN) + 1)
     if ws[0].shape != (SELF_HIDDEN[0], 3 * PANDA_DOF):
@@ -96,7 +96,7 @@ def load_self_collision_nn(dtype=torch.float64, device="cpu") -> CollisionMLP:
     return CollisionMLP(ws, bs, dtype, device)
 
 
-def load_env_collision_nn(dtype=torch.float64, device="cpu") -> CollisionMLP:
+def load_env_collision_nn(dtype=torch.float64, device="cuda") -> CollisionMLP:
     """Per-link env-collision distance model: input [q(7), obs_pos(3)]."""
     ws, bs = _load_npz("env", len(ENV_HIDDEN) + 1)
     if (ws[0].shape != (ENV_HIDDEN[0], 3 * (PANDA_DOF + 3))

@@ -10,8 +10,9 @@ Per tick and per scenario:
    with every knot at x0 -- both computed, selected per lane;
 4. one RobotData sweep over the N+1 knots (K4 + the collision NNs), frozen
    for the tick;
-5. the SQP loop (`solver/sqp.py`: K2, K1 and K3 inside), one iteration
-   under RTI (the default);
+5. the SQP loop (`solver/sqp.py`: K2, K1 and K3 inside on the Riccati
+   path, K5 on the dense ADMM path), one iteration under RTI (the
+   default);
 6. the status machine: 5-strike tolerance of MAX_ITER_EXCEEDED.
 
 Everything is batch-first: x0 (B, nx), u0 (B, nu), obs_pos (B, 3),
@@ -38,12 +39,13 @@ from .system import PANDA, System
 
 @dataclasses.dataclass
 class MPCCarry:
-    """Tick-to-tick solver state per scenario.  (The JAX carry's ``qp_x`` /
-    ``qp_y`` belong to the dense ADMM path, ROADMAP item 14.)"""
+    """Tick-to-tick solver state per scenario."""
 
     z_guess: torch.Tensor           # (B, n_var) last horizon (raw units)
     valid_guess: torch.Tensor       # (B,) bool
     num_guess_failed: torch.Tensor  # (B,) int32 consecutive failures
+    qp_x: torch.Tensor              # (B, n_var) last ADMM QP primal
+    qp_y: torch.Tensor              # (B, n_constr) last ADMM QP dual
     ipm_s: torch.Tensor             # (B, N+1, nc_stage) IPM warm slacks
     ipm_lam: torch.Tensor           # (B, N+1, nc_stage) IPM warm duals
 
@@ -60,13 +62,15 @@ class MPCOutput:
     qp_iters: torch.Tensor    # (B,)
 
 
-def init_carry(batch: int, dtype=torch.float32, device="cpu",
+def init_carry(batch: int, dtype=torch.float32, device="cuda",
                system: System = PANDA) -> MPCCarry:
     rows = (batch, system.horizon + 1, system.nc_stage)
     return MPCCarry(
         z_guess=torch.zeros(batch, system.n_var, dtype=dtype, device=device),
         valid_guess=torch.zeros(batch, dtype=torch.bool, device=device),
         num_guess_failed=torch.zeros(batch, dtype=torch.int32, device=device),
+        qp_x=torch.zeros(batch, system.n_var, dtype=dtype, device=device),
+        qp_y=torch.zeros(batch, system.n_constr, dtype=dtype, device=device),
         ipm_s=torch.ones(rows, dtype=dtype, device=device),
         ipm_lam=torch.ones(rows, dtype=dtype, device=device))
 
@@ -142,11 +146,14 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
     rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos, obs_radius,
                             sel_nn, env_nn, system)
 
-    # --- 5. SQP (IPM warm state carried across ticks; ones on cold start)
-    v3 = valid[:, None, None]
+    # --- 5. SQP (QP and IPM warm state carried across ticks; zeros / ones
+    # on a cold start)
+    v2, v3 = valid[:, None], valid[:, None, None]
     res = sqp_mod.solve_ocp(
         track, rb, params, cfg, z0, u0, ts,
         exact_heading_jac=exact_heading_jac,
+        qp_x0=torch.where(v2, carry.qp_x, torch.zeros_like(carry.qp_x)),
+        qp_y0=torch.where(v2, carry.qp_y, torch.zeros_like(carry.qp_y)),
         ipm_s0=torch.where(v3, carry.ipm_s, torch.ones_like(carry.ipm_s)),
         ipm_lam0=torch.where(v3, carry.ipm_lam,
                              torch.ones_like(carry.ipm_lam)),
@@ -159,9 +166,13 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
     ok = solved | ((res.status == sqp_mod.Status.MAX_ITER_EXCEEDED)
                    & (n_failed_next < 5))
     xs, us = qp_data.split_z(res.z, system)
+    # the ADMM path keeps the carry's IPM slots as they were
+    admm = cfg.qp_solver == "admm"
     new_carry = MPCCarry(z_guess=res.z, valid_guess=solved,
-                         num_guess_failed=n_failed_next,
-                         ipm_s=res.ipm_s, ipm_lam=res.ipm_lam)
+                         num_guess_failed=n_failed_next, qp_x=res.qp_x,
+                         qp_y=res.qp_y,
+                         ipm_s=carry.ipm_s if admm else res.ipm_s,
+                         ipm_lam=carry.ipm_lam if admm else res.ipm_lam)
     out = MPCOutput(u0=us[:, 0], x0_updated=x0_new, horizon_x=xs,
                     horizon_u=us, status=res.status, ok=ok,
                     sqp_iters=res.sqp_iters, qp_iters=res.qp_iters)

@@ -1,14 +1,20 @@
-"""Decision-vector helpers and the line search's value-only evaluations,
-batch-first (`mpcc_manipulator_tpu/ocp/qp_data.py`).
+"""Dense QP assembly, decision-vector helpers and the line search's
+value-only evaluations, batch-first (`mpcc_manipulator_tpu/ocp/qp_data.py`).
 
 ``z = [x_0..x_N, u_0..u_{N-1}]`` per scenario (n_var = 179 for the Panda);
 the constraint rows are ``[equality | bounds | polytopic]`` as in the
-reference layout.  The dense QP assembly (``build_qp``) belongs to the
-dense ADMM path (ROADMAP item 14) and is not ported.
+reference layout.  :func:`build_qp` assembles the dense normalized QP of
+the ADMM path, ``(P (B,179,179), q (B,179), A (B,479,179), l, u (B,479),
+obj (B,), constr (B,479))``: every per-knot block comes from one batched
+sweep over the horizon and lands in the dense matrices through static
+index grids, built once (Panda, N = 10 only, as in the JAX package).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..params import MPCCParams
@@ -17,6 +23,69 @@ from ..system import PANDA, System
 from .constraints import stage_constraints, state_bounds
 from .cost import stage_cost
 from .robot_data import RobotData
+
+
+# ------------------------------------------------------------------
+# Static index grids of the dense layout (host numpy, built once)
+# ------------------------------------------------------------------
+
+
+def _block_grid(row0, col0, h: int, w: int):
+    """(K, h, w) row/col index grids for K dense blocks at given offsets."""
+    row0, col0 = np.asarray(row0), np.asarray(col0)
+    r = row0[:, None, None] + np.arange(h)[None, :, None]
+    c = col0[:, None, None] + np.arange(w)[None, None, :]
+    return (np.broadcast_to(r, (len(row0), h, w)),
+            np.broadcast_to(c, (len(row0), h, w)))
+
+
+def _dense_grids(system: System = PANDA):
+    """``(P grids, A grids)``: name -> (rows, cols) of every block."""
+    nx, nu, dof, npc, n = (system.nx, system.nu, system.dof, system.npc,
+                           system.horizon)
+    x_off = np.array([nx * k for k in range(n + 1)])
+    u_off = np.array([nx * (n + 1) + nu * k for k in range(n)])
+    p_grids = dict(
+        hxx=_block_grid(x_off, x_off, nx, nx),
+        huu=_block_grid(u_off, u_off, nu, nu),
+        hxu=_block_grid(x_off[:n], u_off, nx, nu),
+        hux=_block_grid(u_off, x_off[:n], nu, nx),
+        huu_next=_block_grid(u_off[:n - 1], u_off[1:], nu, nu),
+        huu_prev=_block_grid(u_off[1:], u_off[:n - 1], nu, nu))
+    # equality rows: row block k couples x_{k-1}, x_k, u_{k-1}
+    eq_row = np.array([nx * k for k in range(n + 1)])
+    # bound rows.  Deliberate deviation kept from the JAX package: the
+    # reference writes the input-box identity into columns nu * i (the
+    # state region of z); it goes on the input columns here, as the row
+    # values u_i / l_u / u_u mean.
+    n_eq = system.n_eq
+    bx_row = n_eq + nx * np.arange(n + 1)
+    bu_row = n_eq + nx * (n + 1) + nu * np.arange(n)
+    rate_row = n_eq + nx * (n + 1) + nu * n + nu * np.arange(n)
+    p_row = n_eq + nx * (n + 1) + 2 * nu * n + npc * np.arange(n + 1)
+    a_grids = dict(
+        eq_x=_block_grid(eq_row, x_off, nx, nx),
+        eq_x_prev=_block_grid(eq_row[1:], x_off[:n], nx, nx),
+        eq_u=_block_grid(eq_row[1:], u_off, nx, nu),
+        box_x=_block_grid(bx_row, x_off, nx, nx),
+        box_u=_block_grid(bu_row, u_off, nu, nu),
+        rate_u=_block_grid(rate_row, u_off, dof, dof),
+        rate_u_prev=_block_grid(rate_row[1:], u_off[:n - 1], dof, dof),
+        poly_x=_block_grid(p_row, x_off, npc, nx),
+        poly_u=_block_grid(p_row[:n], u_off, npc, nu))
+    return p_grids, a_grids
+
+
+P_GRIDS, A_GRIDS = _dense_grids()
+
+
+@functools.cache
+def _grid_tensors(device: torch.device):
+    """The index grids as tensors on ``device`` (built once per device)."""
+    as_t = lambda g: tuple(torch.as_tensor(np.ascontiguousarray(i),
+                                           device=device) for i in g)
+    return ({k: as_t(g) for k, g in P_GRIDS.items()},
+            {k: as_t(g) for k, g in A_GRIDS.items()})
 
 
 def split_z(z: torch.Tensor, system: System = PANDA):
@@ -103,6 +172,86 @@ def constraint_values(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     lvec = torch.cat([z_eq, l_ineqb, cpl.reshape(b, -1)], -1)
     uvec = torch.cat([z_eq, u_ineqb, cpu.reshape(b, -1)], -1)
     return constr, lvec, uvec
+
+
+def build_qp(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+             params: MPCCParams, current_u: torch.Tensor, ts,
+             exact_heading_jac: bool = False, system: System = PANDA):
+    """Assemble the dense normalized QP around the iterates z (B, n_var).
+
+    Returns ``(P, q, A, l, u, obj, constr)``; the normalized step dz solves
+    min 1/2 dz'P dz + q'dz  s.t.  l - constr <= A dz <= u - constr (the
+    caller forms the offsets).  The blocks never overlap, so each is
+    assigned into zeros (the JAX package's scatter-add gives the same).
+    """
+    if system != PANDA:
+        raise NotImplementedError("the dense QP layout is built for the "
+                                  "Panda at N = 10 only, as in the JAX "
+                                  "package")
+    dtype, dev = z.dtype, z.device
+    b = z.shape[0]
+    nx, nu, dof, n = system.nx, system.nu, system.dof, system.horizon
+    norm = params.normalization
+    tx, tu = norm.t_x, norm.t_u
+    xs, us = split_z(z, system)
+    up = us_padded(us)
+    p_idx, a_idx = _grid_tensors(dev)
+
+    # batched stage sweep: cost derivatives, normalized blocks
+    obj_k, fx, fu, fxx, fuu, fxu = stage_cost(
+        track, xs, up, rb, _is_terminal(n, dev), params, exact_heading_jac,
+        with_derivatives=True, system=system)
+    g_x = fx * tx
+    g_u = (fu * tu)[:, :n]
+    h_xx = tx[:, None] * fxx * tx[None, :]
+    h_uu = (tu[:, None] * fuu * tu[None, :])[:, :n]
+    h_xu = (tx[:, None] * fxu * tu[None, :])[:, :n]
+
+    # ddq smoothness cost in the u blocks: interior knots get
+    # 2r(2u_i - u_{i+1} - u_{i-1}), the ends are one-sided
+    r_ddq = params.cost.r_ddq
+    tudq = tu[:dof]
+    dq_all = us[..., :dof]
+    nbr_sum = torch.cat([dq_all[:, 1:2], dq_all[:, :-2] + dq_all[:, 2:],
+                         dq_all[:, -2:-1]], dim=1)
+    count = torch.tensor([1.0] + [2.0] * (n - 2) + [1.0], dtype=dtype,
+                         device=dev)
+    ddq_grad = 2.0 * r_ddq * (count[:, None] * dq_all - nbr_sum)
+    g_u[..., :dof] += tudq * ddq_grad
+    tu2 = torch.diag(tudq * tudq)
+    h_uu[..., :dof, :dof] += (2.0 * r_ddq * count)[:, None, None] * tu2
+    off = torch.zeros(nu, nu, dtype=dtype, device=dev)
+    off[:dof, :dof] = -2.0 * r_ddq * tu2
+    obj = obj_k.sum(-1) + r_ddq * ((dq_all[:, 1:] - dq_all[:, :-1]) ** 2
+                                   ).sum((-1, -2))
+
+    p_mat = z.new_zeros(b, system.n_var, system.n_var)
+    for name, blk in (("hxx", h_xx), ("huu", h_uu), ("hxu", h_xu),
+                      ("hux", h_xu.transpose(-1, -2)), ("huu_next", off),
+                      ("huu_prev", off)):
+        p_mat[(slice(None),) + p_idx[name]] = blk
+    qvec = torch.cat([g_x.reshape(b, -1), g_u.reshape(b, -1)], dim=-1)
+
+    # constraint matrix: equality, bound, rate and polytopic rows
+    ad, bd = _discrete_ab(ts, dtype, dev, system)
+    tx_inv = norm.t_x_inv
+    rate_blk = torch.diag(tudq) / ts
+    _, _, _, cx, cu = stage_constraints(
+        xs, up, rb, _is_terminal(n, dev), params, with_jacobian=True,
+        system=system)
+    a_mat = z.new_zeros(b, system.n_constr, system.n_var)
+    for name, blk in (
+            ("eq_x", torch.eye(nx, dtype=dtype, device=dev)),
+            ("eq_x_prev", -(tx_inv[:, None] * ad * tx[None, :])),
+            ("eq_u", -(tx_inv[:, None] * bd * tu[None, :])),
+            ("box_x", torch.diag(tx)), ("box_u", torch.diag(tu)),
+            ("rate_u", rate_blk), ("rate_u_prev", -rate_blk),
+            ("poly_x", cx * tx), ("poly_u", cu[:, :n] * tu)):
+        a_mat[(slice(None),) + a_idx[name]] = blk
+
+    constr, lvec, uvec = constraint_values(track, z, rb, params, current_u,
+                                           ts, system)
+    return p_mat, qvec, a_mat, lvec, uvec, obj, constr
 
 
 def constraint_norm(constr, l, u):

@@ -1,0 +1,139 @@
+"""K5: the OSQP ADMM loop on Ruiz-scaled dense QPs as one CUDA kernel
+launch (`csrc/admm.cu`), replacing the TPU kernel `_admm_kernel` of
+`mpcc_manipulator_tpu/ops/pallas_admm.py`.
+
+:func:`fused_admm` takes a batch of QPs in the equilibrated space (the
+explicit KKT inverse, P, A, q, rho, the bounds, the Ruiz scalings and the
+warm iterates x/z/y) and runs ``check_every``-iteration chunks, testing the
+unscaled OSQP residuals at entry and after each chunk, each scenario until
+it converges or has run ``max_iter`` iterations.  On CUDA tensors it
+launches the kernel (or raises); on CPU tensors it runs the plain version,
+:func:`fused_admm_plain`.  Both compute in float32, as the JAX wrapper
+casts; nothing is padded (the TPU kernel's 256/512 tiles were a Mosaic
+constraint).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+_ARGS = ("kinv", "p", "a", "q", "rho", "l", "u", "dscl", "escl", "cscl",
+         "x0", "z0", "y0")
+
+
+def mv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product ``mat @ v``."""
+    return (mat @ v[..., None])[..., 0]
+
+
+def vm(v: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Batched ``v' mat`` (the TPU kernel's row-vector products)."""
+    return (v[..., None, :] @ mat)[..., 0, :]
+
+
+def fused_admm_plain(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
+                     *, max_iter: int = 400, check_every: int = 25,
+                     sigma: float = 1e-6, alpha: float = 1.6,
+                     eps_abs: float = 1e-4, eps_rel: float = 1e-5):
+    """Plain PyTorch version of K5 (any device), float32.
+
+    Shapes: kinv, p (B, n, n); a (B, m, n); q, dscl, x0 (B, n); rho, l, u,
+    escl, z0, y0 (B, m); cscl (B,).  Returns ``(x (B, n), z (B, m),
+    y (B, m), it (B,))``: ``it`` counts whole chunks, and is 0 for a warm
+    start that already passes the test.
+    """
+    (kinv, p, a, q, rho, l, u, dscl, escl, cscl, x, z, y) = (
+        t.to(torch.float32) for t in (kinv, p, a, q, rho, l, u, dscl, escl,
+                                      cscl, x0, z0, y0))
+    inv_rho = 1.0 / rho
+    cscl = cscl[:, None]
+    q_abs_d = (dscl * q).abs().amax(-1, keepdim=True)
+
+    def converged(x, z, y):
+        ax, px, aty = mv(a, x), vm(x, p), vm(y, a)
+        r_prim = ((ax - z) / escl).abs().amax(-1)
+        r_dual = (dscl * (px + q + aty) / cscl).abs().amax(-1)
+        s_prim = torch.maximum((ax / escl).abs().amax(-1),
+                               (z / escl).abs().amax(-1))
+        s_dual = torch.maximum(torch.maximum(
+            (dscl * px).abs().amax(-1, keepdim=True),
+            (dscl * aty).abs().amax(-1, keepdim=True)), q_abs_d) / cscl
+        return ((r_prim <= eps_abs + eps_rel * s_prim)
+                & (r_dual <= eps_abs + eps_rel * s_dual[:, 0]))
+
+    done = converged(x, z, y)
+    it = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+    while True:
+        active = ~done & (it < max_iter)
+        if not bool(active.any()):
+            break
+        xn, zn, yn = x, z, y
+        for _ in range(check_every):
+            rhs = sigma * xn - q + vm(rho * zn - yn, a)
+            xn = vm(rhs, kinv)
+            z_relax = alpha * mv(a, xn) + (1.0 - alpha) * zn
+            z1 = torch.minimum(torch.maximum(z_relax + yn * inv_rho, l), u)
+            yn = yn + rho * (z_relax - z1)
+            zn = z1
+        act = active[:, None]
+        x = torch.where(act, xn, x)
+        z = torch.where(act, zn, z)
+        y = torch.where(act, yn, y)
+        it = torch.where(active, it + check_every, it)
+        done = torch.where(active, converged(x, z, y), done)
+    return x, z, y, it
+
+
+def fused_admm(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
+               *, max_iter: int = 400, check_every: int = 25,
+               sigma: float = 1e-6, alpha: float = 1.6,
+               eps_abs: float = 1e-4, eps_rel: float = 1e-5):
+    """K5 on CUDA (every input float32 and contiguous, shapes as in
+    :func:`fused_admm_plain`); the plain version on CPU."""
+    kw = dict(max_iter=max_iter, check_every=check_every, sigma=sigma,
+              alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel)
+    args = (kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0)
+    dev = kinv.device
+    if dev.type == "cpu":
+        return fused_admm_plain(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_admm: unsupported device {dev}")
+    if kinv.dim() != 3 or a.dim() != 3:
+        raise ValueError("fused_admm: need batched kinv (B, n, n) and "
+                         f"a (B, m, n), got {tuple(kinv.shape)}, "
+                         f"{tuple(a.shape)}")
+    b, n, m = kinv.shape[0], kinv.shape[1], a.shape[1]
+    shapes = dict(kinv=(b, n, n), p=(b, n, n), a=(b, m, n), q=(b, n),
+                  rho=(b, m), l=(b, m), u=(b, m), dscl=(b, n), escl=(b, m),
+                  cscl=(b,), x0=(b, n), z0=(b, m), y0=(b, m))
+    for name, t in zip(_ARGS, args):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"fused_admm {name}: need float32 on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shapes[name] or not t.is_contiguous():
+            raise ValueError(f"fused_admm {name}: need a contiguous "
+                             f"{shapes[name]}, got {tuple(t.shape)}")
+    if check_every < 1 or max_iter < 0:
+        raise ValueError(f"fused_admm: check_every {check_every} must be "
+                         f">= 1 and max_iter {max_iter} >= 0")
+    x = torch.empty(b, n, dtype=torch.float32, device=dev)
+    z = torch.empty(b, m, dtype=torch.float32, device=dev)
+    y = torch.empty(b, m, dtype=torch.float32, device=dev)
+    it = torch.empty(b, dtype=torch.int32, device=dev)
+    lib = cuda_build.library()
+    fused_admm.launches += 1
+    err = lib.mpcc_admm_solve(
+        *(t.data_ptr() for t in args), x.data_ptr(), z.data_ptr(),
+        y.data_ptr(), it.data_ptr(), b, n, m, int(max_iter),
+        int(check_every), *(ctypes.c_float(v) for v in
+                             (sigma, alpha, eps_abs, eps_rel)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, f"K5 admm kernel (n={n}, m={m})")
+    return x, z, y, it.long()
+
+
+fused_admm.launches = 0

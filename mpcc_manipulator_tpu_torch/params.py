@@ -136,6 +136,10 @@ class SQPConfig:
     assembly / K3 line-search route (``qp_assembly="pallas"``; ``"xla"``
     selects the plain assembly and evaluation).  The converged mode is
     ``rti=False`` with ``max_iter`` up to 20 (the bench's ``MPCC_RTI=0``).
+    ``qp_solver="admm"`` (with ``qp_assembly="xla"``) selects the dense
+    ADMM path: ``qp_backend="pallas"`` runs the K5 route (its plain version
+    for CPU tensors), ``"xla"`` the plain float64-capable loop on CPU
+    tensors only; ``use_BFGS`` is an option of this path.
     """
 
     max_iter: int = 1
@@ -169,7 +173,7 @@ _DDQ_KEYS = ["ddq1", "ddq2", "ddq3", "ddq4", "ddq5", "ddq6", "ddq7"]
 
 def load_params(param_dir: str | None = None,
                 overrides: Mapping[str, Mapping[str, float]] | None = None,
-                dtype=torch.float64, device="cpu",
+                dtype=torch.float64, device="cuda",
                 system: System = PANDA) -> tuple[MPCCParams, SQPConfig]:
     """Load the full parameter set.
 

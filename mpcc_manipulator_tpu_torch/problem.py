@@ -37,7 +37,7 @@ def lissajous_track(radius: float = 0.1, amp=(2.2, 2.6, 0.0),
     }
 
 
-def build_problem(dtype=torch.float64, device="cpu"):
+def build_problem(dtype=torch.float64, device="cuda"):
     """(track, params, sel_nn, env_nn) for the Panda Lissajous problem.
 
     The track starts at the home pose's EE position (FK in float64 on the

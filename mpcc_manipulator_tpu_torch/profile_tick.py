@@ -2,14 +2,16 @@
 
     python -m mpcc_manipulator_tpu_torch.profile_tick [--batch 1024]
 
-For the default configuration (RTI) and the converged mode, each layer of
-the tick is timed on the host clock with a ``torch.cuda.synchronize()``
-before and after it (which slows the tick), summed over ``--ticks`` ticks
-after ``--warmup`` ticks, and printed per tick.  Then ``torch.profiler``
-traces three unwrapped RTI ticks and prints the device time and the number
-of device kernels, counted from the device-side kernel events only (each
-aten operator's row also carries the device time of the kernels it
-launched, so a sum over all rows counts that time twice).
+For the default configuration (RTI, the Riccati path), its converged mode
+and the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
+MPCC_QP_BACKEND=pallas`` ablation), each layer of the tick is timed on the
+host clock with a ``torch.cuda.synchronize()`` before and after it (which
+slows the tick), summed over ``--ticks`` ticks after ``--warmup`` ticks,
+and printed per tick.  Then ``torch.profiler`` traces three unwrapped
+ticks of each RTI path and prints the device time and the number of device
+kernels, counted from the device-side kernel events only (each aten
+operator's row also carries the device time of the kernels it launched, so
+a sum over all rows counts that time twice).
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import torch
 
 from . import mpc as mpc_mod
 from .models.dynamics import sim_time_step
+from .ocp import qp_data
+from .ops import admm_kernel
 from .ops import assembly_kernel as ak
 from .params import SQPConfig
 from .problem import X0_HOME, build_problem
+from .solver import qp_admm
 from .solver import sqp as sqp_mod
 
 TS = 0.01
+ADMM_RTI = SQPConfig(qp_solver="admm", qp_backend="pallas",
+                     qp_assembly="xla", qp_max_iter=200, qp_check_every=25)
 
 # (label, module, attribute) of each timed layer
 LAYERS = [
@@ -40,6 +47,13 @@ LAYERS = [
     ("assembly (K2 + shared blocks)", ak, "build_qp_stages_k_kernel"),
     ("line-search eval (K3)", ak, "eval_point_kernel"),
     ("IPM solve (K1 + warm-start repack)", sqp_mod, "solve_qp_ipm_k"),
+    ("dense QP assembly (build_qp)", qp_data, "build_qp"),
+    ("Hessian guard (jittered Cholesky)", sqp_mod, "_hessian_guard"),
+    ("ADMM QP solve total (solve_qp)", qp_admm, "solve_qp"),
+    ("- Ruiz equilibration", qp_admm, "_ruiz_equilibrate"),
+    ("- K^-1 factorizations (2 per solve)", qp_admm, "_factor"),
+    ("- K5 ADMM loop (2 launches per solve)", admm_kernel, "fused_admm"),
+    ("line-search eval (plain)", ak, "eval_point_plain"),
     ("solve_ocp total", sqp_mod, "solve_ocp"),
 ]
 
@@ -101,24 +115,24 @@ def layer_profile(problem, batch, dev, cfg, warmup, ticks):
             {k: v / ticks for k, v in acc.items()})
 
 
-def device_profile(problem, batch, dev, warmup, ticks=3):
+def device_profile(problem, batch, dev, cfg, warmup, ticks=3):
     """(device kernel s, kernels launched, profiled wall s, median
-    unprofiled tick s) over ``ticks`` RTI ticks, the first three from the
-    profiler's device-side kernel events."""
+    unprofiled tick s) over ``ticks`` ticks of ``cfg``, the first three
+    from the profiler's device-side kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    state, _ = _ticks(problem, _start(batch, dev), warmup, SQPConfig())
+    state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
     plain = []
     for _ in range(10):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = _ticks(problem, state, 1, SQPConfig())
+        state, _ = _ticks(problem, state, 1, cfg)
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _ticks(problem, state, ticks, SQPConfig())
+        _ticks(problem, state, ticks, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -140,21 +154,24 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     problem = build_problem(torch.float32, dev)
     for label, cfg in [("RTI (default)", SQPConfig()),
-                       ("converged", SQPConfig(rti=False, max_iter=20))]:
+                       ("converged", SQPConfig(rti=False, max_iter=20)),
+                       ("ADMM RTI (K4 + K5)", ADMM_RTI)]:
         med, iters, layers = layer_profile(problem, args.batch, dev, cfg,
                                            args.warmup, args.ticks)
         print(f"== {label}, batch {args.batch}: wrapped tick median "
               f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}")
         for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
             print(f"   {k}: {v * 1e3:.3f} ms/tick")
-    busy, n_kernels, wall, tick, prof = device_profile(
-        problem, args.batch, dev, args.warmup)
-    print(f"profiler, 3 RTI ticks: device kernel time {busy * 1e3:.3f} ms "
-          f"in {wall * 1e3:.1f} ms wall (profiled); {n_kernels} device "
-          f"kernels, {n_kernels / 3:.0f} per tick; unprofiled tick median "
-          f"{tick * 1e3:.3f} ms, device busy {busy / 3 / tick:.1%} of it")
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=12))
+    for label, cfg in [("RTI", SQPConfig()), ("ADMM RTI", ADMM_RTI)]:
+        busy, n_kernels, wall, tick, prof = device_profile(
+            problem, args.batch, dev, cfg, args.warmup)
+        print(f"profiler, 3 {label} ticks: device kernel time "
+              f"{busy * 1e3:.3f} ms in {wall * 1e3:.1f} ms wall (profiled); "
+              f"{n_kernels} device kernels, {n_kernels / 3:.0f} per tick; "
+              f"unprofiled tick median {tick * 1e3:.3f} ms, device busy "
+              f"{busy / 3 / tick:.1%} of it")
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=12))
 
 
 if __name__ == "__main__":

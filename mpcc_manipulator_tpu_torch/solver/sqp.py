@@ -1,21 +1,28 @@
-"""The SQP loop, batch-first (`mpcc_manipulator_tpu/solver/sqp.py::solve_ocp`,
-Riccati body).
+"""The SQP loop, batch-first (`mpcc_manipulator_tpu/solver/sqp.py::solve_ocp`).
 
-Per iteration: stage-QP assembly (K2 for ``qp_assembly="pallas"``, the
-plain assembly for ``"xla"``) -> NaN guard -> K1 interior-point solve
-(warm-started from the carried slacks/duals, clipped off the boundary) ->
-optional second-order correction re-solve -> step back to the dense layout
--> filter or l1-merit line search (the trial values from K3 or the plain
-evaluation) -> step -> ``eps_prim`` test.
+Two bodies, routed by ``cfg.qp_solver``:
 
-The loop is the JAX ``fleet_mode`` form: ``max_iter`` trips with a per-lane
-freeze once a lane is done, equal lane for lane to ``vmap(while_loop)``.
-It stops early once every lane is done (one flag read per iteration, none
-after the last).  The filter carries its entries from iteration to
-iteration, as do the IPM warm iterates.  Under RTI (``rti=True``) every
-iteration counts as converged, so the loop ends after its first.  On
-failure the returned horizon is the zero-velocity guess (all knots at x0,
-inputs zero).
+* ``"riccati_pallas"``: stage-QP assembly (K2 for ``qp_assembly="pallas"``,
+  the plain assembly for ``"xla"``) -> NaN guard -> K1 interior-point solve
+  (warm-started from the carried slacks/duals, clipped off the boundary) ->
+  optional second-order correction re-solve -> step back to the dense
+  layout -> filter or l1-merit line search (the trial values from K3 or the
+  plain evaluation);
+* ``"admm"``: the dense QP (``build_qp``) -> optional damped BFGS update of
+  the Lagrangian Hessian -> NaN / positive-definiteness guard (jittered
+  Cholesky) -> ADMM QP solve (K5 for ``qp_backend="pallas"``, the plain
+  loop for ``"xla"`` on the CPU), warm-started from the last QP's primal
+  and dual -> optional second-order correction (a cold re-solve) -> filter
+  or l1-merit line search on the plain evaluation -> step and dual update;
+
+then the ``eps_prim`` test.  The loop is the JAX ``fleet_mode`` form:
+``max_iter`` trips with a per-lane freeze once a lane is done, equal lane
+for lane to ``vmap(while_loop)``.  It stops early once every lane is done
+(one flag read per iteration, none after the last).  The filter carries its
+entries from iteration to iteration, as do the IPM warm iterates and the
+ADMM warm start.  Under RTI (``rti=True``) every iteration counts as
+converged, so the loop ends after its first.  On failure the returned
+horizon is the zero-velocity guess (all knots at x0, inputs zero).
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from ..ocp import qp_data
 from ..ocp import qp_stages as qps
 from ..ocp.robot_data import RobotData
 from ..ops import assembly_kernel as ak
+from ..ops.admm_kernel import mv
 from ..params import MPCCParams, SQPConfig
 from ..splines.arc_length import TrackSpline
 from ..system import PANDA, System
+from . import qp_admm
 from .qp_ipm_kernel import solve_qp_ipm_k
 
 
@@ -39,39 +48,58 @@ class Status:
     SOLVED = 0
     MAX_ITER_EXCEEDED = 1
     NAN_HESSIAN = 2
+    NON_PD_HESSIAN = 3
+    QP_NOT_CONVERGED = 4   # ADMM hit its iteration cap with large residuals
 
 
 @dataclasses.dataclass
 class SQPResult:
     z: torch.Tensor                 # (B, n_var) iterate, or zero guess
+    lam: torch.Tensor               # (B, n_constr) duals (ADMM path)
     status: torch.Tensor            # (B,) Status code
     sqp_iters: torch.Tensor         # (B,) SQP iterations run
-    qp_iters: torch.Tensor          # (B,) Newton iterations of the IPM, summed
+    qp_iters: torch.Tensor          # (B,) IPM Newton / ADMM iterations, summed
     primal_step_norm: torch.Tensor  # (B,)
     success: torch.Tensor           # (B,) status == SOLVED
+    qp_x: torch.Tensor              # (B, n_var) last QP primal (ADMM)
+    qp_y: torch.Tensor              # (B, n_constr) last QP dual
     ipm_s: torch.Tensor             # (B, N+1, nc_stage) IPM slacks
     ipm_lam: torch.Tensor           # (B, N+1, nc_stage) IPM duals
 
 
 def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
-    """Reject every configuration the port does not run yet, naming the
-    ROADMAP item that ports it (a setting is never silently ignored)."""
+    """Raise the JAX package's ``ValueError`` for an inconsistent
+    configuration, and ``NotImplementedError`` for every configuration the
+    port does not run yet, naming the ROADMAP item that ports it (a setting
+    is never silently ignored)."""
+    if system.name != "panda" and cfg.qp_solver == "admm":
+        raise ValueError(
+            "the dense ADMM backend is Panda-only (OSQP-conformance path); "
+            "use qp_solver='riccati' for other systems")
+    if cfg.qp_assembly == "pallas" and cfg.qp_solver != "riccati_pallas":
+        raise ValueError(
+            "qp_assembly='pallas' requires qp_solver='riccati_pallas' "
+            "(the kernel assembly emits the kernel-direct StageQPK blocks)")
+    if cfg.use_BFGS and cfg.qp_solver.startswith("riccati"):
+        raise ValueError(
+            "use_BFGS requires the dense ADMM backend (qp_solver='admm'): "
+            "the structured Riccati/IPM path factors exact stage Hessians "
+            "and is structurally incompatible with a dense BFGS carry")
     todo = {
         "qp_assembly other than 'pallas' (K2/K3) or 'xla' (plain)":
             cfg.qp_assembly not in ("pallas", "xla"),
         "ipm_scheme='mehrotra' (ROADMAP item 11)": cfg.ipm_scheme != "adaptive",
-        "qp_solver='admm' (dense ADMM; ROADMAP item 14)":
-            cfg.qp_solver == "admm",
+        "qp_backend other than 'pallas' (K5) or 'xla' (plain, CPU)":
+            cfg.qp_backend not in qp_admm.BACKENDS,
         "line_search other than 'filter' or 'merit'":
             cfg.line_search not in ("filter", "merit"),
-        "use_BFGS (dense ADMM; ROADMAP item 14)": cfg.use_BFGS,
         "fleet_mode (the port's loops are per-lane masked already; "
         "ROADMAP 'not to port')": cfg.fleet_mode,
         "nn_bf16 (ROADMAP 'not to port')": cfg.nn_bf16,
         "mani_grad other than 'analytic' (ROADMAP item 11)":
             cfg.mani_grad != "analytic",
         "qp_solver other than the K1 route 'riccati_pallas' (the plain "
-        "version runs for CPU tensors)":
+        "version runs for CPU tensors) or 'admm'":
             cfg.qp_solver not in ("riccati_pallas", "admm"),
         "kin_backend other than the K4 route 'pallas' (the plain version "
         "runs for CPU tensors)": cfg.kin_backend != "pallas",
@@ -129,19 +157,61 @@ def _stage_model_terms(rep: qps.StageQPK, sol, system: System = PANDA):
     return q_dot, quad
 
 
+def _bfgs_update(hess, step_prev, delta_grad_l):
+    """Damped BFGS per lane (`OsqpInterface::BFGSUpdate`, Nocedal Proc.
+    18.2): hess (B, n, n), step_prev and delta_grad_l (B, n)."""
+    bs = mv(hess, step_prev)
+    s_bs = (step_prev * bs).sum(-1)
+    sy = (step_prev * delta_grad_l).sum(-1)
+    damped = sy < 0.2 * s_bs
+    theta = torch.where(damped, 0.8 * s_bs / torch.clamp(s_bs - sy,
+                                                          min=1e-300),
+                        torch.ones_like(s_bs))
+    r = theta[:, None] * delta_grad_l + (1.0 - theta)[:, None] * bs
+    sr = theta * sy + (1.0 - theta) * s_bs
+    outer = lambda v, w: v[:, :, None] * w[:, None, :]
+    upd = (hess - outer(bs, bs) / torch.clamp(s_bs, min=1e-300)[:, None, None]
+           + outer(r, r) / sr[:, None, None])
+    ok = sr >= torch.finfo(hess.dtype).eps
+    return torch.where(ok[:, None, None], upd, hess)
+
+
+def _hessian_guard(hess: torch.Tensor):
+    """``(guard_fail, guard status)`` per lane: a jittered Cholesky of the
+    Hessian (jitter ``n_var eps max|diag H|``: the GN q-block is nearly
+    rank 6, so an unjittered float32 factorization fails on roundoff),
+    NAN_HESSIAN where it holds a NaN, NON_PD_HESSIAN where it is not
+    positive definite."""
+    n = hess.shape[-1]
+    eye = torch.eye(n, dtype=hess.dtype, device=hess.device)
+    jitter = (n * torch.finfo(hess.dtype).eps
+              * hess.diagonal(dim1=-2, dim2=-1).abs().amax(-1))
+    chol = qp_admm.cholesky_nan(hess + jitter[:, None, None] * eye)
+    non_pd = torch.isnan(chol).flatten(1).any(-1)
+    has_nan = torch.isnan(hess).flatten(1).any(-1)
+    status = torch.where(has_nan, Status.NAN_HESSIAN, Status.NON_PD_HESSIAN)
+    return non_pd | has_nan, status
+
+
 @dataclasses.dataclass
 class _LoopState:
     """Per-lane SQP loop state (frozen on a lane once it is done)."""
 
     z: torch.Tensor
+    lam: torch.Tensor       # (B, n_constr) duals (ADMM path)
     f_obj: torch.Tensor     # (B, max_iter+1) filter entries
     f_vio: torch.Tensor
     f_cnt: torch.Tensor
+    hess: torch.Tensor      # (B, n_var, n_var) BFGS carry, else (B, 1, 1)
+    grad_l: torch.Tensor    # (B, n_var) Lagrangian gradient, else (B, 1)
+    step_prev: torch.Tensor
     it: torch.Tensor
     status: torch.Tensor
     prim_norm: torch.Tensor
     qp_it: torch.Tensor
     done: torch.Tensor
+    qp_x: torch.Tensor      # ADMM warm start (unscaled primal / dual)
+    qp_y: torch.Tensor
     ipm_s: torch.Tensor
     ipm_lam: torch.Tensor
 
@@ -149,21 +219,28 @@ class _LoopState:
 def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
               cfg: SQPConfig, z0: torch.Tensor, current_u: torch.Tensor,
               ts: float, exact_heading_jac: bool = False,
+              qp_x0: torch.Tensor | None = None,
+              qp_y0: torch.Tensor | None = None,
               ipm_s0: torch.Tensor | None = None,
               ipm_lam0: torch.Tensor | None = None,
               system: System = PANDA) -> SQPResult:
     """Run the SQP loop from the warm-start iterates ``z0`` (B, n_var).
 
-    ``ipm_s0``/``ipm_lam0``: packed (B, N+1, nc_stage) interior-point
-    iterates, consumed when ``cfg.ipm_warm_start`` is set (ones = cold).
+    ``qp_x0``/``qp_y0``: (B, n_var) / (B, n_constr) warm start of the first
+    ADMM solve (zeros = cold).  ``ipm_s0``/``ipm_lam0``: packed
+    (B, N+1, nc_stage) interior-point iterates, consumed when
+    ``cfg.ipm_warm_start`` is set (ones = cold).  Each path passes the
+    other's warm state through unchanged.
     """
     check_supported(cfg, system)
     dtype, dev = z0.dtype, z0.device
     bsz = z0.shape[0]
+    n_var, n_constr = system.n_var, system.n_constr
     current_u = current_u.contiguous()    # K2/K3 read it row by row
     sqp = params.sqp
     nanany = lambda t: torch.isnan(t).flatten(1).any(-1)
     alpha_fail = sqp.line_search_tau ** cfg.line_search_max_iter
+    riccati = cfg.qp_solver != "admm"
     kernels = cfg.qp_assembly == "pallas"
     assemble = (ak.build_qp_stages_k_kernel if kernels
                 else ak.build_qp_stages_k_plain)
@@ -180,7 +257,56 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
         return solve_qp_ipm_k(rep, max_iter=cfg.ipm_max_iter, warm_s=warm_s,
                               warm_lam=warm_lam, system=system)
 
-    def iteration(st: _LoopState) -> _LoopState:
+    def solve_dense(p, q, a, lo, hi, **warm):
+        return qp_admm.solve_qp(p, q, a, lo, hi, max_iter=cfg.qp_max_iter,
+                                check_every=cfg.qp_check_every,
+                                backend=cfg.qp_backend, **warm)
+
+    def line_search(z, dz, st, merit_terms):
+        """``(alpha, f_obj, f_vio, f_cnt)``: the l1-merit Armijo search
+        over every candidate step length in one evaluation (the first that
+        satisfies Armijo is taken; all rejected falls through with one more
+        tau decay), or the filter's one effective candidate (alpha = 1).
+        ``merit_terms()`` gives ``(obj0, vio0, q'step, step'H step)``."""
+        f_obj, f_vio, f_cnt = st.f_obj, st.f_vio, st.f_cnt
+        if cfg.line_search == "merit":
+            obj0, vio0, q_dot, quad = merit_terms()
+            mu = ((q_dot + 0.5 * quad)
+                  / ((1.0 - sqp.line_search_rho)
+                     * torch.clamp(vio0, min=1e-12)))
+            phi0 = obj0 + mu * vio0
+            dp_phi = q_dot - mu * vio0
+            alphas = sqp.line_search_tau ** torch.arange(
+                cfg.line_search_max_iter, dtype=dtype, device=dev)
+            obj_a, vio_a = eval_point(z[:, None] + alphas[None, :, None]
+                                      * dz[:, None])
+            phis = obj_a + mu[:, None] * vio_a
+            ok_a = phis <= (phi0[:, None] + alphas[None] * sqp.line_search_eta
+                            * dp_phi[:, None])
+            first = torch.argmax(ok_a.to(torch.uint8), dim=1)
+            alpha = torch.where(ok_a.any(1), alphas[first],
+                                alphas[-1] * sqp.line_search_tau)
+            return alpha.to(dtype), f_obj, f_vio, f_cnt
+        obj_try, vio_try = eval_point(z + dz)
+        dominated = ((obj_try[:, None] >= f_obj)
+                     & (vio_try[:, None] >= f_vio)).any(-1)
+        accepted = ~dominated
+        alpha = torch.where(accepted, torch.ones_like(obj_try),
+                            alpha_fail * torch.ones_like(obj_try))
+        # on acceptance drop the dominated entries, append at f_cnt
+        keep = (obj_try[:, None] > f_obj) | (vio_try[:, None] > f_vio)
+        inf = torch.full_like(f_obj, float("inf"))
+        f_obj_new = torch.where(keep, f_obj, inf)
+        f_vio_new = torch.where(keep, f_vio, inf)
+        rows = torch.arange(bsz, device=dev)
+        f_obj_new[rows, f_cnt] = obj_try
+        f_vio_new[rows, f_cnt] = vio_try
+        f_obj = torch.where(accepted[:, None], f_obj_new, f_obj)
+        f_vio = torch.where(accepted[:, None], f_vio_new, f_vio)
+        f_cnt = torch.where(accepted, f_cnt + 1, f_cnt)
+        return alpha.to(dtype), f_obj, f_vio, f_cnt
+
+    def riccati_iteration(st: _LoopState) -> _LoopState:
         z = st.z
         rep = assemble(track, z, rb, params, current_u, ts,
                        exact_heading_jac, system)
@@ -211,53 +337,16 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
         step = torch.where(guard_fail[:, None], torch.zeros_like(step), step)
         dz = qp_data.denormalize_step(step, params, system)
 
-        f_obj, f_vio, f_cnt = st.f_obj, st.f_vio, st.f_cnt
-        if cfg.line_search == "merit":
-            # l1-merit Armijo backtracking: every candidate step length in
-            # one evaluation, the first that satisfies Armijo is taken
+        def merit_terms():
             obj0, vio0 = eval_point(z)
             q_dot, quad = _stage_model_terms(rep, sol, system)
-            q_dot, quad = q_dot.to(dtype), quad.to(dtype)
-            mu = ((q_dot + 0.5 * quad)
-                  / ((1.0 - sqp.line_search_rho)
-                     * torch.clamp(vio0, min=1e-12)))
-            phi0 = obj0 + mu * vio0
-            dp_phi = q_dot - mu * vio0
-            alphas = sqp.line_search_tau ** torch.arange(
-                cfg.line_search_max_iter, dtype=dtype, device=dev)
-            obj_a, vio_a = eval_point(z[:, None] + alphas[None, :, None]
-                                      * dz[:, None])
-            phis = obj_a + mu[:, None] * vio_a
-            ok_a = phis <= (phi0[:, None] + alphas[None] * sqp.line_search_eta
-                            * dp_phi[:, None])
-            first = torch.argmax(ok_a.to(torch.uint8), dim=1)
-            alpha = torch.where(ok_a.any(1), alphas[first],
-                                alphas[-1] * sqp.line_search_tau)
-        else:
-            # filter line search: one effective candidate (alpha = 1)
-            obj_try, vio_try = eval_point(z + dz)
-            dominated = ((obj_try[:, None] >= f_obj)
-                         & (vio_try[:, None] >= f_vio)).any(-1)
-            accepted = ~dominated
-            alpha = torch.where(accepted, torch.ones_like(obj_try),
-                                alpha_fail * torch.ones_like(obj_try))
-            # on acceptance drop the dominated entries, append at f_cnt
-            keep = (obj_try[:, None] > f_obj) | (vio_try[:, None] > f_vio)
-            inf = torch.full_like(f_obj, float("inf"))
-            f_obj_new = torch.where(keep, f_obj, inf)
-            f_vio_new = torch.where(keep, f_vio, inf)
-            rows = torch.arange(bsz, device=dev)
-            f_obj_new[rows, f_cnt] = obj_try
-            f_vio_new[rows, f_cnt] = vio_try
-            f_obj = torch.where(accepted[:, None], f_obj_new, f_obj)
-            f_vio = torch.where(accepted[:, None], f_vio_new, f_vio)
-            f_cnt = torch.where(accepted, f_cnt + 1, f_cnt)
-        alpha = alpha.to(dtype)
+            return obj0, vio0, q_dot.to(dtype), quad.to(dtype)
 
+        alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
         prim_norm = alpha * torch.abs(step).amax(-1)
         converged = (prim_norm < sqp.eps_prim) | cfg.rti
-        return _LoopState(
-            z=torch.where(guard_fail[:, None], z, z + alpha[:, None] * dz),
+        return dataclasses.replace(
+            st, z=torch.where(guard_fail[:, None], z, z + alpha[:, None] * dz),
             f_obj=f_obj, f_vio=f_vio, f_cnt=f_cnt, it=st.it + 1,
             status=torch.where(
                 guard_fail, Status.NAN_HESSIAN,
@@ -266,16 +355,75 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
             prim_norm=prim_norm, qp_it=st.qp_it + qp_used,
             done=guard_fail | converged, ipm_s=ipm_s, ipm_lam=ipm_lam)
 
+    def admm_iteration(st: _LoopState) -> _LoopState:
+        z = st.z
+        p_mat, qvec, a_mat, lvec, uvec, obj, constr = qp_data.build_qp(
+            track, z, rb, params, current_u, ts, exact_heading_jac, system)
+        hess, grad_l = p_mat, st.grad_l
+        if cfg.use_BFGS:
+            grad_l = qvec + mv(a_mat.transpose(-1, -2), st.lam)
+            hess = torch.where(
+                (st.it == 0)[:, None, None], p_mat,
+                _bfgs_update(st.hess, st.step_prev, grad_l - st.grad_l))
+        guard_fail, guard_status = _hessian_guard(hess)
+
+        # QP solve, warm-started from the last QP's primal and dual
+        warm = (dict(x_warm=st.qp_x, y_warm=st.qp_y) if cfg.qp_warm_start
+                else {})
+        qp_sol = solve_dense(hess, qvec, a_mat, lvec - constr, uvec - constr,
+                             **warm)
+        step, y_qp = qp_sol.x, qp_sol.y
+        if cfg.do_SOC:
+            # second-order correction: constraints re-evaluated at z + dz,
+            # d = c(z + dz) - A dz, and a cold re-solve
+            c_soc, l_soc, u_soc = qp_data.constraint_values(
+                track, z + qp_data.denormalize_step(step, params, system),
+                rb, params, current_u, ts, system)
+            d = c_soc - mv(a_mat, step)
+            qp_sol2 = solve_dense(hess, qvec, a_mat, l_soc - d, u_soc - d)
+            step, y_qp = qp_sol2.x, qp_sol2.y
+        dz = qp_data.denormalize_step(step, params, system)
+
+        def merit_terms():
+            return (obj, qp_data.constraint_norm(constr, lvec, uvec),
+                    (qvec * step).sum(-1), (step * mv(hess, step)).sum(-1))
+
+        alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
+        prim_norm = alpha * torch.abs(step).amax(-1)
+        converged = (prim_norm < sqp.eps_prim) | cfg.rti
+        a_col = alpha[:, None]
+        return dataclasses.replace(
+            st, z=torch.where(guard_fail[:, None], z, z + a_col * dz),
+            lam=torch.where(guard_fail[:, None], st.lam,
+                            st.lam + a_col * (y_qp - st.lam)),
+            f_obj=f_obj, f_vio=f_vio, f_cnt=f_cnt,
+            hess=hess if cfg.use_BFGS else st.hess, grad_l=grad_l,
+            step_prev=a_col * step, it=st.it + 1,
+            status=torch.where(
+                guard_fail, guard_status,
+                torch.where(converged, Status.SOLVED,
+                            Status.MAX_ITER_EXCEEDED)),
+            prim_norm=prim_norm, qp_it=st.qp_it + qp_sol.iters,
+            done=guard_fail | converged, qp_x=qp_sol.x, qp_y=qp_sol.y)
+
+    iteration = riccati_iteration if riccati else admm_iteration
     ones = torch.ones(bsz, system.horizon + 1, system.nc_stage, dtype=dtype,
                       device=dev)
+    zeros = lambda *shape: torch.zeros(bsz, *shape, dtype=dtype, device=dev)
     long0 = torch.zeros(bsz, dtype=torch.long, device=dev)
     f_init = torch.full((bsz, cfg.max_iter + 1), float("inf"), dtype=dtype,
                         device=dev)
+    # the dense BFGS carry exists only where BFGS consumes it
+    h_dim = n_var if cfg.use_BFGS else 1
     st = _LoopState(
-        z=z0, f_obj=f_init, f_vio=f_init.clone(), f_cnt=long0, it=long0,
+        z=z0, lam=zeros(n_constr), f_obj=f_init, f_vio=f_init.clone(),
+        f_cnt=long0, hess=zeros(h_dim, h_dim), grad_l=zeros(h_dim),
+        step_prev=zeros(n_var), it=long0,
         status=torch.full_like(long0, Status.MAX_ITER_EXCEEDED),
         prim_norm=torch.full((bsz,), float("inf"), dtype=dtype, device=dev),
         qp_it=long0, done=torch.zeros(bsz, dtype=torch.bool, device=dev),
+        qp_x=zeros(n_var) if qp_x0 is None else qp_x0,
+        qp_y=zeros(n_constr) if qp_y0 is None else qp_y0,
         ipm_s=ones if ipm_s0 is None else ipm_s0,
         ipm_lam=ones if ipm_lam0 is None else ipm_lam0)
     for trip in range(cfg.max_iter):
@@ -294,6 +442,7 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
                             z0.new_zeros(bsz, system.nu * system.horizon)],
                            dim=-1)
     return SQPResult(
-        z=torch.where(success[:, None], st.z, zero_guess), status=st.status,
-        sqp_iters=st.it, qp_iters=st.qp_it, primal_step_norm=st.prim_norm,
-        success=success, ipm_s=st.ipm_s, ipm_lam=st.ipm_lam)
+        z=torch.where(success[:, None], st.z, zero_guess), lam=st.lam,
+        status=st.status, sqp_iters=st.it, qp_iters=st.qp_it,
+        primal_step_norm=st.prim_norm, success=success, qp_x=st.qp_x,
+        qp_y=st.qp_y, ipm_s=st.ipm_s, ipm_lam=st.ipm_lam)

@@ -81,7 +81,7 @@ def _resample(sx, sy, sz, sr, total_len: float, n: int):
 
 
 def gen_6d_spline(x, y, z, rotations, dtype=torch.float64,
-                  device="cpu") -> TrackSpline:
+                  device="cuda") -> TrackSpline:
     """Double-pass fit: fit -> resample -> refit -> resample -> final
     regular-knot spline on ``device``."""
     x, y, z = (np.asarray(v, dtype=np.float64) for v in (x, y, z))

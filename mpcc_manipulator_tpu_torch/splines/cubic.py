@@ -72,7 +72,7 @@ class CubicSplineCoeffs:
 
     @classmethod
     def from_fit(cls, x: np.ndarray, y: np.ndarray, dtype=torch.float64,
-                 device="cpu"):
+                 device="cuda"):
         a, b, c, d = fit_natural_cubic(x, y)
         t = lambda v: torch.tensor(v, dtype=dtype, device=device)
         return cls(delta=t(float(x[1] - x[0])), length=t(float(x[-1])),

@@ -46,7 +46,7 @@ class RotSplineCoeffs:
 
     @classmethod
     def from_knots(cls, x: np.ndarray, rotations: np.ndarray,
-                   dtype=torch.float64, device="cpu"):
+                   dtype=torch.float64, device="cuda"):
         x = np.asarray(x, dtype=np.float64)
         rotations = np.asarray(rotations, dtype=np.float64)
         h = np.diff(x)

@@ -74,9 +74,10 @@ def setup():
         0.15 * np.sin(phi) + ee[2],
         np.tile(np.diag([1.0, -1.0, -1.0]), (nt, 1, 1)))
     np_tree = lambda t: jax.tree.map(np.asarray, t)
-    port = dict(track=convert.track(np_tree(jtrack)),
-                params=convert.mpcc_params(np_tree(jp)),
-                sel=convert.mlp(np_tree(jsel)), env=convert.mlp(np_tree(jenv)))
+    port = dict(track=convert.track(np_tree(jtrack), device="cpu"),
+                params=convert.mpcc_params(np_tree(jp), device="cpu"),
+                sel=convert.mlp(np_tree(jsel), device="cpu"),
+                env=convert.mlp(np_tree(jenv), device="cpu"))
     return (jtrack, jp, jsel, jenv), port, ee
 
 

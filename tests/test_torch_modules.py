@@ -57,7 +57,8 @@ def t64(a):
     ids=["defaults", "overrides"])
 def test_load_params_matches_jax(overrides):
     jp, jcfg = jparams.load_params(overrides=overrides, dtype=jnp.float64)
-    pp, pcfg = params.load_params(overrides=overrides, dtype=F64)
+    pp, pcfg = params.load_params(overrides=overrides, dtype=F64,
+                                  device="cpu")
     for group in ("model", "cost", "bounds", "normalization", "sqp"):
         jg, pg = getattr(jp, group), getattr(pp, group)
         for f in jg.__dataclass_fields__:
@@ -131,12 +132,12 @@ def tracks():
     w = 0.2 * rng.standard_normal((len(x), 3)).cumsum(0) / len(x)
     rots = np.stack([np.asarray(jso3.exp_rot(jnp.asarray(v))) for v in w])
     return (jals.gen_6d_spline(x, y, z, rots, dtype=jnp.float64),
-            als.gen_6d_spline(x, y, z, rots, dtype=F64))
+            als.gen_6d_spline(x, y, z, rots, dtype=F64, device="cpu"))
 
 
 def test_spline_fit_matches_jax(tracks):
     jt, pt = tracks
-    conv = convert.track(jax.tree.map(np.asarray, jt))
+    conv = convert.track(jax.tree.map(np.asarray, jt), device="cpu")
     for name in ("sx", "sy", "sz"):
         for f in ("delta", "length", "a", "b", "c", "d"):
             assert_close(getattr(getattr(pt, name), f),
@@ -244,7 +245,7 @@ def test_collision_nn_matches_jax(kind):
     jnet = (jcnn.load_self_collision_nn if kind == "self"
             else jcnn.load_env_collision_nn)(dtype=jnp.float64)
     pnet = (cnn.load_self_collision_nn if kind == "self"
-            else cnn.load_env_collision_nn)(dtype=F64)
+            else cnn.load_env_collision_nn)(dtype=F64, device="cpu")
     rng = np.random.default_rng(8)
     n_in = 7 if kind == "self" else 10
     x = np.concatenate([_qs(6, 9), 0.3 * rng.standard_normal((6, 3))],
@@ -263,9 +264,9 @@ def test_convert_mlp_gives_identical_outputs(kind):
     """JAX MLPParams -> the port's nn.Module: same weights, same outputs."""
     jnet = (jcnn.load_self_collision_nn if kind == "self"
             else jcnn.load_env_collision_nn)(dtype=jnp.float64)
-    net = convert.mlp(jax.tree.map(np.asarray, jnet))
+    net = convert.mlp(jax.tree.map(np.asarray, jnet), device="cpu")
     ref_net = (cnn.load_self_collision_nn if kind == "self"
-               else cnn.load_env_collision_nn)(dtype=F64)
+               else cnn.load_env_collision_nn)(dtype=F64, device="cpu")
     for lin, w, b in zip(net.layers, jnet.weights, jnet.biases):
         assert np.array_equal(lin.weight.numpy(), np.asarray(w))
         assert np.array_equal(lin.bias.numpy(), np.asarray(b))
@@ -282,7 +283,7 @@ def test_convert_mlp_gives_identical_outputs(kind):
 
 def test_convert_carry_matches_port_carry():
     """A batched JAX MPCCarry -> the port's MPCCarry: same fields, kinds
-    and values (the ADMM-only qp_x / qp_y are not carried)."""
+    and values (the ADMM warm start qp_x / qp_y included)."""
     from mpcc_manipulator_tpu import mpc as jmpc
     from mpcc_manipulator_tpu_torch import mpc as pmpc
     rng = np.random.default_rng(10)
@@ -291,11 +292,12 @@ def test_convert_carry_matches_port_carry():
     jc = jc.replace(z_guess=rng.standard_normal(jc.z_guess.shape),
                     valid_guess=np.array([True, False, True]),
                     num_guess_failed=np.array([0, 2, 4], dtype=np.int32),
+                    qp_y=rng.standard_normal(jc.qp_y.shape),
                     ipm_lam=rng.uniform(0.1, 100.0, jc.ipm_lam.shape))
-    got = convert.carry(jc)
-    ref = pmpc.init_carry(3, F64)
-    for f in ("z_guess", "valid_guess", "num_guess_failed", "ipm_s",
-              "ipm_lam"):
+    got = convert.carry(jc, device="cpu")
+    ref = pmpc.init_carry(3, F64, "cpu")
+    for f in ("z_guess", "valid_guess", "num_guess_failed", "qp_x", "qp_y",
+              "ipm_s", "ipm_lam"):
         g, r = getattr(got, f), getattr(ref, f)
         assert g.dtype == r.dtype and g.shape == r.shape, f
         assert np.array_equal(g.numpy(), np.asarray(getattr(jc, f))), f

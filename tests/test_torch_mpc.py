@@ -44,10 +44,10 @@ def problem():
     track, params, _, sel_nn, env_nn, carry, _, u0, obs = _build_problem(
         jnp.float64, small=False)
     np_tree = lambda t: jax.tree.map(np.asarray, t)
-    port = dict(track=convert.track(np_tree(track)),
-                params=convert.mpcc_params(np_tree(params)),
-                sel_nn=convert.mlp(np_tree(sel_nn)),
-                env_nn=convert.mlp(np_tree(env_nn)))
+    port = dict(track=convert.track(np_tree(track), device="cpu"),
+                params=convert.mpcc_params(np_tree(params), device="cpu"),
+                sel_nn=convert.mlp(np_tree(sel_nn), device="cpu"),
+                env_nn=convert.mlp(np_tree(env_nn), device="cpu"))
     rng = np.random.default_rng(7)
     x0 = X0_HOME[None] + 0.01 * rng.standard_normal((BATCH, 9))
     x0[:, 7:] = np.abs(x0[:, 7:])
@@ -64,7 +64,7 @@ def test_mpc_step_matches_jax_closed_loop(problem):
     xj = [jnp.asarray(x0[i]) for i in range(BATCH)]
     uj = [u0] * BATCH
     dt = torch.float64
-    carry = init_carry(BATCH, dt)
+    carry = init_carry(BATCH, dt, "cpu")
     x = torch.tensor(x0, dtype=dt)
     u = torch.zeros(BATCH, 8, dtype=dt)
     obs_t = torch.tensor(np.asarray(obs), dtype=dt).expand(BATCH, 3)
@@ -102,13 +102,14 @@ def test_rti_passes_oracle_conformance_gate():
     params, track, tr_o, p_o, sel_o, env_o, sel_j, env_j = \
         tco.setup.__wrapped__()
     np_tree = lambda t: jax.tree.map(np.asarray, t)
-    ptrack = convert.track(np_tree(track))
-    pparams = convert.mpcc_params(np_tree(params))
-    psel, penv = convert.mlp(np_tree(sel_j)), convert.mlp(np_tree(env_j))
+    ptrack = convert.track(np_tree(track), device="cpu")
+    pparams = convert.mpcc_params(np_tree(params), device="cpu")
+    psel = convert.mlp(np_tree(sel_j), device="cpu")
+    penv = convert.mlp(np_tree(env_j), device="cpu")
     cfg = SQPConfig(ipm_warm_start=False, ipm_max_iter=40)
     mpc_o = osol.OracleMPC(tr_o, p_o, sel_o, env_o, ts=tco.TS)
     dt = torch.float64
-    carry = init_carry(1, dt)
+    carry = init_carry(1, dt, "cpu")
     obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=dt)
     rad = torch.zeros(1, dtype=dt)
     x_o, u_o = tco.X0.copy(), np.zeros(8)
@@ -132,27 +133,31 @@ def test_rti_passes_oracle_conformance_gate():
 
 
 @pytest.mark.parametrize("change", [
-    dict(ipm_scheme="mehrotra"), dict(qp_solver="admm"),
-    dict(use_BFGS=True), dict(fleet_mode=True), dict(nn_bf16=True),
+    dict(ipm_scheme="mehrotra"), dict(fleet_mode=True), dict(nn_bf16=True),
     dict(mani_grad="fd"), dict(qp_solver="riccati"),
     dict(kin_backend="xla"), dict(ipm_interpret=True)],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_off_slice_settings_raise(change):
-    """A setting the port does not run yet raises; none is ignored."""
+    """A setting the port does not run yet raises; none is ignored.  (The
+    plain assembly is the base: with the kernel assembly, a solver other
+    than 'riccati_pallas' raises the JAX package's ValueError first.)"""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(SQPConfig())
     with pytest.raises(NotImplementedError, match="not ported"):
-        check_supported(dataclasses.replace(SQPConfig(), **change))
+        check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
+                                            **change))
 
 
 @pytest.mark.parametrize("change", [
     dict(qp_assembly="pallas"), dict(do_SOC=True), dict(line_search="merit"),
-    dict(rti=False)],
+    dict(rti=False), dict(qp_solver="admm"),
+    dict(qp_solver="admm", use_BFGS=True)],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_slice_settings_are_supported(change):
-    """The kernel assembly route, SOC, the merit line search and the
-    converged mode run in the port (the kernel route is the default)."""
+    """The kernel assembly route, SOC, the merit line search, the converged
+    mode, and the dense ADMM path with BFGS run in the port (the kernel
+    route is the default)."""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
@@ -185,7 +190,7 @@ def test_build_problem_matches_jax(problem):
     parameters and networks."""
     from mpcc_manipulator_tpu_torch.problem import build_problem
     _, port, _ = problem
-    track, params, sel_nn, env_nn = build_problem(torch.float64)
+    track, params, sel_nn, env_nn = build_problem(torch.float64, "cpu")
     for name in ("sx", "sy", "sz", "sr"):
         mine, ref = getattr(track, name), getattr(port["track"], name)
         for f in ("a", "b", "c", "d", "r", "omega"):
@@ -199,3 +204,97 @@ def test_build_problem_matches_jax(problem):
     assert torch.equal(params.cost.q_c, port["params"].cost.q_c)
     for a, b in zip(env_nn.layers, port["env_nn"].layers):
         assert torch.equal(a.weight, b.weight)
+
+
+def _entry_points():
+    """(name, call(device-kwargs)) for each entry point that places
+    tensors; the convert functions read CPU objects built by the port."""
+    import types
+    from mpcc_manipulator_tpu_torch import mpc as pmpc
+    from mpcc_manipulator_tpu_torch import params as pparams
+    from mpcc_manipulator_tpu_torch import problem as pproblem
+    from mpcc_manipulator_tpu_torch.models import collision_nn as pcnn
+    from mpcc_manipulator_tpu_torch.splines import arc_length as pals
+    from mpcc_manipulator_tpu_torch.splines import cubic, rotation
+    dt = torch.float64
+    x = np.linspace(0.0, 1.0, 6)
+    rots = np.tile(np.eye(3), (6, 1, 1))
+    net = pcnn.load_self_collision_nn(dt, device="cpu")
+    src = types.SimpleNamespace(weights=[l.weight.numpy() for l in net.layers],
+                                biases=[l.bias.numpy() for l in net.layers])
+    cpu = lambda: pproblem.build_problem(dt, device="cpu")
+    return {
+        "build_problem": lambda **d: pproblem.build_problem(dt, **d),
+        "load_params": lambda **d: pparams.load_params(dtype=dt, **d),
+        "init_carry": lambda **d: pmpc.init_carry(2, dt, **d),
+        "CollisionMLP": lambda **d: pcnn.CollisionMLP(
+            src.weights, src.biases, dt, **d),
+        "load_self_collision_nn": lambda **d: pcnn.load_self_collision_nn(
+            dt, **d),
+        "load_env_collision_nn": lambda **d: pcnn.load_env_collision_nn(
+            dt, **d),
+        "gen_6d_spline": lambda **d: pals.gen_6d_spline(
+            x, x ** 2, np.sin(x), rots, dt, **d),
+        "CubicSplineCoeffs.from_fit": lambda **d:
+            cubic.CubicSplineCoeffs.from_fit(x, np.sin(x), dt, **d),
+        "RotSplineCoeffs.from_knots": lambda **d:
+            rotation.RotSplineCoeffs.from_knots(x, rots, dt, **d),
+        "convert.mlp": lambda **d: convert.mlp(src, dt, **d),
+        "convert.mpcc_params": lambda **d: convert.mpcc_params(
+            cpu()[1], dt, **d),
+        "convert.track": lambda **d: convert.track(cpu()[0], dt, **d),
+        "convert.carry": lambda **d: convert.carry(
+            pmpc.init_carry(2, dt, "cpu"), dt, **d),
+        "convert.stage_qpk": lambda **d: convert.stage_qpk(
+            _cpu_stage_qpk(cpu()), dt, **d),
+    }
+
+
+def _cpu_stage_qpk(problem):
+    """The StageQPK of the cold start at the home state, on the CPU."""
+    from mpcc_manipulator_tpu_torch.mpc import _cold_start
+    from mpcc_manipulator_tpu_torch.ocp import qp_data, qp_stages
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    track, params, sel_nn, env_nn = problem
+    z = _cold_start(torch.tensor(X0_HOME[None]))
+    xs, _ = qp_data.split_z(z)
+    rb = compute_robot_data(xs[..., :7].contiguous(),
+                            torch.tensor([[3.0, 3.0, 3.0]], dtype=z.dtype),
+                            torch.zeros(1, dtype=z.dtype), sel_nn, env_nn)
+    return qp_stages.build_qp_stages_k(track, z, rb, params,
+                                       torch.zeros(1, 8, dtype=z.dtype), TS)
+
+
+ENTRY_POINTS = ["build_problem", "load_params", "init_carry", "CollisionMLP",
+                "load_self_collision_nn", "load_env_collision_nn",
+                "gen_6d_spline", "CubicSplineCoeffs.from_fit",
+                "RotSplineCoeffs.from_knots", "convert.mlp",
+                "convert.mpcc_params", "convert.track", "convert.carry",
+                "convert.stage_qpk"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name):
+    """Each entry point places its tensors on the CUDA device unless the
+    caller asks for the CPU: without a GPU the default call raises (no
+    quiet CPU fallback), and ``device="cpu"`` runs."""
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            yield obj
+        elif isinstance(obj, torch.nn.Module):
+            yield from obj.parameters()
+        elif isinstance(obj, (tuple, list)):
+            for o in obj:
+                yield from tensors(o)
+        elif hasattr(obj, "__dataclass_fields__"):
+            for f in obj.__dataclass_fields__:
+                yield from tensors(getattr(obj, f))
+
+    call = _entry_points()[name]
+    on_cpu = list(tensors(call(device="cpu")))
+    assert on_cpu and all(t.device.type == "cpu" for t in on_cpu)
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in tensors(call()))
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

@@ -75,9 +75,10 @@ def case(request):
     ref = jax.jit(jax.vmap(build))(jnp.asarray(zs), jnp.asarray(cu),
                                    jnp.asarray(radius))
     np_tree = lambda t: jax.tree.map(np.asarray, t)
-    track = convert.track(np_tree(jtrack))
-    params = convert.mpcc_params(np_tree(jp))
-    sel, env = convert.mlp(np_tree(jsel)), convert.mlp(np_tree(jenv))
+    track = convert.track(np_tree(jtrack), device="cpu")
+    params = convert.mpcc_params(np_tree(jp), device="cpu")
+    sel = convert.mlp(np_tree(jsel), device="cpu")
+    env = convert.mlp(np_tree(jenv), device="cpu")
     z = torch.tensor(zs)
     xs, _ = qp_data.split_z(z)
     rb = compute_robot_data(xs[..., :7].contiguous(),

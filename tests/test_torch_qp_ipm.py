@@ -83,7 +83,7 @@ def _check_f32_contract(sol, ref):
 
 def _warm_rows(qpk, dtype):
     """Warm-start rows from a cold solve, clipped off the boundary."""
-    cold = solve_qp_ipm_plain(convert.stage_qpk(qpk, dtype))
+    cold = solve_qp_ipm_plain(convert.stage_qpk(qpk, dtype, device="cpu"))
     return (torch.clamp(cold.s_rows, 1e-2, 1e3),
             torch.clamp(cold.lam_rows, 1e-2, 1e3), cold)
 
@@ -91,7 +91,7 @@ def _warm_rows(qpk, dtype):
 @pytest.mark.parametrize("start", ["cold", "warm"])
 def test_plain_matches_pallas_kernel_f32(qpk64, start):
     f32 = torch.float32
-    qpk = convert.stage_qpk(qpk64, f32)
+    qpk = convert.stage_qpk(qpk64, f32, device="cpu")
     ws = wl = None
     if start == "warm":
         ws, wl, _ = _warm_rows(qpk64, f32)
@@ -107,7 +107,7 @@ def test_plain_matches_pallas_kernel_f32(qpk64, start):
 @pytest.mark.parametrize("start", ["cold", "warm"])
 def test_plain_matches_xla_reference_f64(qpk64, start):
     f64 = torch.float64
-    qpk = convert.stage_qpk(qpk64, f64)
+    qpk = convert.stage_qpk(qpk64, f64, device="cpu")
     ws = wl = None
     if start == "warm":
         ws, wl, cold = _warm_rows(qpk64, f64)
@@ -132,7 +132,7 @@ def test_plain_matches_xla_reference_f64(qpk64, start):
 
 
 def test_wrapper_takes_plain_version_on_cpu(qpk64):
-    qpk = convert.stage_qpk(qpk64, torch.float64)
+    qpk = convert.stage_qpk(qpk64, torch.float64, device="cpu")
     before = solve_qp_ipm_k.launches
     got = solve_qp_ipm_k(qpk)
     ref = solve_qp_ipm_plain(qpk)

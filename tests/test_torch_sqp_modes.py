@@ -61,10 +61,10 @@ def problem():
     track, params, _, sel_nn, env_nn, carry, _, u0, obs = _build_problem(
         jnp.float64, small=False)
     np_tree = lambda t: jax.tree.map(np.asarray, t)
-    port = dict(track=convert.track(np_tree(track)),
-                params=convert.mpcc_params(np_tree(params)),
-                sel_nn=convert.mlp(np_tree(sel_nn)),
-                env_nn=convert.mlp(np_tree(env_nn)))
+    port = dict(track=convert.track(np_tree(track), device="cpu"),
+                params=convert.mpcc_params(np_tree(params), device="cpu"),
+                sel_nn=convert.mlp(np_tree(sel_nn), device="cpu"),
+                env_nn=convert.mlp(np_tree(env_nn), device="cpu"))
     rng = np.random.default_rng(17)
     x0 = X0_HOME[None] + 0.01 * rng.standard_normal((BATCH, 9))
     x0[:, 7:] = np.abs(x0[:, 7:])
@@ -87,7 +87,7 @@ def test_converged_mode_matches_jax_closed_loop(problem, mode):
     xj = [jnp.asarray(x0[i]) for i in range(BATCH)]
     uj = [u0] * BATCH
     dt = torch.float64
-    carry = init_carry(BATCH, dt)
+    carry = init_carry(BATCH, dt, "cpu")
     x = torch.tensor(x0, dtype=dt)
     u = torch.zeros(BATCH, 8, dtype=dt)
     obs_t = torch.tensor(np.asarray(obs), dtype=dt).expand(BATCH, 3)
