@@ -18,11 +18,14 @@ Phases (the first failure exits non-zero and prints no result line):
 6. K3 (line-search evaluation) against its plain version at 1024 lanes at
    0.02-perturbed iterates, one candidate and five candidates per lane, on
    the main path's track and in the three regions;
-7. K5 (the fused ADMM loop) against its plain version: the JAX kernel
-   test's random QPs (n=40, m=70) at batch 256, its MPCC-sized QP, and the
-   dense QPs (``build_qp`` -> Ruiz -> K^-1) of the first tick at the 1024
-   perturbed home states, cold and warm; a NaN lane runs to its budget,
-   comes out NaN and leaves the other lanes bit-identical;
+7. K5 (the fused ADMM loop, one thread block cluster per scenario): its
+   launch configuration, then against its plain version:
+   the JAX kernel test's random QPs (n=40, m=70) at batch 256, tiny QPs
+   (n=6, m=3) and ragged ones (n=41, m=73) at every cluster size, its
+   MPCC-sized QP, and the dense QPs (``build_qp`` -> Ruiz -> K^-1) of the
+   first tick at the 1024 perturbed home states, cold and warm; a NaN lane
+   runs to its budget, comes out NaN and leaves the other lanes
+   bit-identical;
 8. the Riccati path, the default configuration (RTI, K1-K4): 1024
    scenarios x 30 ticks of ``mpc_step`` + the plant step; every lane ok
    every tick, finite states, s strictly increasing once the start
@@ -98,6 +101,13 @@ K5_NAN_LANE = 5
 # MPCC-sized one (and the main path's), residuals below 1e-3 / 1e-2
 K5_X_TOL = {"random": 5e-3, "mpcc_sized": 1e-2, "main path": 1e-2}
 K5_RES = (1e-3, 1e-2)
+# K5 is held on these QPs at the cluster size fused_admm picks (0: 4 at
+# the MPCC size, 1 for the small ones) and at the sizes listed beside it:
+# there the tiny QPs (m = 3) leave blocks with no rows (and, at 8, no
+# columns of K^-1), and the ragged ones a ragged edge on every block.
+K5_CLUSTERS = {"random": (0, 4), "tiny": (0, 2, 4, 8), "ragged": (0, 2, 4, 8),
+               "mpcc_sized": (0, 8)}
+K5_ALT_CLUSTER = 8     # the other cluster size that holds the MPCC size
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -623,6 +633,25 @@ def random_qps(batch: int, device):
             for v in zip(*qps)]
 
 
+def boxed_qps(batch: int, n: int, m: int, device):
+    """Random QPs whose rows are all two-sided, |a_i x| <= 0.5 (P = 0.01 G
+    G' + I, G, A and q standard normal), one per seed 0..batch-1, float32.
+    Without equality rows the ADMM loop leaves them at the same chunk
+    whatever the summation order; the JAX test's random QPs with an
+    equality row at these sizes sit on the termination bounds for chunks on
+    end, so two summation orders (float32 and float64 on the CPU, for one)
+    stop them chunks apart on many lanes."""
+    qps = []
+    for seed in range(batch):
+        rng = np.random.default_rng(seed)
+        g = 0.1 * rng.standard_normal((n, n))
+        qps.append((g @ g.T + np.eye(n), rng.standard_normal(n),
+                    rng.standard_normal((m, n)), np.full(m, -0.5),
+                    np.full(m, 0.5)))
+    return [torch.tensor(np.stack(v), dtype=torch.float32, device=device)
+            for v in zip(*qps)]
+
+
 def mpcc_sized_qp(device):
     """The JAX kernel test's QP with the MPCC dimensions (179 x 479): box
     rows, 90 dense rows of which 45 equalities, all-zero rows with
@@ -682,9 +711,10 @@ def k5_flops(args, it) -> float:
                  + b * 2 * m * n)
 
 
-def compare_k5(label, args, max_iter, x_tol):
-    """K5 against its plain version on the same arguments; returns (max
-    |dx|, the kernel's outputs).
+def compare_k5(label, args, max_iter, x_tol, cluster=0):
+    """K5 against its plain version on the same arguments, at the cluster
+    size ``fused_admm`` picks (``cluster`` 0) or at ``cluster`` blocks per
+    scenario; returns (max |dx|, the kernel's outputs).
 
     The JAX test's residual bounds hold on its two random seeds; in float32
     they do not hold on every lane of 256 random QPs or of the main path's
@@ -697,9 +727,13 @@ def compare_k5(label, args, max_iter, x_tol):
     no fewer lanes than the plain version (less 1 % of the lanes), and its
     largest residuals stay within twice the plain version's."""
     from mpcc_manipulator_tpu_torch.ops.admm_kernel import (
-        fused_admm, fused_admm_plain)
+        fused_admm, fused_admm_cluster, fused_admm_plain)
     from mpcc_manipulator_tpu_torch.solver.qp_admm import residuals
-    got = fused_admm(*args, max_iter=max_iter)
+    if cluster:
+        label = f"{label}, cluster {cluster}"
+        got = fused_admm_cluster(cluster, *args, max_iter=max_iter)
+    else:
+        got = fused_admm(*args, max_iter=max_iter)
     ref = fused_admm_plain(*args, max_iter=max_iter)
     torch.cuda.synchronize()
     err = check_close(f"K5 {label} x", got[0], ref[0], x_tol)
@@ -732,19 +766,43 @@ def compare_k5(label, args, max_iter, x_tol):
     return err, got
 
 
+def k5_cases(device):
+    """(key, label, K5's arguments, max_iter, x tolerance) of the QPs K5 is
+    held on beside the main path's."""
+    return [("random", "random QPs (n=40, m=70)",
+             k5_inputs(random_qps(K5_RANDOM_BATCH, device)), 500,
+             K5_X_TOL["random"]),
+            ("tiny", "tiny QPs (n=6, m=3)",
+             k5_inputs(boxed_qps(K5_RANDOM_BATCH, 6, 3, device)), 500,
+             K5_X_TOL["random"]),
+            ("ragged", "ragged QPs (n=41, m=73)",
+             k5_inputs(boxed_qps(K5_RANDOM_BATCH, 41, 73, device)), 500,
+             K5_X_TOL["random"]),
+            ("mpcc_sized", "MPCC-sized QP", k5_inputs(mpcc_sized_qp(device)),
+             1000, K5_X_TOL["mpcc_sized"])]
+
+
+def print_k5_launches(cases) -> None:
+    """K5's launch at each shape and cluster size this phase drives (the
+    build log above has ptxas's report on ``admm_kernel``)."""
+    from mpcc_manipulator_tpu_torch.ops.admm_kernel import launch_config
+    for key, label, args, _, _ in cases:
+        _, m, n = args[2].shape
+        for cluster in K5_CLUSTERS[key]:
+            print(f"K5 launch, {label}, cluster {cluster or 'auto'}: "
+                  f"{launch_config(n, m, cluster)}")
+
+
 def phase_k5(problem, device) -> dict:
-    from mpcc_manipulator_tpu_torch.ops import cuda_build
     from mpcc_manipulator_tpu_torch.ops.admm_kernel import (
-        fused_admm, fused_admm_plain)
-    lib = cuda_build.library()
-    print(f"K5 dynamic shared memory: {lib.mpcc_admm_smem_bytes(179, 479)} "
-          f"bytes per block at n=179, m=479; "
-          f"{lib.mpcc_admm_smem_bytes(40, 70)} at n=40, m=70")
-    err, _ = compare_k5("random QPs (n=40, m=70)",
-                        k5_inputs(random_qps(K5_RANDOM_BATCH, device)), 500,
-                        K5_X_TOL["random"])
-    err = max(err, compare_k5("MPCC-sized QP", k5_inputs(mpcc_sized_qp(
-        device)), 1000, K5_X_TOL["mpcc_sized"])[0])
+        fused_admm, fused_admm_cluster, fused_admm_plain)
+    cases = k5_cases(device)
+    print_k5_launches(cases)
+    err = 0.0
+    for key, label, args, max_iter, x_tol in cases:
+        for cluster in K5_CLUSTERS[key]:
+            err = max(err, compare_k5(label, args, max_iter, x_tol,
+                                      cluster)[0])
     qps = main_path_qps(problem, device)
     cold_args = k5_inputs(qps)
     e, cold = compare_k5("main path, cold", cold_args,
@@ -754,6 +812,9 @@ def phase_k5(problem, device) -> dict:
     err = max(err, compare_k5("main path, warm from the cold solve",
                               warm_args, ADMM_CONVERGED["qp_max_iter"],
                               K5_X_TOL["main path"])[0])
+    err = max(err, compare_k5("main path, cold", cold_args,
+                              ADMM_CONVERGED["qp_max_iter"],
+                              K5_X_TOL["main path"], K5_ALT_CLUSTER)[0])
 
     # a NaN lane runs to its budget and leaves every other lane unchanged
     budget = ADMM_RTI["qp_max_iter"]
@@ -774,15 +835,19 @@ def phase_k5(problem, device) -> dict:
     print(f"K5 NaN in q of lane {K5_NAN_LANE}: x NaN, {budget} iterations, "
           f"the other {BATCH - 1} lanes bit-identical")
 
-    # time one launch at the RTI budget on the main path's cold QPs
+    # time one launch at the RTI budget on the main path's cold QPs, at
+    # the cluster size fused_admm picks and at the other one that holds it
     ms = cuda_time(lambda: fused_admm(*cold_args, max_iter=budget), 20)
+    alt_ms = cuda_time(lambda: fused_admm_cluster(
+        K5_ALT_CLUSTER, *cold_args, max_iter=budget), 20)
     plain_ms = cuda_time(lambda: fused_admm_plain(*cold_args,
                                                   max_iter=budget), 3)
     x, z, y, it = fused_admm(*cold_args, max_iter=budget)
     b = bound(nbytes(*cold_args, x, z, y) + 4 * BATCH,
               k5_flops(cold_args, it))
     print(f"K5 at batch {BATCH}, main path cold, max_iter {budget} (mean "
-          f"{it.double().mean():.2f} iterations): kernel {ms:.4f} ms, plain "
+          f"{it.double().mean():.2f} iterations): kernel {ms:.4f} ms "
+          f"(cluster {K5_ALT_CLUSTER}: {alt_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
     return {"name": "K5 fused ADMM loop (fused_admm)", "route": "cuda",

@@ -10,7 +10,10 @@ it converges or has run ``max_iter`` iterations.  On CUDA tensors it
 launches the kernel (or raises); on CPU tensors it runs the plain version,
 :func:`fused_admm_plain`.  Both compute in float32, as the JAX wrapper
 casts; nothing is padded (the TPU kernel's 256/512 tiles were a Mosaic
-constraint).
+constraint).  The kernel runs one thread block cluster per scenario, with A
+and K^-1 split over the cluster's blocks and held on chip for the whole
+loop; it takes n <= 192 and m <= 1024 (:func:`launch_config` says how a
+shape is launched).
 """
 
 from __future__ import annotations
@@ -97,9 +100,27 @@ def fused_admm(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
     kw = dict(max_iter=max_iter, check_every=check_every, sigma=sigma,
               alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel)
     args = (kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0)
-    dev = kinv.device
-    if dev.type == "cpu":
+    if kinv.device.type == "cpu":
         return fused_admm_plain(*args, **kw)
+    return _launch(0, args, **kw)
+
+
+def fused_admm_cluster(cluster: int, *args, **kw):
+    """K5 on CUDA tensors with ``cluster`` (1, 2, 4 or 8) blocks per
+    scenario instead of the smallest cluster that holds the problem, which
+    :func:`fused_admm` takes; arguments as there.  A launch counts on
+    ``fused_admm.launches``."""
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"fused_admm_cluster: cluster {cluster} is not "
+                         "1, 2, 4 or 8")
+    return _launch(cluster, args, **kw)
+
+
+def _launch(cluster, args, *, max_iter: int = 400, check_every: int = 25,
+            sigma: float = 1e-6, alpha: float = 1.6, eps_abs: float = 1e-4,
+            eps_rel: float = 1e-5):
+    kinv, a = args[0], args[2]
+    dev = kinv.device
     if dev.type != "cuda":
         raise ValueError(f"fused_admm: unsupported device {dev}")
     if kinv.dim() != 3 or a.dim() != 3:
@@ -125,15 +146,32 @@ def fused_admm(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
     y = torch.empty(b, m, dtype=torch.float32, device=dev)
     it = torch.empty(b, dtype=torch.int32, device=dev)
     lib = cuda_build.library()
+    solve, asked = ((lib.mpcc_admm_solve_cluster, (int(cluster),)) if cluster
+                    else (lib.mpcc_admm_solve, ()))
     fused_admm.launches += 1
-    err = lib.mpcc_admm_solve(
+    err = solve(
         *(t.data_ptr() for t in args), x.data_ptr(), z.data_ptr(),
         y.data_ptr(), it.data_ptr(), b, n, m, int(max_iter),
         int(check_every), *(ctypes.c_float(v) for v in
                              (sigma, alpha, eps_abs, eps_rel)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, f"K5 admm kernel (n={n}, m={m})")
+        *asked, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, f"K5 admm kernel (n={n}, m={m}, cluster "
+                          f"{cluster or 'auto'})")
     return x, z, y, it.long()
 
 
 fused_admm.launches = 0
+
+_LAUNCH_FIELDS = ("cluster", "smem_bytes", "threads", "active_clusters",
+                 "registers", "local_bytes")
+
+
+def launch_config(n: int, m: int, cluster: int = 0) -> dict:
+    """How K5 launches an (n, m) problem on the current card: the cluster
+    size, dynamic shared memory per block, threads per block, clusters the
+    card holds at once, and the kernel's registers and local-memory bytes
+    (stack and spills) per thread.  Raises where no cluster size holds the problem."""
+    out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
+    cuda_build.check(cuda_build.library().mpcc_admm_launch_config(
+        n, m, cluster, out), f"K5 launch config (n={n}, m={m})")
+    return dict(zip(_LAUNCH_FIELDS, out))

@@ -102,8 +102,11 @@ def library() -> ctypes.CDLL:
     lib.mpcc_eval_point.restype = _I
     lib.mpcc_admm_solve.argtypes = [_P] * 17 + [_I] * 5 + [_F] * 4 + [_P]
     lib.mpcc_admm_solve.restype = _I
-    lib.mpcc_admm_smem_bytes.argtypes = [_I, _I]
-    lib.mpcc_admm_smem_bytes.restype = _I
+    lib.mpcc_admm_solve_cluster.argtypes = ([_P] * 17 + [_I] * 5 + [_F] * 4
+                                            + [_I, _P])
+    lib.mpcc_admm_solve_cluster.restype = _I
+    lib.mpcc_admm_launch_config.argtypes = [_I, _I, _I, _P]
+    lib.mpcc_admm_launch_config.restype = _I
     lib.mpcc_assembly_table_len.argtypes = [_I]
     lib.mpcc_assembly_table_len.restype = _I
     lib.mpcc_error_string.argtypes = [_I]

@@ -7,11 +7,15 @@ and the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
 MPCC_QP_BACKEND=pallas`` ablation), each layer of the tick is timed on the
 host clock with a ``torch.cuda.synchronize()`` before and after it (which
 slows the tick), summed over ``--ticks`` ticks after ``--warmup`` ticks,
-and printed per tick.  Then ``torch.profiler`` traces three unwrapped
-ticks of each RTI path and prints the device time and the number of device
-kernels, counted from the device-side kernel events only (each aten
-operator's row also carries the device time of the kernels it launched, so
-a sum over all rows counts that time twice).
+and printed per tick; on the ADMM path also the mean ADMM iterations a
+lane runs in each K5 launch, for the phase-1 and phase-2 launches of the QP
+solve apart (their ``max_iter`` budgets, ``qp_check_every`` and the rest
+of ``qp_max_iter``, tell them apart), which sets K5's time per tick against
+its bound.  Then ``torch.profiler`` traces three unwrapped ticks of each
+RTI path and prints the device time and the number of device kernels,
+counted from the device-side kernel events only (each aten operator's row
+also carries the device time of the kernels it launched, so a sum over all
+rows counts that time twice).
 """
 
 from __future__ import annotations
@@ -72,6 +76,17 @@ def _wrap(label, fn, acc):
     return timed
 
 
+def _count_iters(fn, rec):
+    """``fn`` (fused_admm) recording each launch's mean iterations per
+    lane under its ``max_iter`` budget."""
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        rec[kwargs["max_iter"]].append(float(out[3].double().mean()))
+        return out
+    return counted
+
+
 def _start(batch, dev):
     rng = np.random.default_rng(0)
     x = torch.tensor(X0_HOME[None] + 0.01 * rng.standard_normal((batch, 9)),
@@ -93,14 +108,18 @@ def _ticks(problem, state, n, cfg):
 
 
 def layer_profile(problem, batch, dev, cfg, warmup, ticks):
-    """(median wrapped tick s, mean SQP iterations, {layer: s per tick})."""
+    """(median wrapped tick s, mean SQP iterations, {layer: s per tick},
+    {K5 max_iter budget: mean iterations per lane of each launch})."""
     acc = collections.defaultdict(float)
+    k5_iters = collections.defaultdict(list)
     saved = [(mod, name, getattr(mod, name)) for _, mod, name in LAYERS]
     state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
     times, iters = [], []
     try:
         for label, mod, name in LAYERS:
             setattr(mod, name, _wrap(label, getattr(mod, name), acc))
+        admm_kernel.fused_admm = _count_iters(admm_kernel.fused_admm,
+                                              k5_iters)
         for _ in range(ticks):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -112,7 +131,7 @@ def layer_profile(problem, batch, dev, cfg, warmup, ticks):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     return (statistics.median(times), float(np.mean(iters)),
-            {k: v / ticks for k, v in acc.items()})
+            {k: v / ticks for k, v in acc.items()}, k5_iters)
 
 
 def device_profile(problem, batch, dev, cfg, warmup, ticks=3):
@@ -156,12 +175,19 @@ def main() -> None:
     for label, cfg in [("RTI (default)", SQPConfig()),
                        ("converged", SQPConfig(rti=False, max_iter=20)),
                        ("ADMM RTI (K4 + K5)", ADMM_RTI)]:
-        med, iters, layers = layer_profile(problem, args.batch, dev, cfg,
-                                           args.warmup, args.ticks)
+        med, iters, layers, k5_iters = layer_profile(
+            problem, args.batch, dev, cfg, args.warmup, args.ticks)
         print(f"== {label}, batch {args.batch}: wrapped tick median "
               f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}")
         for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
             print(f"   {k}: {v * 1e3:.3f} ms/tick")
+        # phase 1 runs qp_check_every iterations, phase 2 the rest (175
+        # of the 200 here), so the smaller budget is phase 1's
+        for phase, (budget, runs) in enumerate(sorted(k5_iters.items())):
+            print(f"   K5 phase {phase + 1} launches (max_iter {budget}): "
+                  f"{len(runs)}, mean ADMM iterations per lane "
+                  f"{np.mean(runs):.2f} (min {min(runs):.2f}, max "
+                  f"{max(runs):.2f})")
     for label, cfg in [("RTI", SQPConfig()), ("ADMM RTI", ADMM_RTI)]:
         busy, n_kernels, wall, tick, prof = device_profile(
             problem, args.batch, dev, cfg, args.warmup)

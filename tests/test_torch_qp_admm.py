@@ -137,6 +137,16 @@ def _random_qp(rng, n=40, m=70):
     return p, q, a, l, u
 
 
+def _boxed_qp(rng, n, m):
+    """A random QP whose rows are all two-sided, |a_i x| <= 0.5 (float32;
+    chip_smoke.py's ``boxed_qps``)."""
+    g = 0.1 * rng.standard_normal((n, n))
+    p = (g @ g.T + np.eye(n)).astype(np.float32)
+    q = rng.standard_normal(n).astype(np.float32)
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    return p, q, a, np.full(m, -0.5, np.float32), np.full(m, 0.5, np.float32)
+
+
 def _mpcc_sized_qp():
     """tests/test_pallas_admm.py's QP with the MPCC dimensions (float32)."""
     rng = np.random.default_rng(2)
@@ -165,14 +175,25 @@ def _scaled_inputs(qp):
             for v in (kinv, p_s, a_s, q_s, rho, l_s, u_s, d, e, c)]
 
 
-KERNEL_CASES = {"random_seed0": (0, 5e-3), "random_seed1": (1, 5e-3),
-                "mpcc_sized": (None, 1e-2)}
+# name -> (QP, x tolerance, max_iter of the solve).  Beside the JAX test's
+# QPs, the shapes that stress K5's split of A over a thread block cluster:
+# fewer rows than the cluster has blocks (a block owns no rows), and a
+# ragged n, m that no cluster size divides.
+KERNEL_CASES = {
+    "random_seed0": (lambda: _random_qp(np.random.default_rng(0)), 5e-3,
+                     500),
+    "random_seed1": (lambda: _random_qp(np.random.default_rng(1)), 5e-3,
+                     500),
+    "mpcc_sized": (_mpcc_sized_qp, 1e-2, 1000),
+    "tiny_n6_m3": (lambda: _boxed_qp(np.random.default_rng(5), 6, 3), 5e-3,
+                   500),
+    "ragged_n41_m73": (lambda: _boxed_qp(np.random.default_rng(6), 41, 73),
+                       5e-3, 500),
+}
 
 
 def _case_qp(name):
-    seed, _ = KERNEL_CASES[name]
-    return (_mpcc_sized_qp() if seed is None
-            else _random_qp(np.random.default_rng(seed)))
+    return KERNEL_CASES[name][0]()
 
 
 def _kernel_args(ins, warm):
@@ -227,7 +248,7 @@ def test_converged_warm_start_exits_at_entry(name):
 def test_solve_qp_pallas_matches_jax_pallas_interpret(name):
     tol = KERNEL_CASES[name][1]
     qp = _case_qp(name)
-    max_iter = 500 if KERNEL_CASES[name][0] is not None else 1000
+    max_iter = KERNEL_CASES[name][2]
     ref = jqa.solve_qp(*(jnp.asarray(v) for v in qp), max_iter=max_iter,
                        backend="pallas_interpret")
     sol = qp_admm.solve_qp(*_batch([qp], torch.float32), max_iter=max_iter,
