@@ -8,8 +8,12 @@ Phases (the first failure exits non-zero and prints no result line):
 2. build the CUDA kernels from ``mpcc_manipulator_tpu_torch/csrc`` (one
    nvcc per source, all at once);
 3. K4 (kinematics sweep) against its plain PyTorch version at (1024, 11, 7);
-4. K1 (interior-point QP solve) against its plain version on the StageQPK of
-   1024 perturbed home states, cold and warm started;
+4. K1 (interior-point QP solve, one warp per scenario): its launch
+   configuration for both centering schemes (one wave at batch 1024, no
+   spills), then against its plain version on the StageQPK of 1024
+   perturbed home states, adaptive and Mehrotra, cold and warm started; a
+   NaN in one lane's Hessian leaves that lane not solved and the other lanes
+   bit-identical; each scheme's warm launch timed;
 5. K2 (stage-QP assembly) against its plain version at 1024 lanes, every
    block: on the main path's track at the first tick's iterate and at a
    0.02-perturbed trial point, then in the three regions of the JAX kernel
@@ -34,18 +38,23 @@ Phases (the first failure exits non-zero and prints no result line):
    ticks each with the second-order correction and with the merit line
    search; every lane ok, and each kernel launched as often as the SQP
    iterations run call for;
-10. the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
+10. the Riccati path under RTI with Mehrotra's centering
+    (``ipm_scheme="mehrotra"``): 1024 x 10 ticks, every lane ok, K1
+    launched once per SQP iteration and K2-K4 once per tick;
+11. the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
     MPCC_QP_BACKEND=pallas`` ablation, ``qp_max_iter=200``): 1024 x 10
     ticks, every lane ok, K5 launched twice per tick and K4 once, K1-K3
     never; then the converged ADMM mode (``rti=False, max_iter=20,
     qp_max_iter=400``) 3 ticks each plain, with BFGS, SOC and the merit
     line search, K5 launched twice per SQP iteration (four times with SOC);
-11. 8 lanes through the plain path on the CPU in float64, held to the
+12. 8 lanes through the plain path on the CPU in float64, held to the
     repo's closed-loop envelope: the RTI loop closed loop (10 ticks), the
-    converged loop tick by tick from the GPU run's inputs (5 ticks), and the
-    ADMM RTI loop tick by tick from the GPU run's inputs (10 ticks, the
-    plain ``"xla"`` ADMM route; the float32 plain K5 route's gap to it is
-    printed beside).
+    Mehrotra RTI loop tick by tick from the GPU run's inputs on the
+    lane-ticks where both took the same IPM iterations (10 ticks; the
+    closed-loop gap printed), the converged loop tick by tick from the GPU
+    run's inputs (5 ticks), and the ADMM RTI loop tick by tick from the
+    GPU run's inputs (10 ticks, the plain ``"xla"`` ADMM route; the float32
+    plain K5 route's gap to it is printed beside).
 
 The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -74,6 +83,7 @@ CHECK_TICKS = 10
 S_RISING_FROM = 15     # tick from which s must rise on every lane
 K4_SINGULAR_BELOW = 0.01   # the controller's singularity buffer (tol_sing)
 K1_LAM_WELL_POSED = 100.0  # duals above sit on the clamped s-row margin
+K1_NAN_LANE = 5
 # K2 / K3: the JAX kernel tests' float32 contract
 # (tests/test_pallas_assembly.py: 5e-4 x max(1, max|block|); rtol = atol)
 K23_TOL = 5e-4
@@ -94,6 +104,11 @@ ADMM_RTI = dict(qp_solver="admm", qp_backend="pallas", qp_assembly="xla",
                 qp_max_iter=200, qp_check_every=25)
 ADMM_CONVERGED = dict(ADMM_RTI, rti=False, max_iter=20, qp_max_iter=400)
 ADMM_TICKS = 10
+# the Riccati path with Mehrotra's centering (the JAX bench's
+# MPCC_IPM_SCHEME=mehrotra ablation, its round-3 default)
+MEHROTRA_RTI = dict(ipm_scheme="mehrotra")
+MEHROTRA_TICKS = 10
+MEHROTRA_SPLIT_MAX = 0.05   # lane-ticks whose IPM iterations may differ
 K5_RANDOM_BATCH = 256
 K5_NAN_LANE = 5
 # K5 against its plain version: the JAX kernel test's contract
@@ -321,39 +336,102 @@ def compare_ipm(label, sol, ref) -> float:
     return err
 
 
+def k1_flops(scheme: str, iters: torch.Tensor) -> float:
+    """Float32 operations of K1 on lanes that ran ``iters`` Newton
+    iterations.  Adaptive: ~0.2 MFLOP per iteration (the stage blocks
+    H + C' diag(w) C, ~50 kFLOP; the fused matrix + vector Riccati sweep,
+    ~136 kFLOP; rollout, row products, targets, step and test, ~30 kFLOP).
+    Mehrotra adds one right-hand side per iteration (the affine probe and
+    the corrector against one matrix sweep), counted from csrc/qp_ipm.cu at
+    N stages and nr = 59 N rows:
+      gradient rows 5 nr + gradient blocks 24 x 30 N + vector Riccati step
+      900 N + rollout 434 N + row products 4,300 + targets 10 nr
+      + the probe's mu_aff and the corrector's right-hand side 8 nr
+    = 38,410 at N = 10."""
+    per_iter = 2e5
+    if scheme == "mehrotra":
+        n_st, nr = KNOTS - 1, 59 * (KNOTS - 1)
+        per_iter += (5 * nr + 720 * n_st + 900 * n_st + 434 * n_st + 4300
+                     + 10 * nr + 8 * nr)
+    return per_iter * float(iters.double().sum())
+
+
 def phase_k1(problem, device) -> dict:
+    """K1 in both centering schemes, cold and warm, against its plain
+    version; a NaN lane; the launch configuration; each scheme's warm
+    launch timed."""
     from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
-        solve_qp_ipm_k, solve_qp_ipm_plain)
+        launch_config, solve_qp_ipm_k, solve_qp_ipm_plain)
     qpk = stage_qp_batch(problem, device)
-    cold = solve_qp_ipm_k(qpk)
-    cold_ref = solve_qp_ipm_plain(qpk)
-    torch.cuda.synchronize()
-    err = compare_ipm("cold", cold, cold_ref)
-    # warm start from the cold solution, clipped as the SQP clips it
-    ws = torch.clamp(cold_ref.s_rows, 0.1, 100.0)
-    wl = torch.clamp(cold_ref.lam_rows, 0.1, 100.0)
-    warm = solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl)
-    warm_ref = solve_qp_ipm_plain(qpk, warm_s=ws, warm_lam=wl)
-    torch.cuda.synchronize()
-    err = max(err, compare_ipm("warm", warm, warm_ref))
-    ms = cuda_time(lambda: solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl), 20)
-    plain_ms = cuda_time(
-        lambda: solve_qp_ipm_plain(qpk, warm_s=ws, warm_lam=wl), 3)
-    print(f"K1 warm solve at batch {BATCH}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    # bytes: every StageQPK block and the warm rows in, the step, duals,
-    # slacks and verdicts out; operations: ~0.2 MFLOP per Newton iteration
-    # and scenario (csrc/qp_ipm.cu), times the iterations these inputs take
-    ins = [getattr(qpk, f.name) for f in dataclasses.fields(qpk)]
-    outs = [warm.dx_tilde, warm.du, warm.lam, warm.s_rows, warm.iters,
-            warm.solved, warm.mu]
-    return {"name": "K1 interior-point QP solve (solve_qp_ipm_k)",
-            "route": "cuda",
-            "source": "mpcc_manipulator_tpu_torch/csrc/qp_ipm.cu",
-            "replaces": "mpcc_manipulator_tpu/solver/qp_ipm_pallas.py:64",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes(*ins, ws, wl, *outs),
-                    2e5 * float(warm.iters.sum()))}
+    n_st = qpk.e.shape[1]
+    entry = {"name": "K1 interior-point QP solve (solve_qp_ipm_k)",
+             "route": "cuda",
+             "source": "mpcc_manipulator_tpu_torch/csrc/qp_ipm.cu",
+             "replaces": "mpcc_manipulator_tpu/solver/qp_ipm_pallas.py:64"}
+    err = 0.0
+    for scheme in ("adaptive", "mehrotra"):
+        cfg = launch_config(n_st, scheme)
+        print(f"K1 launch, {scheme}: {cfg}; {cfg['blocks_per_sm']} x "
+              f"{cfg['sms']} = {cfg['blocks_per_sm'] * cfg['sms']} scenarios "
+              f"at once for batch {BATCH}")
+        if cfg["blocks_per_sm"] * cfg["sms"] < BATCH or cfg["local_bytes"]:
+            raise AssertionError(f"K1 {scheme}: batch {BATCH} does not run in "
+                                 "one wave, or the kernel spills")
+        cold = solve_qp_ipm_k(qpk, scheme=scheme)
+        cold_ref = solve_qp_ipm_plain(qpk, scheme=scheme)
+        torch.cuda.synchronize()
+        err = max(err, compare_ipm(f"{scheme} cold", cold, cold_ref))
+        # warm start from the cold solution, clipped as the SQP clips it
+        ws = torch.clamp(cold_ref.s_rows, 0.1, 100.0)
+        wl = torch.clamp(cold_ref.lam_rows, 0.1, 100.0)
+        warm = solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl, scheme=scheme)
+        warm_ref = solve_qp_ipm_plain(qpk, warm_s=ws, warm_lam=wl,
+                                      scheme=scheme)
+        torch.cuda.synchronize()
+        err = max(err, compare_ipm(f"{scheme} warm", warm, warm_ref))
+
+        # a NaN in one lane's Hessian: not solved there, the other lanes
+        # bit-identical
+        qpk_nan = dataclasses.replace(qpk, hxx=qpk.hxx.clone())
+        qpk_nan.hxx[K1_NAN_LANE, 3, 2, 2] = float("nan")
+        dirty = solve_qp_ipm_k(qpk_nan, warm_s=ws, warm_lam=wl, scheme=scheme)
+        torch.cuda.synchronize()
+        keep = torch.ones(BATCH, dtype=torch.bool, device=device)
+        keep[K1_NAN_LANE] = False
+        fields = ("dx_tilde", "du", "lam", "s_rows", "iters", "solved", "mu")
+        if bool(dirty.solved[K1_NAN_LANE]) or not all(
+                torch.equal(getattr(dirty, f)[keep], getattr(warm, f)[keep])
+                for f in fields):
+            raise AssertionError(f"K1 {scheme} NaN lane: solved, or another "
+                                 "lane changed")
+        print(f"K1 {scheme}, NaN in hxx of lane {K1_NAN_LANE}: not solved "
+              f"({int(dirty.iters[K1_NAN_LANE])} iterations), the other "
+              f"{BATCH - 1} lanes bit-identical")
+
+        ms = cuda_time(lambda: solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl,
+                                              scheme=scheme), 20)
+        plain_ms = cuda_time(lambda: solve_qp_ipm_plain(
+            qpk, warm_s=ws, warm_lam=wl, scheme=scheme), 3)
+        # bytes: every StageQPK block and the warm rows in, the step, duals,
+        # slacks and verdicts out; operations: k1_flops over the iterations
+        # these inputs take
+        ins = [getattr(qpk, f.name) for f in dataclasses.fields(qpk)]
+        outs = [warm.dx_tilde, warm.du, warm.lam, warm.s_rows, warm.iters,
+                warm.solved, warm.mu]
+        b = bound(nbytes(*ins, ws, wl, *outs), k1_flops(scheme, warm.iters))
+        print(f"K1 {scheme} warm solve at batch {BATCH} (mean "
+              f"{warm.iters.double().mean():.3f} iterations): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if scheme == "adaptive":
+            entry.update(ms=ms, plain_ms=plain_ms, **b,
+                         registers=cfg["registers"],
+                         blocks_per_sm=cfg["blocks_per_sm"])
+        else:
+            entry.update(mehrotra_ms=ms, mehrotra_plain_ms=plain_ms,
+                         mehrotra_bound_ms=b["bound_ms"])
+    entry["max_abs_err"] = err
+    return entry
 
 
 # ------------------------------------------------------------ K2 and K3
@@ -974,6 +1052,35 @@ def phase_converged(problem, x0, card):
     return conv
 
 
+def phase_mehrotra_rti(problem, x0, card):
+    """The Riccati path under RTI with Mehrotra's centering in K1 (the JAX
+    bench's ``MPCC_IPM_SCHEME=mehrotra``): 1024 x ``MEHROTRA_TICKS`` ticks,
+    every lane ok, K1 launched once per SQP iteration, K2-K4 once per
+    tick."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    reset_counts()
+    times, oks, states, iters, sqp_iters, inputs = closed_loop(
+        problem, x0, MEHROTRA_TICKS, SQPConfig(**MEHROTRA_RTI),
+        record=CHECK_LANES)
+    launches = read_counts()
+    check_ok("Mehrotra RTI", oks, states)
+    run_iters = int(sqp_iters.max(1).values.sum())
+    want = dict(K1=run_iters, K2=MEHROTRA_TICKS, K3=MEHROTRA_TICKS,
+                K4=MEHROTRA_TICKS, K5=0)
+    if run_iters != MEHROTRA_TICKS or launches != want:
+        raise AssertionError(f"Mehrotra RTI: launches {launches}, expected "
+                             f"{want} for {run_iters} SQP iterations")
+    med = statistics.median(times[1:])
+    s = states[:, :, 7]
+    print(f"Mehrotra RTI (K1-K4) {BATCH} x {MEHROTRA_TICKS} ticks on {card}: "
+          f"all ok; median tick {med * 1e3:.3f} ms (first "
+          f"{times[0] * 1e3:.1f} ms), {BATCH / med:.1f} solves/s; mean IPM "
+          f"iters {iters.float().mean():.2f}, max {int(iters.max())}; "
+          f"s {float(s[0].mean()):.5f} -> {float(s[-1].mean()):.5f}; "
+          f"launches {launches}")
+    return states, iters, inputs, launches
+
+
 def phase_admm_rti(problem, x0, card):
     """The dense ADMM path under RTI: 1024 x ``ADMM_TICKS`` ticks, K5 twice
     per tick (phase 1 and phase 2 of each QP solve), K4 once."""
@@ -1053,6 +1160,72 @@ def phase_cpu_check_rti(x0_gpu, states_gpu):
         raise AssertionError("CPU float64 check (RTI): a lane was not ok")
     envelope_gaps("RTI, closed loop", states,
                   states_gpu[:CHECK_TICKS, :CHECK_LANES])
+
+
+def phase_cpu_check_mehrotra(x0_gpu, inputs, states_gpu, iters_gpu):
+    """The Mehrotra RTI loop: the closed-loop gap printed, then tick by tick
+    from the GPU run's inputs, held to the envelope on every lane-tick whose
+    float64 interior-point solve took as many Newton iterations as the
+    kernel's.  In float32, Mehrotra's stopping iteration is decided by
+    roundoff on a few QPs, where one more Newton step moves the step by
+    far more than the envelope (ROADMAP section 3).  Such lane-ticks are
+    listed beside the plain float32 path from the same inputs, and must
+    stay below MEHROTRA_SPLIT_MAX of all."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    cfg = SQPConfig(**MEHROTRA_RTI)
+    x0 = x0_gpu[:CHECK_LANES].cpu().to(torch.float64)
+    _, _, states, _, _, _ = closed_loop(build_problem(torch.float64, "cpu"),
+                                        x0, CHECK_TICKS, cfg)
+    gpu = states_gpu[:CHECK_TICKS, :CHECK_LANES].to(torch.float64)
+    d = (states - gpu).abs()
+    print(f"CPU float64, Mehrotra RTI closed loop, {CHECK_LANES} lanes x "
+          f"{CHECK_TICKS} ticks: max |dq| {float(d[..., :7].max()):.3e}, "
+          f"|ds| {float(d[..., 7].max()):.3e}, |dvs| "
+          f"{float(d[..., 8].max()):.3e} (closed loop; not held)")
+    # tick by tick from the GPU run's inputs, in float64 and (for the
+    # lane-ticks that split) in float32 through the plain path
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        problem = build_problem(dtype, "cpu")
+        cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+        obs = torch.tensor([[3.0, 3.0, 3.0]] * CHECK_LANES, dtype=dtype)
+        rad = torch.zeros(CHECK_LANES, dtype=dtype)
+        nxt, iters = [], []
+        for x, u, carry in inputs[:CHECK_TICKS]:
+            c = MPCCarry(**{f.name: cast(getattr(carry, f.name))
+                            for f in dataclasses.fields(MPCCarry)})
+            _, out = mpc_step(*problem, c, cast(x), cast(u), obs, rad, ts=TS,
+                              cfg=cfg)
+            if not bool(out.ok.all()):
+                raise AssertionError(f"CPU check (Mehrotra RTI, {dtype}): a "
+                                     "lane was not ok")
+            nxt.append(sim_time_step(out.x0_updated, out.u0, TS))
+            iters.append(out.qp_iters)
+        runs[dtype] = (torch.stack(nxt).to(torch.float64),
+                       torch.stack(iters))
+    st64, it64 = runs[torch.float64]
+    st32, it32 = runs[torch.float32]
+    it_gpu = iters_gpu[:CHECK_TICKS, :CHECK_LANES]
+    split = it64 != it_gpu
+    listed = [f"tick {t} lane {ln}: IPM iterations float64 "
+              f"{int(it64[t, ln])}, kernel {int(it_gpu[t, ln])}, plain "
+              f"float32 {int(it32[t, ln])}; |dq| to float64: kernel "
+              f"{float((gpu[t, ln, :7] - st64[t, ln, :7]).abs().max()):.3e}"
+              f", plain float32 "
+              f"{float((st32[t, ln, :7] - st64[t, ln, :7]).abs().max()):.3e}"
+              for t, ln in split.nonzero().tolist()]
+    print(f"  Mehrotra RTI tick by tick, lane-ticks whose IPM iterations "
+          f"differ from float64: {listed or 'none'}")
+    if len(listed) > MEHROTRA_SPLIT_MAX * split.numel():
+        raise AssertionError(f"CPU float64 check (Mehrotra RTI): IPM "
+                             f"iterations differ on {len(listed)} of "
+                             f"{split.numel()} lane-ticks")
+    keep = ~split[..., None]
+    envelope_gaps("Mehrotra RTI, tick by tick, equal IPM iterations",
+                  torch.where(keep, st64, 0.0), torch.where(keep, gpu, 0.0))
 
 
 def phase_cpu_check_converged(inputs, states_gpu):
@@ -1151,13 +1324,17 @@ def main() -> int:
     # each path's kernels carry the launches of that path's own run
     x0, states, launches = phase_closed_loop(problem, device, card)
     states_conv, inputs = phase_converged(problem, x0, card)
+    states_meh, iters_meh, inputs_meh, launches_meh = phase_mehrotra_rti(
+        problem, x0, card)
     states_admm, inputs_admm, launches_admm = phase_admm_rti(problem, x0,
                                                               card)
     for k in kernels:
         name = k["name"][:2]
         k["launches"] = (launches_admm if name == "K5" else launches)[name]
+    kernels[0]["mehrotra_launches"] = launches_meh["K1"]
     phase_admm_converged(problem, x0, card)
     phase_cpu_check_rti(x0, states)
+    phase_cpu_check_mehrotra(x0, inputs_meh, states_meh, iters_meh)
     phase_cpu_check_converged(inputs, states_conv)
     phase_cpu_check_admm(inputs_admm, states_admm)
 

@@ -1,30 +1,58 @@
 // K1: the whole structured interior-point QP solve of one SQP iteration --
-// Newton loop, backward Riccati sweep, forward rollout, slack/dual targets,
-// fraction-to-boundary, adaptive centering, convergence test -- in one
-// launch.
+// Newton loop, backward Riccati sweep(s), forward rollout, slack/dual
+// targets, fraction-to-boundary, centering, convergence test -- in one
+// launch, for both centering schemes.
 //
 // Replaces the TPU kernel `_ipm_kernel` in
-// mpcc_manipulator_tpu/solver/qp_ipm_pallas.py (entry `solve_qp_ipm_pallas`
-// -> `_solve_batched`), adaptive scheme with warm start.  Algorithm:
-// `solve_qp_ipm_s` of mpcc_manipulator_tpu/solver/qp_ipm.py on the StageQPK
-// blocks (the plain version is solver/qp_ipm.py of this package).
+// mpcc_manipulator_tpu/solver/qp_ipm_pallas.py:64 (entry
+// `solve_qp_ipm_pallas` -> `_solve_batched`), both of its schemes, with warm
+// start: "adaptive" (one fused matrix + vector sweep per Newton iteration)
+// and "mehrotra" (the matrix sweep once per iteration, saving the
+// factorization, then the affine probe and the corrector as vector-only
+// sweeps against it).  Algorithm: `solve_qp_ipm_s` of
+// mpcc_manipulator_tpu/solver/qp_ipm.py on the StageQPK blocks (the plain
+// version is solver/qp_ipm.py of this package).
 //
-// What bounds it on the H100: latency.  One scenario's solve is a chain of
-// ~9 Newton iterations x 10 dependent Riccati stages of 17x17 / 8x8 work
-// (~0.2 Mflop per iteration); the 1024 scenarios of a tick are independent.
-// Nothing is bandwidth-bound: the inputs of one scenario are ~25 KB, read
-// from L2 a few times per iteration.
+// What bounds it on the H100: neither flops nor bytes (~0.2 MFLOP and
+// ~30 KB per scenario and Newton iteration) but the dependent chain of
+// ~iterations x 10 Riccati stages (x 3 sweeps under Mehrotra), each a
+// 17x17 / 8x8 step whose parts wait on each other, and the shared-memory
+// and shuffle traffic of the 8 chains an SM runs at once.
 //
-// Design: one thread block (128 threads) per scenario.  The iterates
-// (s, lambda, w, r rows, gains, dx/du, P) live in shared memory (~28 KB at
-// N=10, so several blocks share an SM); the stage loop runs in order inside
-// the block and each stage's 17x17 / 8x8 products are spread over the
-// threads.  Blocks are independent, so a block leaves its Newton loop when
-// its own scenario converges: that is the per-lane freeze of
-// vmap(while_loop) without masks.  The TPU kernel's (stage, flat, B) refs
-// and one-hot masks were Mosaic constraints and are not carried over.
-// The 8x8 Cholesky runs on one thread, the 18 triangular solves on 18
-// threads, the forward rollout on one warp.
+// Mapping: one warp (one 32-thread block) per scenario, so nothing in the
+// solve needs a block barrier (only __syncwarp and shuffles), a scenario
+// leaves its Newton loop when it converges, and the warp may hold up to
+// 255 registers.  Per Newton iteration:
+// * warp-parallel, stage after stage, before the sweep: the stage blocks
+//   that do not depend on P -- H + C' diag(w) C as the upper halves of the
+//   9x9 x-block and the 8x8 u-block, the 8x9 cross block and the 7 rate
+//   diagonals, and (adaptive) the gradient rows g + C' r -- into a slot of
+//   184 floats per stage in shared memory.  Each stage's C rows go through
+//   a warp tile; the next stage's are loaded into registers meanwhile.
+// * on the warp, stage by stage (warp-synchronous): P lives in registers,
+//   lane j holding column j; P At and Bt' P are register-local (At is I plus
+//   the a_sv coupling, Bt = [bd; I], P symmetric); sums over P's rows cross
+//   lanes through shuffles or warp tiles read with 16-byte loads.  r_bar's
+//   rows (lanes 0-7) go through a tile, and every lane factors the 8x8
+//   Cholesky itself, right-looking, so that every lane holds L.  Lane c
+//   solves column c of [s_bar | ru_bar] (c < 18): the forward half gives
+//   Y = L^-1 s_bar, and P <- q_bar - Y'Y (= q_bar + s_bar' K, symmetric by
+//   construction); the backward half gives K and k_ff.  K_k overwrites the
+//   consumed blocks of stage k's slot; k_ff goes to its own array.
+// * Mehrotra keeps, per stage, L, 1 / diag(L), s_bar's x-columns and
+//   P_{k+1} e_k in a per-scenario global scratch the wrapper allocates (161
+//   floats a stage, L2-resident): they do not fit the budget below.  Its
+//   vector sweeps read them there.
+// * warp-parallel over the 590 rows: w, the row products C z (a loop per
+//   row group), the targets, the fraction-to-boundary minima, the step, the
+//   convergence test.
+//
+// One-wave budget: 1024 scenarios on 132 SMs need 8 blocks an SM, so a
+// block may use at most 28,160 B of shared memory (233,472 B an SM less
+// 1 KB reserved a block) and 256 registers a thread (8,192 a scenario);
+// the layout below takes 26,592 B at N = 10.  `mpcc_ipm_launch_config`
+// reports what the card gives: on an H100 80GB HBM3 at 700 W, 254
+// registers, no local memory, 8 blocks an SM.
 //
 // Layouts (row-major, batch-first; N = stages, nc = 59 rows per stage in
 // the group order [xu | xl | uu | ul | ru | rl | p]):
@@ -32,6 +60,7 @@
 //   gu (B,N,8) gxu (B,N,7) e (B,N,9) bd (B,9,8) a_sv (B) tx (B,9) tu (B,8)
 //   tr (B,7) d (B,N,59) cpx (B,N,11,9) cpu (B,N,11,8) s0/lam0 (B,N,59)
 //   -> dx (B,N+1,17) du (B,N,8) lam/s (B,N,59) iters/solved (B) int, mu (B)
+//   scratch (Mehrotra only): fact (B,N,161)
 
 #include <cmath>
 
@@ -45,9 +74,38 @@ constexpr int NC = 2 * NX + 2 * NU + 2 * DOF + NPC;     // 59
 constexpr int S_IDX = NX - 2, VS_IDX = NX - 1;
 constexpr int O_XU = 0, O_XL = NX, O_UU = 2 * NX, O_UL = 2 * NX + NU;
 constexpr int O_RU = 2 * NX + 2 * NU, O_RL = O_RU + DOF, O_P = O_RL + DOF;
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
+constexpr int THREADS = 32;                             // one warp
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float FRAC_TO_BOUNDARY = 0.995f;
+constexpr int SCHEME_ADAPTIVE = 0, SCHEME_MEHROTRA = 1;
+
+// per-stage slot: upper halves of Q_xx (45) and R (36), S (8x9), the rate
+// diagonals r2 + tr^2 (w_ru + w_rl) (7), the gradient gq (16) and gu (8).
+// After the matrix sweep has consumed stage k, K_k (8x17) sits at offset 0.
+constexpr int Q_OFF = 0, S_OFF = 45, R_OFF = 117, SRR_OFF = 153;
+constexpr int GQ_OFF = 160, GU_OFF = 176, SLOT = 184;
+constexpr int TP_FLOATS = 45 + NX;        // terminal P (upper) and p
+// warp tile: stage_blocks' C rows and C' diag(w) of one stage, or the
+// sweep's P Bt (17x8), r_bar / L (8x8) and Y (17x8)
+constexpr int TILE = 2 * NPC * (NX + NU);
+static_assert(TILE >= NXT * NU + NU * NU + NXT * NU, "tile too small");
+// Mehrotra's saved factorization, per stage: L (8x8), s_bar[:, :9] by
+// columns (9x8), P_{k+1} e_k (17), 1 / diag(L) (8)
+constexpr int F_L = 0, F_SB = 64, F_PE = 136, F_LINV = 153, FACT = 161;
+
+__host__ __device__ constexpr int up9(int i, int j) {   // i <= j
+  return i * NX - i * (i - 1) / 2 + (j - i);
+}
+__host__ __device__ constexpr int up8(int i, int j) {
+  return i * NU - i * (i - 1) / 2 + (j - i);
+}
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+__device__ __forceinline__ int sym9(int i, int j) {
+  return i <= j ? up9(i, j) : up9(j, i);
+}
+__device__ __forceinline__ int sym8(int i, int j) {
+  return i <= j ? up8(i, j) : up8(j, i);
+}
 
 struct Inputs {
   const float *hxx, *hux, *huu, *r2, *gx, *gu, *gxu, *e, *bd, *a_sv, *tx,
@@ -68,425 +126,761 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ int finitef(float x) {
   return fabsf(x) <= 3.402823466e38f;   // false for NaN and +-inf
 }
-
-// Block-wide reductions; every thread gets the result.  `red` holds
-// NWARPS floats; the leading barrier protects it from its previous use.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < NWARPS; ++w) r += red[w];
-  return r;
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
 }
-__device__ float block_min(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < NWARPS; ++w) r = nan_min(r, red[w]);
-  return r;
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
 }
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < NWARPS; ++w) r = nan_max(r, red[w]);
-  return r;
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
 }
 
-// C z for every stage row (group order) from the iterate (dx, du).
-__device__ void row_products(int n_st, const float* dx, const float* du,
-                             const float* tx, const float* tu,
-                             const float* tr, const float* cpx,
-                             const float* cpu, float* cz) {
-  for (int idx = threadIdx.x; idx < n_st * NC; idx += THREADS) {
-    const int k = idx / NC, row = idx % NC;
-    float v;
-    if (row < O_XL) {
-      v = tx[row] * dx[(k + 1) * NXT + row];
-    } else if (row < O_UU) {
-      v = -(tx[row - O_XL] * dx[(k + 1) * NXT + row - O_XL]);
-    } else if (row < O_UL) {
-      v = tu[row - O_UU] * du[k * NU + row - O_UU];
-    } else if (row < O_RU) {
-      v = -(tu[row - O_UL] * du[k * NU + row - O_UL]);
-    } else if (row < O_RL) {
-      const int j = row - O_RU;
-      v = tr[j] * (du[k * NU + j] - dx[k * NXT + NX + j]);
-    } else if (row < O_P) {
-      const int j = row - O_RL;
-      v = -(tr[j] * (du[k * NU + j] - dx[k * NXT + NX + j]));
-    } else {
-      const int r = row - O_P;
-      const float* cx = cpx + ((size_t)k * NPC + r) * NX;
-      const float* cu = cpu + ((size_t)k * NPC + r) * NU;
-      float acc = 0.f;
-      for (int j = 0; j < NX; ++j) acc += cx[j] * dx[k * NXT + j];
-      float acc_u = 0.f;
-      for (int j = 0; j < NU; ++j) acc_u += cu[j] * du[k * NU + j];
-      v = acc + acc_u;
-    }
-    cz[idx] = v;
+// One scenario's view: its inputs and the shared-memory carve-up.
+struct Scn {
+  const float *hxx, *hux, *huu, *r2, *gx, *gu, *gxu, *e, *cpx, *cpu;
+  float* fact;                 // Mehrotra scratch (N, FACT) or null
+  float a_sv;
+  int n_st, nr, lane;
+  float *s, *lam, *w, *r, *d, *cz;   // rows (N, NC)
+  float *slot, *tp, *kff;            // stage slots, terminal, k_ff / du_t
+  float *dx, *du, *dxt;              // iterate and target steps
+  float *tile;                       // stage_blocks' tile, or:
+  float *pb, *lt, *sbt;              // the sweep's warp tiles
+  float *bd, *tx, *tu, *tr, *zero;
+  int* code;                         // slot entry -> kind << 8 | a << 4 | b
+};
+
+// Slot entry e's kind and indices: Q_xx[a][b] (0), S[a][b] (1), R[a][b]
+// (2), the rate diagonal a (3), gq_x[a] (4), gq on the u_prev slot a (5),
+// gu[a] (6).
+__device__ __forceinline__ void decode_entry(int e, int& kind, int& a,
+                                             int& b) {
+  b = 0;
+  if (e < S_OFF) {
+    int r = e, i = 0;
+    while (r >= NX - i) { r -= NX - i; ++i; }
+    kind = 0; a = i; b = i + r;
+  } else if (e < R_OFF) {
+    kind = 1; a = (e - S_OFF) / NX; b = (e - S_OFF) % NX;
+  } else if (e < SRR_OFF) {
+    int r = e - R_OFF, i = 0;
+    while (r >= NU - i) { r -= NU - i; ++i; }
+    kind = 2; a = i; b = i + r;
+  } else if (e < GQ_OFF) {
+    kind = 3; a = e - SRR_OFF;
+  } else if (e < GQ_OFF + NX) {
+    kind = 4; a = e - GQ_OFF;
+  } else if (e < GU_OFF) {
+    kind = 5; a = e - GQ_OFF - NX;
+  } else {
+    kind = 6; a = e - GU_OFF;
   }
+}
+
+// The stage blocks of every stage that do not depend on P, slot entries
+// [e_lo, e_hi): the matrix entries [0, 160) of H + C' diag(w) C and the
+// gradient entries [160, 184) of g + C' g_rows (the rows in c.cz), with the
+// terminal P (matrix) and p (gradient).  Warp-parallel: lane l fills the
+// entries e_lo + l, e_lo + l + 32, ... of every stage (decoded once per
+// launch into c.code); each stage's C rows and C' diag(w) go through the
+// warp tile, and the next stage's C rows are loaded into registers while
+// this stage computes.
+__device__ void stage_blocks(const Scn& c, int e_lo, int e_hi) {
+  constexpr int CXL = (NPC * NX + THREADS - 1) / THREADS;
+  constexpr int CUL = (NPC * NU + THREADS - 1) / THREADS;
+  const bool mat = e_lo < GQ_OFF;
+  float* cx = c.tile;
+  float* cu = cx + NPC * NX;
+  float* cwx = cu + NPC * NU;             // cx * w_p, cu * w_p
+  float* cwu = cwx + NPC * NX;
+  float rx[CXL], rv[CUL];
+  auto fetch = [&](int k) {
+#pragma unroll
+    for (int t = 0; t < CXL; ++t) {
+      const int i = c.lane + THREADS * t;
+      rx[t] = i < NPC * NX ? __ldg(c.cpx + (size_t)k * NPC * NX + i) : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < CUL; ++t) {
+      const int i = c.lane + THREADS * t;
+      rv[t] = i < NPC * NU ? __ldg(c.cpu + (size_t)k * NPC * NU + i) : 0.f;
+    }
+  };
+  fetch(0);
+  for (int k = 0; k < c.n_st; ++k) {
+    const float* wk = c.w + k * NC;
+    const float* gk = c.cz + k * NC;
+#pragma unroll
+    for (int t = 0; t < CXL; ++t) {
+      const int i = c.lane + THREADS * t;
+      if (i < NPC * NX) {
+        cx[i] = rx[t];
+        if (mat) cwx[i] = rx[t] * wk[O_P + i / NX];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < CUL; ++t) {
+      const int i = c.lane + THREADS * t;
+      if (i < NPC * NU) {
+        cu[i] = rv[t];
+        if (mat) cwu[i] = rv[t] * wk[O_P + i / NU];
+      }
+    }
+    __syncwarp();
+    if (k + 1 < c.n_st) fetch(k + 1);
+#pragma unroll 3  // fully unrolled, the kernel needs over 255 registers
+    for (int t = 0; t < (SLOT + THREADS - 1) / THREADS; ++t) {
+      const int e = e_lo + c.lane + THREADS * t;
+      if (e >= e_hi) continue;
+      const int code = c.code[e];
+      const int kind = code >> 8, a = (code >> 4) & 15, b = code & 15;
+      // every kind is h + dg + sum_r pa[r sa] pb[r sb]; the kinds without
+      // C rows take a zero stride on a zero (so the loop never diverges)
+      const float* h;
+      const float* pa = c.zero;
+      const float* pb = c.zero;
+      int sa = 0, sb = 0;
+      float dg = 0.f;
+      if (kind == 0) {          // Q_xx[a][b]
+        h = c.hxx + (size_t)k * NX * NX + a * NX + b;
+        if (a == b && k >= 1)
+          dg = c.tx[a] * c.tx[a] * (wk[O_XU + a - NC] + wk[O_XL + a - NC]);
+        pa = cwx + a; sa = NX; pb = cx + b; sb = NX;
+      } else if (kind == 1) {   // S[a][b], u = a, x = b
+        h = c.hux + (size_t)k * NU * NX + a * NX + b;
+        pa = cwu + a; sa = NU; pb = cx + b; sb = NX;
+      } else if (kind == 2) {   // R[a][b]
+        h = c.huu + (size_t)k * NU * NU + a * NU + b;
+        if (a == b) {
+          dg = c.tu[a] * c.tu[a] * (wk[O_UU + a] + wk[O_UL + a]);
+          if (a < DOF)
+            dg += c.tr[a] * c.tr[a] * (wk[O_RU + a] + wk[O_RL + a]);
+        }
+        pa = cwu + a; sa = NU; pb = cu + b; sb = NU;
+      } else if (kind == 3) {   // r2 + tr^2 (w_ru + w_rl)
+        h = c.r2 + k * DOF + a;
+        dg = c.tr[a] * c.tr[a] * (wk[O_RU + a] + wk[O_RL + a]);
+      } else if (kind == 4) {   // gq_x[a]
+        h = c.gx + k * NX + a;
+        if (k >= 1) dg = c.tx[a] * (gk[O_XU + a - NC] - gk[O_XL + a - NC]);
+        pa = cx + a; sa = NX; pb = gk + O_P; sb = 1;
+      } else if (kind == 5) {   // gq on the u_prev slots
+        h = c.gxu + k * DOF + a;
+        dg = -(c.tr[a] * (gk[O_RU + a] - gk[O_RL + a]));
+      } else {                  // gu[a]
+        h = c.gu + k * NU + a;
+        dg = c.tu[a] * (gk[O_UU + a] - gk[O_UL + a]);
+        if (a < DOF) dg += c.tr[a] * (gk[O_RU + a] - gk[O_RL + a]);
+        pa = cu + a; sa = NU; pb = gk + O_P; sb = 1;
+      }
+      float v = __ldg(h) + dg;
+#pragma unroll
+      for (int r = 0; r < NPC; ++r) v += pa[r * sa] * pb[r * sb];
+      c.slot[k * SLOT + e] = v;
+    }
+    __syncwarp();
+  }
+  // terminal boundary: knot N's cost + the state box of knot N
+  const float* wl = c.w + (c.n_st - 1) * NC;
+  const float* gl = c.cz + (c.n_st - 1) * NC;
+  if (mat) {
+    for (int e = c.lane; e < 45; e += THREADS) {
+      int kind, i, j;
+      decode_entry(e, kind, i, j);
+      float v = __ldg(c.hxx + (size_t)c.n_st * NX * NX + i * NX + j);
+      if (i == j) v += c.tx[i] * c.tx[i] * (wl[O_XU + i] + wl[O_XL + i]);
+      c.tp[e] = v;
+    }
+  }
+  if (e_hi > GQ_OFF && c.lane < NX)
+    c.tp[45 + c.lane] =
+        __ldg(c.gx + c.n_st * NX + c.lane)
+        + c.tx[c.lane] * (gl[O_XU + c.lane] - gl[O_XL + c.lane]);
+  __syncwarp();
+}
+
+// The gradient blocks alone (Mehrotra's probe and corrector): gq (16), gu
+// (8) of every stage and the terminal p from the rows in c.cz,
+// warp-parallel over (stage, entry) with C read straight from L1/L2 (a
+// tile would put each stage's load latency in series for little work).
+__device__ void gradient_blocks(const Scn& c) {
+  constexpr int N_GRAD = SLOT - GQ_OFF;
+  const int total = c.n_st * N_GRAD + NX;
+  for (int idx = c.lane; idx < total; idx += THREADS) {
+    const int k = idx / N_GRAD, e = idx % N_GRAD;
+    if (k == c.n_st) {          // terminal p (knot N's state box)
+      const float* gl = c.cz + (c.n_st - 1) * NC;
+      c.tp[45 + e] = __ldg(c.gx + c.n_st * NX + e)
+                     + c.tx[e] * (gl[O_XU + e] - gl[O_XL + e]);
+      continue;
+    }
+    const float* gk = c.cz + k * NC;
+    const float* cx = c.cpx + (size_t)k * NPC * NX;
+    const float* cu = c.cpu + (size_t)k * NPC * NU;
+    float v;
+    if (e < NX) {
+      v = __ldg(c.gx + k * NX + e);
+      if (k >= 1) v += c.tx[e] * (gk[O_XU + e - NC] - gk[O_XL + e - NC]);
+      for (int r = 0; r < NPC; ++r) v += __ldg(cx + r * NX + e) * gk[O_P + r];
+    } else if (e < NX + DOF) {
+      const int u = e - NX;
+      v = __ldg(c.gxu + k * DOF + u) - c.tr[u] * (gk[O_RU + u] - gk[O_RL + u]);
+    } else {
+      const int u = e - NX - DOF;
+      v = __ldg(c.gu + k * NU + u) + c.tu[u] * (gk[O_UU + u] - gk[O_UL + u]);
+      if (u < DOF) v += c.tr[u] * (gk[O_RU + u] - gk[O_RL + u]);
+      for (int r = 0; r < NPC; ++r) v += __ldg(cu + r * NU + u) * gk[O_P + r];
+    }
+    c.slot[k * SLOT + GQ_OFF + e] = v;
+  }
+  __syncwarp();
+}
+
+// Gradient rows g = w (s - d) + rhs / s_safe into c.cz, for the
+// complementarity right-hand side rhs: 0 (the affine probe), the barrier
+// parameter mu (adaptive), or the rows of c.r (Mehrotra's corrector).
+__device__ void gradient_rows(const Scn& c, int rhs_mode, float mu) {
+  for (int i = c.lane; i < c.nr; i += THREADS) {
+    const float sv = c.s[i];
+    const float ss = fmaxf(sv, 1e-10f);
+    const float rhs = rhs_mode == 0 ? 0.f : (rhs_mode == 1 ? mu : c.r[i]);
+    c.cz[i] = c.w[i] * (sv - c.d[i]) + rhs / ss;
+  }
+  __syncwarp();
+}
+
+// C z for every stage row (group order) from the steps (dx, du), a loop
+// per row group so that the lanes of a loop take one path.
+__device__ void row_products(const Scn& c, const float* dx, const float* du,
+                             float* cz) {
+  const int n = c.n_st;
+  for (int idx = c.lane; idx < n * NX; idx += THREADS) {
+    const int k = idx / NX, j = idx % NX;
+    const float v = c.tx[j] * dx[(k + 1) * NXT + j];
+    cz[k * NC + O_XU + j] = v;
+    cz[k * NC + O_XL + j] = -v;
+  }
+  for (int idx = c.lane; idx < n * NU; idx += THREADS) {
+    const int k = idx / NU, j = idx % NU;
+    const float v = c.tu[j] * du[k * NU + j];
+    cz[k * NC + O_UU + j] = v;
+    cz[k * NC + O_UL + j] = -v;
+    if (j < DOF) {
+      const float r = c.tr[j] * (du[k * NU + j] - dx[k * NXT + NX + j]);
+      cz[k * NC + O_RU + j] = r;
+      cz[k * NC + O_RL + j] = -r;
+    }
+  }
+  for (int idx = c.lane; idx < n * NPC; idx += THREADS) {
+    const int k = idx / NPC, r = idx % NPC;
+    const float* cx = c.cpx + ((size_t)k * NPC + r) * NX;
+    const float* cu = c.cpu + ((size_t)k * NPC + r) * NU;
+    float acc = 0.f;
+    for (int j = 0; j < NX; ++j) acc += __ldg(cx + j) * dx[k * NXT + j];
+    float acc_u = 0.f;
+    for (int j = 0; j < NU; ++j) acc_u += __ldg(cu + j) * du[k * NU + j];
+    cz[k * NC + O_P + r] = acc + acc_u;
+  }
+  __syncwarp();
+}
+
+// 8 floats from / to 16-byte aligned shared memory in two vector accesses.
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void st8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// ru_bar[u] = gu[u] + (bd' m[:9])[u] + m[9 + u] for the u of this lane
+// (every lane takes part in the shuffles; lanes 0-7 hold the results).
+__device__ __forceinline__ float ru_bar(const Scn& c, const float* sl,
+                                        float m, int u) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+    acc += c.bd[i * NU + u] * __shfl_sync(FULL, m, i);
+  return (sl[GU_OFF + u] + acc) + __shfl_sync(FULL, m, NX + u);
+}
+
+// The backward Riccati sweep on the warp.  FUSED (adaptive): the matrix and
+// vector recursions together, K_k into the slot and k_ff_k into c.kff.
+// Otherwise (Mehrotra): the matrix recursion only, K_k into the slot and
+// L_k, s_bar_k's x-columns and P_{k+1} e_k into the scratch.
+// Lane j holds column j of P (j < 17); lanes 0-7 hold r_bar's rows for the
+// Cholesky; lane c < 17 solves for column c of K, lane 17 for k_ff.
+template <bool FUSED>
+__device__ void riccati_sweep(const Scn& c) {
+  const int lane = c.lane;
+  const int jl = min(lane, NX - 1);       // clamped indices for loads
+  const int ul = min(lane, NU - 1);
+  const int u_l = lane - NX;              // lanes 9-16: the u_prev slots
+  float pc[NXT];
+  float pv = 0.f;
+#pragma unroll
+  for (int i = 0; i < NXT; ++i)
+    pc[i] = (lane < NX && i < NX) ? c.tp[sym9(i, jl)] : 0.f;
+  if (FUSED) pv = lane < NX ? c.tp[45 + jl] : 0.f;
+
+  for (int k = c.n_st - 1; k >= 0; --k) {
+    float* sl = c.slot + k * SLOT;
+    const float* ek = c.e + k * NX;
+    float* fk = FUSED ? nullptr : c.fact + (size_t)k * FACT;
+    const float srr_l = (u_l >= 0 && u_l < DOF) ? sl[SRR_OFF + u_l] : 0.f;
+
+    // pa = (P At)[:, :9]: column vs += a_sv * column s
+    float pa[NXT];
+#pragma unroll
+    for (int i = 0; i < NXT; ++i) {
+      const float ps = __shfl_sync(FULL, pc[i], S_IDX);
+      pa[i] = lane == VS_IDX ? pc[i] + c.a_sv * ps : pc[i];
+    }
+    // q_bar = Q + At' P At (x-block), diag(srr) on the u_prev slots
+    float qb[NXT];
+#pragma unroll
+    for (int i = 0; i < NXT; ++i) {
+      float v = 0.f;
+      if (i < NX) {
+        const float ct = i == VS_IDX ? pa[i] + c.a_sv * pa[S_IDX] : pa[i];
+        v = sl[Q_OFF + sym9(i, jl)] + ct;
+      }
+      qb[i] = lane < NX ? v : (lane == i ? srr_l : 0.f);
+    }
+    // s_bar column: S + bd' pa[:9] + pa[9:]; -srr on the u_prev diagonal
+    float sb[NU];
+    {
+      float acc[NU] = {};
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float bdr[NU];
+        ld8(c.bd + i * NU, bdr);
+#pragma unroll
+        for (int u = 0; u < NU; ++u) acc[u] += bdr[u] * pa[i];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float vx = sl[S_OFF + u * NX + jl] + (acc[u] + pa[NX + u]);
+        const float vu = (u == u_l && u < DOF) ? -srr_l : 0.f;
+        sb[u] = lane < NX ? vx : vu;
+      }
+    }
+    // (P Bt)[i][:] from column i of P (P is symmetric), into the tile
+    {
+      float acc[NU] = {};
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float bdr[NU];
+        ld8(c.bd + j * NU, bdr);
+#pragma unroll
+        for (int v = 0; v < NU; ++v) acc[v] += bdr[v] * pc[j];
+      }
+#pragma unroll
+      for (int v = 0; v < NU; ++v) acc[v] += pc[NX + v];
+      if (lane < NXT) st8(c.pb + lane * NU, acc);
+    }
+    // P_{k+1} e_k (row i from column i)
+    float pe = 0.f;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) pe += pc[j] * __ldg(ek + j);
+    float qx = 0.f;
+    if (FUSED) {
+      // vector step: m = p + P e, qx_bar, and ru_bar on lane 17's rhs
+      const float m = pv + pe;
+      const float ms = __shfl_sync(FULL, m, S_IDX);
+      const float gq = lane < NXT - 1 ? sl[GQ_OFF + min(lane, NXT - 2)] : 0.f;
+      qx = gq + (lane < NX ? m : 0.f);
+      if (lane == VS_IDX) qx += c.a_sv * ms;
+      // ru_bar[u] on lane u, gathered on lane 17 (its right-hand side)
+      const float ru = ru_bar(c, sl, m, ul);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float v = __shfl_sync(FULL, ru, u);
+        if (lane == NXT) sb[u] = v;
+      }
+    } else if (lane < NXT) {
+      fk[F_PE + lane] = pe;
+    }
+    __syncwarp();
+
+    // r_bar = R + Bt' P Bt + 1e-9 I, row ul on lane ul, into the tile
+    {
+      float acc[NU] = {};
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float pbr[NU];
+        ld8(c.pb + i * NU, pbr);
+        const float bdi = c.bd[i * NU + ul];
+#pragma unroll
+        for (int v = 0; v < NU; ++v) acc[v] += bdi * pbr[v];
+      }
+      float pbu[NU];
+      ld8(c.pb + (NX + ul) * NU, pbu);
+      float rb[NU];
+#pragma unroll
+      for (int v = 0; v < NU; ++v) {
+        float t = (sl[R_OFF + sym8(ul, v)] + acc[v]) + pbu[v];
+        if (v == ul) t += 1e-9f;
+        rb[v] = t;
+      }
+      if (lane < NU) st8(c.lt + lane * NU, rb);
+    }
+    __syncwarp();
+    // right-looking Cholesky of r_bar on every lane from the tile (NaN on a
+    // non-PD pivot), so that every lane holds L and 1 / diag(L) (rsqrt)
+    float lm[NU][NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) ld8(c.lt + i * NU, lm[i]);
+    float linv[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      linv[j] = rsqrtf(lm[j][j]);
+#pragma unroll
+      for (int i = j; i < NU; ++i) lm[i][j] = lm[i][j] * linv[j];
+#pragma unroll
+      for (int i = j + 1; i < NU; ++i) {
+#pragma unroll
+        for (int l = j + 1; l <= i; ++l) lm[i][l] -= lm[i][j] * lm[l][j];
+      }
+    }
+    if (!FUSED) {              // Mehrotra keeps L and 1 / diag(L)
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        if (lane == i) {
+#pragma unroll
+          for (int v = 0; v <= i; ++v) fk[F_L + i * NU + v] = lm[i][v];
+          fk[F_LINV + i] = linv[i];
+        }
+      }
+    }
+
+    // [K | k_ff] = -(L L')^-1 [s_bar | ru_bar], a column a lane.  Forward:
+    // Y = L^-1 [s_bar | ru_bar]; s_bar' K = -Y'Y, so P's update needs only
+    // Y and comes out symmetric; then backward (rows of L only).
+    float y[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      float acc = sb[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc -= lm[i][j] * y[j];
+      y[i] = acc * linv[i];
+    }
+    if (lane < NXT) st8(c.sbt + lane * NU, y);
+    if (!FUSED && lane < NX) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) fk[F_SB + lane * NU + u] = sb[u];
+    }
+    __syncwarp();
+
+    // P <- q_bar - Y'Y (lane j: column j)
+#pragma unroll
+    for (int i = 0; i < NXT; ++i) {
+      float yr[NU];
+      ld8(c.sbt + i * NU, yr);
+      float acc = 0.f;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) acc += yr[u] * y[u];
+      pc[i] = lane < NXT ? qb[i] - acc : 0.f;
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      y[i] = y[i] * linv[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) y[j] -= lm[i][j] * y[i];
+    }
+    if (lane < NXT) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) sl[u * NXT + lane] = -y[u];   // K_k
+    }
+    if (FUSED) {
+      // k_ff on lane 17; p <- qx_bar + s_bar' k_ff
+      if (lane == NXT) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u) c.kff[k * NU + u] = -y[u];
+      }
+      float acc = 0.f;
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        acc += sb[u] * -__shfl_sync(FULL, y[u], NXT);
+      pv = lane < NXT ? qx + acc : 0.f;
+    }
+    __syncwarp();
+  }
+}
+
+// The vector-only backward sweep against Mehrotra's saved factorization:
+// k_ff_k into c.kff (the gradient blocks are in the slots, K_k too).
+__device__ void vector_sweep(const Scn& c) {
+  const int lane = c.lane;
+  const int u_l = lane - NX;
+  float pv = lane < NX ? c.tp[45 + min(lane, NX - 1)] : 0.f;
+  for (int k = c.n_st - 1; k >= 0; --k) {
+    const float* sl = c.slot + k * SLOT;
+    const float* fk = c.fact + (size_t)k * FACT;
+    const float srr_l = (u_l >= 0 && u_l < DOF) ? sl[SRR_OFF + u_l] : 0.f;
+    const float pe = lane < NXT ? fk[F_PE + min(lane, NXT - 1)] : 0.f;
+    const float m = pv + pe;
+    const float ms = __shfl_sync(FULL, m, S_IDX);
+    const float gq = lane < NXT - 1 ? sl[GQ_OFF + min(lane, NXT - 2)] : 0.f;
+    float qx = gq + (lane < NX ? m : 0.f);
+    if (lane == VS_IDX) qx += c.a_sv * ms;
+    // ru_bar[u] on lane u, gathered on lane 17
+    const float ru = ru_bar(c, sl, m, min(lane, NU - 1));
+    float y[NU];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) y[u] = __shfl_sync(FULL, ru, u);
+    if (lane == NXT) {
+      // k_ff = -(L L')^-1 ru_bar against the saved L
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        float acc = y[i];
+#pragma unroll
+        for (int j = 0; j < i; ++j) acc -= fk[F_L + i * NU + j] * y[j];
+        y[i] = acc * fk[F_LINV + i];
+      }
+#pragma unroll
+      for (int i = NU - 1; i >= 0; --i) {
+        float acc = y[i];
+#pragma unroll
+        for (int j = i + 1; j < NU; ++j) acc -= fk[F_L + j * NU + i] * y[j];
+        y[i] = acc * fk[F_LINV + i];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) c.kff[k * NU + u] = -y[u];
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const float kf = -__shfl_sync(FULL, y[u], NXT);
+      const float sbu = lane < NX ? fk[F_SB + min(lane, NX - 1) * NU + u]
+                                  : ((u == u_l && u < DOF) ? -srr_l : 0.f);
+      acc += sbu * kf;
+    }
+    pv = lane < NXT ? qx + acc : 0.f;
+  }
+  __syncwarp();
+}
+
+// Forward rollout of the targets from dx'_0 = 0 on the warp: dx_t into
+// c.dxt, du_t over k_ff in c.kff (each entry is read before it is written).
+__device__ void rollout(const Scn& c) {
+  const int lane = c.lane;
+  if (lane < NXT) c.dxt[lane] = 0.f;
+  __syncwarp();
+  for (int k = 0; k < c.n_st; ++k) {
+    const float* xk = c.dxt + k * NXT;
+    const float* kg = c.slot + k * SLOT;
+    if (lane < NU) {
+      float v = 0.f;
+      for (int j = 0; j < NXT; ++j) v += kg[lane * NXT + j] * xk[j];
+      v += c.kff[k * NU + lane];
+      c.kff[k * NU + lane] = v;
+      c.dxt[(k + 1) * NXT + NX + lane] = v;
+    }
+    __syncwarp();
+    if (lane < NX) {
+      float v = xk[lane];
+      if (lane == S_IDX) v += c.a_sv * xk[VS_IDX];
+      float bu = 0.f;
+      for (int u = 0; u < NU; ++u)
+        bu += c.bd[lane * NU + u] * c.kff[k * NU + u];
+      c.dxt[(k + 1) * NXT + lane] = v + bu + __ldg(c.e + k * NX + lane);
+    }
+    __syncwarp();
+  }
+}
+
+// Slack/dual targets of the Newton system with right-hand side rhs (mode
+// as in gradient_rows) from the target row products in c.cz: ds into c.r,
+// dlam into c.cz.  Returns the fraction-to-boundary step lengths.
+__device__ float2 targets(const Scn& c, int rhs_mode, float mu) {
+  float rp_min = INFINITY, rd_min = INFINITY;
+  for (int i = c.lane; i < c.nr; i += THREADS) {
+    const float sv = c.s[i], lv = c.lam[i], dv = c.d[i], cz = c.cz[i];
+    const float ss = fmaxf(sv, 1e-10f);
+    const float rhs = rhs_mode == 0 ? 0.f : (rhs_mode == 1 ? mu : c.r[i]);
+    const float ds = (dv - cz) - sv;
+    const float dl = (rhs / ss + c.w[i] * (cz + sv - dv)) - lv;
+    c.r[i] = ds;
+    c.cz[i] = dl;
+    if (ds < -1e-12f) rp_min = nan_min(rp_min, -sv / ds);
+    if (dl < -1e-12f) rd_min = nan_min(rd_min, -lv / dl);
+  }
+  __syncwarp();
+  return make_float2(fminf(1.f, FRAC_TO_BOUNDARY * warp_min(rp_min)),
+                     fminf(1.f, FRAC_TO_BOUNDARY * warp_min(rd_min)));
+}
+
+// The target steps for the rhs: (Mehrotra) the gradient blocks, a sweep,
+// the rollout and the target row products.  The matrix blocks (adaptive:
+// and the gradient blocks) are in the slots already.
+__device__ float2 solve_rhs(const Scn& c, bool mehrotra, int rhs_mode,
+                            float mu) {
+  if (mehrotra) {
+    gradient_rows(c, rhs_mode, mu);
+    gradient_blocks(c);
+  }
+  if (mehrotra) {
+    vector_sweep(c);
+  } else {
+    riccati_sweep<true>(c);
+  }
+  rollout(c);
+  row_products(c, c.dxt, c.kff, c.cz);
+  return targets(c, rhs_mode, mu);
 }
 
 __global__ void __launch_bounds__(THREADS)
-ipm_kernel(Inputs in, Outputs out, int n_st, int max_iter, float eps_ipm) {
-  extern __shared__ float sm[];
+ipm_kernel(Inputs in, Outputs out, float* fact, int n_st, int max_iter,
+           float eps_ipm, int scheme) {
+  extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x;
   const int nr = n_st * NC;
+  const bool mehrotra = scheme == SCHEME_MEHROTRA;
 
-  // ---- shared-memory carve-up (floats)
-  float* s_s = sm;                    // slacks          (N, NC)
-  float* s_lam = s_s + nr;            // duals
-  float* s_w = s_lam + nr;            // lam / s
-  float* s_r = s_w + nr;              // g rows, later ds
-  float* s_d = s_r + nr;              // row offsets
-  float* s_cz = s_d + nr;             // C z, later dlam
-  float* s_k = s_cz + nr;             // gains           (N, NU, NXT)
-  float* s_kff = s_k + n_st * NU * NXT;   // feed-forwards (N, NU)
-  float* s_dx = s_kff + n_st * NU;    // iterate dx      (N+1, NXT)
-  float* s_du = s_dx + (n_st + 1) * NXT;  // iterate du  (N, NU)
-  float* s_dxt = s_du + n_st * NU;    // target dx
-  float* s_dut = s_dxt + (n_st + 1) * NXT;
-  float* s_p = s_dut + n_st * NU;     // cost-to-go P    (NXT, NXT)
-  float* s_pv = s_p + NXT * NXT;      // cost-to-go p    (NXT)
-  float* s_q = s_pv + NXT;            // Q -> q_bar      (NXT, NXT)
-  float* s_sb = s_q + NXT * NXT;      // S -> s_bar      (NU, NXT)
-  float* s_rb = s_sb + NU * NXT;      // R -> r_bar -> L (NU, NU)
-  float* s_gq = s_rb + NU * NU;       // gq -> qx_bar    (NXT)
-  float* s_gu = s_gq + NXT;           // gu -> ru_bar    (NU)
-  float* s_pa = s_gu + NU;            // (P At)[:, :NX]  (NXT, NX)
-  float* s_pb = s_pa + NXT * NX;      // P Bt            (NXT, NU)
-  float* s_m = s_pb + NXT * NU;       // p + P e         (NXT)
-  float* s_bd = s_m + NXT;            // (NX, NU)
-  float* s_tx = s_bd + NX * NU;
-  float* s_tu = s_tx + NX;
-  float* s_tr = s_tu + NU;
-  float* s_red = s_tr + DOF;          // reduction scratch (NWARPS)
+  Scn c;
+  c.hxx = in.hxx + (size_t)b * (n_st + 1) * NX * NX;
+  c.hux = in.hux + (size_t)b * n_st * NU * NX;
+  c.huu = in.huu + (size_t)b * n_st * NU * NU;
+  c.r2 = in.r2 + (size_t)b * n_st * DOF;
+  c.gx = in.gx + (size_t)b * (n_st + 1) * NX;
+  c.gu = in.gu + (size_t)b * n_st * NU;
+  c.gxu = in.gxu + (size_t)b * n_st * DOF;
+  c.e = in.e + (size_t)b * n_st * NX;
+  c.cpx = in.cpx + (size_t)b * n_st * NPC * NX;
+  c.cpu = in.cpu + (size_t)b * n_st * NPC * NU;
+  c.fact = mehrotra ? fact + (size_t)b * n_st * FACT : nullptr;
+  c.a_sv = in.a_sv[b];
+  c.n_st = n_st;
+  c.nr = nr;
+  c.lane = lane;
+  // ---- shared-memory carve-up (floats; smem_floats below)
+  float* next = sm;
+  auto take = [&next](int n) { float* p = next; next += pad4(n); return p; };
+  c.s = take(nr);
+  c.lam = take(nr);
+  c.w = take(nr);
+  c.r = take(nr);
+  c.d = take(nr);
+  c.cz = take(nr);
+  c.slot = take(n_st * SLOT);
+  c.tp = take(TP_FLOATS);
+  c.kff = take(n_st * NU);
+  c.dx = take((n_st + 1) * NXT);
+  c.du = take(n_st * NU);
+  c.dxt = take((n_st + 1) * NXT);
+  c.tile = take(TILE);
+  c.pb = c.tile;
+  c.lt = c.pb + NXT * NU;
+  c.sbt = c.lt + NU * NU;
+  c.bd = take(NX * NU);
+  c.tx = take(NX);
+  c.tu = take(NU);
+  c.tr = take(DOF);
+  c.zero = take(1);
+  c.code = reinterpret_cast<int*>(take(SLOT));
 
-  // ---- this scenario's inputs
-  const float* hxx = in.hxx + (size_t)b * (n_st + 1) * NX * NX;
-  const float* hux = in.hux + (size_t)b * n_st * NU * NX;
-  const float* huu = in.huu + (size_t)b * n_st * NU * NU;
-  const float* r2 = in.r2 + (size_t)b * n_st * DOF;
-  const float* gx = in.gx + (size_t)b * (n_st + 1) * NX;
-  const float* gu = in.gu + (size_t)b * n_st * NU;
-  const float* gxu = in.gxu + (size_t)b * n_st * DOF;
-  const float* e = in.e + (size_t)b * n_st * NX;
-  const float* cpx = in.cpx + (size_t)b * n_st * NPC * NX;
-  const float* cpu = in.cpu + (size_t)b * n_st * NPC * NU;
-  const float a_sv = in.a_sv[b];
-
-  for (int i = tid; i < nr; i += THREADS) {
-    s_s[i] = in.s0[(size_t)b * nr + i];
-    s_lam[i] = in.lam0[(size_t)b * nr + i];
-    s_d[i] = in.d[(size_t)b * nr + i];
+  for (int i = lane; i < nr; i += THREADS) {
+    c.s[i] = in.s0[(size_t)b * nr + i];
+    c.lam[i] = in.lam0[(size_t)b * nr + i];
+    c.d[i] = in.d[(size_t)b * nr + i];
   }
-  for (int i = tid; i < NX * NU; i += THREADS) s_bd[i] = in.bd[(size_t)b * NX * NU + i];
-  if (tid < NX) s_tx[tid] = in.tx[(size_t)b * NX + tid];
-  if (tid < NU) s_tu[tid] = in.tu[(size_t)b * NU + tid];
-  if (tid < DOF) s_tr[tid] = in.tr[(size_t)b * DOF + tid];
-  for (int i = tid; i < (n_st + 1) * NXT; i += THREADS) s_dx[i] = 0.f;
-  for (int i = tid; i < n_st * NU; i += THREADS) s_du[i] = 0.f;
-  __syncthreads();
+  for (int i = lane; i < NX * NU; i += THREADS)
+    c.bd[i] = in.bd[(size_t)b * NX * NU + i];
+  if (lane < NX) c.tx[lane] = in.tx[(size_t)b * NX + lane];
+  if (lane < NU) c.tu[lane] = in.tu[(size_t)b * NU + lane];
+  if (lane < DOF) c.tr[lane] = in.tr[(size_t)b * DOF + lane];
+  if (lane == 0) c.zero[0] = 0.f;
+  for (int e = lane; e < SLOT; e += THREADS) {
+    int kind, a, bb;
+    decode_entry(e, kind, a, bb);
+    c.code[e] = kind << 8 | a << 4 | bb;
+  }
+  for (int i = lane; i < (n_st + 1) * NXT; i += THREADS) c.dx[i] = 0.f;
+  for (int i = lane; i < n_st * NU; i += THREADS) c.du[i] = 0.f;
+  __syncwarp();
 
   const float m_act = (float)nr;
   float part = 0.f;
-  for (int i = tid; i < nr; i += THREADS) part += s_s[i] * s_lam[i];
-  float mu = block_sum(part, s_red) / m_act;
+  for (int i = lane; i < nr; i += THREADS) part += c.s[i] * c.lam[i];
+  float mu = warp_sum(part) / m_act;
 
   int it = 0;
   while (it < max_iter) {
-    // ---- A. w = lam / s_safe; g rows r = w (s - d) + mu / s_safe
-    for (int i = tid; i < nr; i += THREADS) {
-      const float ss = fmaxf(s_s[i], 1e-10f);
-      const float w = s_lam[i] / ss;
-      s_w[i] = w;
-      s_r[i] = w * (s_s[i] - s_d[i]) + mu / ss;
+    // ---- w = lam / s_safe, and (Mehrotra) the measured complementarity
+    float sl_part = 0.f;
+    for (int i = lane; i < nr; i += THREADS) {
+      c.w[i] = c.lam[i] / fmaxf(c.s[i], 1e-10f);
+      sl_part += c.s[i] * c.lam[i];
     }
-    __syncthreads();
-
-    // ---- B. terminal boundary: knot N cost + its state-box rows
-    {
-      const float* wl = s_w + (n_st - 1) * NC;
-      const float* rl = s_r + (n_st - 1) * NC;
-      for (int idx = tid; idx < NXT * NXT; idx += THREADS) {
-        const int i = idx / NXT, j = idx % NXT;
-        float v = 0.f;
-        if (i < NX && j < NX) {
-          v = hxx[(size_t)n_st * NX * NX + i * NX + j];
-          if (i == j) v += s_tx[i] * s_tx[i] * (wl[O_XU + i] + wl[O_XL + i]);
-        }
-        s_p[idx] = v;
-      }
-      if (tid < NXT)
-        s_pv[tid] = tid < NX ? gx[n_st * NX + tid]
-                                   + s_tx[tid] * (rl[O_XU + tid] - rl[O_XL + tid])
-                             : 0.f;
-    }
-    __syncthreads();
-
-    // ---- C. backward Riccati sweep
-    for (int k = n_st - 1; k >= 0; --k) {
-      const float* wk = s_w + k * NC;
-      const float* rk = s_r + k * NC;
-      const bool on_x = k >= 1;
-      const float* wp = s_w + (k - 1) * NC;   // state box of knot k
-      const float* rp = s_r + (k - 1) * NC;
-      const float* cxk = cpx + (size_t)k * NPC * NX;
-      const float* cuk = cpu + (size_t)k * NPC * NU;
-      const float* ek = e + k * NX;
-
-      // C1. stage blocks H + C' diag(w) C, g + C' r  |  P At, P Bt, p + P e
-      for (int idx = tid; idx < NXT * NXT; idx += THREADS) {
-        const int i = idx / NXT, j = idx % NXT;
-        float v = 0.f;
-        if (i < NX && j < NX) {
-          v = hxx[(size_t)k * NX * NX + i * NX + j];
-          if (i == j && on_x)
-            v += s_tx[i] * s_tx[i] * (wp[O_XU + i] + wp[O_XL + i]);
-          for (int r = 0; r < NPC; ++r)
-            v += cxk[r * NX + i] * wk[O_P + r] * cxk[r * NX + j];
-        } else if (i >= NX && j >= NX && i == j && i - NX < DOF) {
-          const int u = i - NX;
-          v = r2[k * DOF + u]
-              + s_tr[u] * s_tr[u] * (wk[O_RU + u] + wk[O_RL + u]);
-        }
-        s_q[idx] = v;
-      }
-      for (int idx = tid; idx < NU * NXT; idx += THREADS) {
-        const int u = idx / NXT, j = idx % NXT;
-        float v = 0.f;
-        if (j < NX) {
-          v = hux[(size_t)k * NU * NX + u * NX + j];
-          for (int r = 0; r < NPC; ++r)
-            v += cuk[r * NU + u] * wk[O_P + r] * cxk[r * NX + j];
-        } else if (j - NX == u && u < DOF) {
-          v = -(r2[k * DOF + u]
-                + s_tr[u] * s_tr[u] * (wk[O_RU + u] + wk[O_RL + u]));
-        }
-        s_sb[idx] = v;
-      }
-      for (int idx = tid; idx < NU * NU; idx += THREADS) {
-        const int u = idx / NU, v2 = idx % NU;
-        float v = huu[(size_t)k * NU * NU + idx];
-        if (u == v2) {
-          v += s_tu[u] * s_tu[u] * (wk[O_UU + u] + wk[O_UL + u]);
-          if (u < DOF) v += s_tr[u] * s_tr[u] * (wk[O_RU + u] + wk[O_RL + u]);
-        }
-        for (int r = 0; r < NPC; ++r)
-          v += cuk[r * NU + u] * wk[O_P + r] * cuk[r * NU + v2];
-        s_rb[idx] = v;
-      }
-      if (tid < NXT) {
-        float v;
-        if (tid < NX) {
-          v = gx[k * NX + tid];
-          if (on_x) v += s_tx[tid] * (rp[O_XU + tid] - rp[O_XL + tid]);
-          for (int r = 0; r < NPC; ++r) v += cxk[r * NX + tid] * rk[O_P + r];
-        } else if (tid - NX < DOF) {
-          const int u = tid - NX;
-          v = gxu[k * DOF + u] - s_tr[u] * (rk[O_RU + u] - rk[O_RL + u]);
-        } else {
-          v = 0.f;
-        }
-        s_gq[tid] = v;
-      } else if (tid >= 32 && tid < 32 + NU) {
-        const int u = tid - 32;
-        float v = gu[k * NU + u] + s_tu[u] * (rk[O_UU + u] - rk[O_UL + u]);
-        if (u < DOF) v += s_tr[u] * (rk[O_RU + u] - rk[O_RL + u]);
-        for (int r = 0; r < NPC; ++r) v += cuk[r * NU + u] * rk[O_P + r];
-        s_gu[u] = v;
-      }
-      for (int idx = tid; idx < NXT * NX; idx += THREADS) {
-        const int i = idx / NX, j = idx % NX;
-        float v = s_p[i * NXT + j];
-        if (j == VS_IDX) v += a_sv * s_p[i * NXT + S_IDX];
-        s_pa[idx] = v;
-      }
-      for (int idx = tid; idx < NXT * NU; idx += THREADS) {
-        const int i = idx / NU, u = idx % NU;
-        float v = 0.f;
-        for (int j = 0; j < NX; ++j) v += s_p[i * NXT + j] * s_bd[j * NU + u];
-        s_pb[idx] = v + s_p[i * NXT + NX + u];
-      }
-      if (tid >= 64 && tid < 64 + NXT) {
-        const int i = tid - 64;
-        float v = 0.f;
-        for (int j = 0; j < NX; ++j) v += s_p[i * NXT + j] * ek[j];
-        s_m[i] = s_pv[i] + v;
-      }
-      __syncthreads();
-
-      // C2. q_bar, s_bar, r_bar, qx_bar, ru_bar (in place)
-      for (int idx = tid; idx < NX * NX; idx += THREADS) {
-        const int i = idx / NX, j = idx % NX;
-        float v = s_pa[i * NX + j];
-        if (i == VS_IDX) v += a_sv * s_pa[S_IDX * NX + j];
-        s_q[i * NXT + j] += v;
-      }
-      for (int idx = tid; idx < NU * NX; idx += THREADS) {
-        const int u = idx / NX, j = idx % NX;
-        float v = 0.f;
-        for (int i = 0; i < NX; ++i) v += s_bd[i * NU + u] * s_pa[i * NX + j];
-        s_sb[u * NXT + j] += v + s_pa[(NX + u) * NX + j];
-      }
-      for (int idx = tid; idx < NU * NU; idx += THREADS) {
-        const int u = idx / NU, v2 = idx % NU;
-        float v = 0.f;
-        for (int i = 0; i < NX; ++i) v += s_bd[i * NU + u] * s_pb[i * NU + v2];
-        s_rb[idx] += v + s_pb[(NX + u) * NU + v2] + (u == v2 ? 1e-9f : 0.f);
-      }
-      if (tid >= 96 && tid < 96 + NX) {
-        const int i = tid - 96;
-        float v = s_m[i];
-        if (i == VS_IDX) v += a_sv * s_m[S_IDX];
-        s_gq[i] += v;
-      } else if (tid >= 112 && tid < 112 + NU) {
-        const int u = tid - 112;
-        float v = 0.f;
-        for (int i = 0; i < NX; ++i) v += s_bd[i * NU + u] * s_m[i];
-        s_gu[u] += v + s_m[NX + u];
-      }
-      __syncthreads();
-
-      // C3. Cholesky of r_bar (NaN on a non-PD pivot, like the reference)
-      if (tid == 0) {
-        for (int j = 0; j < NU; ++j) {
-          const float dg = sqrtf(s_rb[j * NU + j]);
-          for (int i = j; i < NU; ++i) s_rb[i * NU + j] /= dg;
-          for (int i = j + 1; i < NU; ++i)
-            for (int l = j + 1; l <= i; ++l)
-              s_rb[i * NU + l] -= s_rb[i * NU + j] * s_rb[l * NU + j];
-        }
-      }
-      __syncthreads();
-
-      // C4. [K | k_ff] = -(L L')^-1 [s_bar | ru_bar], one column per thread
-      if (tid <= NXT) {
-        float y[NU];
-        for (int i = 0; i < NU; ++i) {
-          float acc = tid < NXT ? s_sb[i * NXT + tid] : s_gu[i];
-          for (int j = 0; j < i; ++j) acc -= s_rb[i * NU + j] * y[j];
-          y[i] = acc / s_rb[i * NU + i];
-        }
-        for (int i = NU - 1; i >= 0; --i) {
-          float acc = y[i];
-          for (int j = i + 1; j < NU; ++j) acc -= s_rb[j * NU + i] * y[j];
-          y[i] = acc / s_rb[i * NU + i];
-        }
-        for (int i = 0; i < NU; ++i) {
-          if (tid < NXT) s_k[(k * NU + i) * NXT + tid] = -y[i];
-          else s_kff[k * NU + i] = -y[i];
-        }
-      }
-      __syncthreads();
-
-      // C5. P <- sym(q_bar + s_bar' K),  p <- qx_bar + s_bar' k_ff
-      const float* kg = s_k + k * NU * NXT;
-      const float* kf = s_kff + k * NU;
-      for (int idx = tid; idx < NXT * NXT; idx += THREADS) {
-        const int i = idx / NXT, j = idx % NXT;
-        float a = s_q[i * NXT + j], c = s_q[j * NXT + i];
-        for (int u = 0; u < NU; ++u) {
-          a += s_sb[u * NXT + i] * kg[u * NXT + j];
-          c += s_sb[u * NXT + j] * kg[u * NXT + i];
-        }
-        s_p[idx] = 0.5f * (a + c);
-      }
-      if (tid >= THREADS - NXT) {
-        const int i = tid - (THREADS - NXT);
-        float v = s_gq[i];
-        for (int u = 0; u < NU; ++u) v += s_sb[u * NXT + i] * kf[u];
-        s_pv[i] = v;
-      }
-      __syncthreads();
+    const float mu_meas = warp_sum(sl_part) / m_act;
+    __syncwarp();
+    if (mehrotra) {
+      stage_blocks(c, 0, GQ_OFF);
+    } else {
+      gradient_rows(c, 1, mu);
+      stage_blocks(c, 0, SLOT);
     }
 
-    // ---- D. forward rollout of the targets (one warp)
-    if (tid < 32) {
-      if (tid < NXT) s_dxt[tid] = 0.f;
+    float2 alpha;
+    if (mehrotra) {
+      // factor once; the affine probe, then the centering corrector
+      riccati_sweep<false>(c);
+      const float2 a_aff = solve_rhs(c, true, 0, 0.f);   // ds_a, dlam_a
+      float prod = 0.f;
+      for (int i = lane; i < nr; i += THREADS)
+        prod += (c.s[i] + a_aff.x * c.r[i]) * (c.lam[i] + a_aff.y * c.cz[i]);
+      const float mu_aff = warp_sum(prod) / m_act;
+      const float ratio = mu_aff / fmaxf(mu_meas, 1e-12f);
+      const float sigma_m = fminf(fmaxf(ratio * ratio * ratio, 1e-4f), 1.f);
+      for (int i = lane; i < nr; i += THREADS)
+        c.r[i] = sigma_m * mu_meas - c.r[i] * c.cz[i];
       __syncwarp();
-      for (int k = 0; k < n_st; ++k) {
-        const float* xk = s_dxt + k * NXT;
-        if (tid < NU) {
-          float v = 0.f;
-          for (int j = 0; j < NXT; ++j) v += s_k[(k * NU + tid) * NXT + j] * xk[j];
-          v += s_kff[k * NU + tid];
-          s_dut[k * NU + tid] = v;
-          s_dxt[(k + 1) * NXT + NX + tid] = v;
-        }
-        __syncwarp();
-        if (tid < NX) {
-          float v = xk[tid];
-          if (tid == S_IDX) v += a_sv * xk[VS_IDX];
-          float bu = 0.f;
-          for (int u = 0; u < NU; ++u) bu += s_bd[tid * NU + u] * s_dut[k * NU + u];
-          s_dxt[(k + 1) * NXT + tid] = v + bu + e[k * NX + tid];
-        }
-        __syncwarp();
-      }
+      alpha = solve_rhs(c, true, 2, 0.f);
+    } else {
+      alpha = solve_rhs(c, false, 1, mu);
     }
-    __syncthreads();
+    const float alpha_p = alpha.x, alpha_d = alpha.y;
 
-    // ---- E. slack/dual targets and fraction-to-boundary step lengths
-    row_products(n_st, s_dxt, s_dut, s_tx, s_tu, s_tr, cpx, cpu, s_cz);
-    __syncthreads();
-    float rp_min = INFINITY, rd_min = INFINITY;
-    for (int i = tid; i < nr; i += THREADS) {
-      const float sv = s_s[i], lv = s_lam[i], dv = s_d[i], cz = s_cz[i];
-      const float ss = fmaxf(sv, 1e-10f);
-      const float ds = (dv - cz) - sv;
-      const float dl = (mu / ss + s_w[i] * (cz + sv - dv)) - lv;
-      s_r[i] = ds;
-      s_cz[i] = dl;
-      if (ds < -1e-12f) rp_min = nan_min(rp_min, -sv / ds);
-      if (dl < -1e-12f) rd_min = nan_min(rd_min, -lv / dl);
-    }
-    const float alpha_p = fminf(1.f, FRAC_TO_BOUNDARY * block_min(rp_min, s_red));
-    const float alpha_d = fminf(1.f, FRAC_TO_BOUNDARY * block_min(rd_min, s_red));
-
-    // ---- F. take the step unless any updated value is non-finite
+    // ---- take the step unless any updated value is non-finite
     int ok = 1;
-    for (int i = tid; i < (n_st + 1) * NXT; i += THREADS)
-      ok &= finitef(s_dx[i] + alpha_p * (s_dxt[i] - s_dx[i]));
-    for (int i = tid; i < n_st * NU; i += THREADS)
-      ok &= finitef(s_du[i] + alpha_p * (s_dut[i] - s_du[i]));
-    for (int i = tid; i < nr; i += THREADS)
-      ok &= finitef(s_s[i] + alpha_p * s_r[i])
-            & finitef(s_lam[i] + alpha_d * s_cz[i]);
-    const bool finite = __syncthreads_and(ok) != 0;
+    for (int i = lane; i < (n_st + 1) * NXT; i += THREADS)
+      ok &= finitef(c.dx[i] + alpha_p * (c.dxt[i] - c.dx[i]));
+    for (int i = lane; i < n_st * NU; i += THREADS)
+      ok &= finitef(c.du[i] + alpha_p * (c.kff[i] - c.du[i]));
+    for (int i = lane; i < nr; i += THREADS)
+      ok &= finitef(c.s[i] + alpha_p * c.r[i])
+            & finitef(c.lam[i] + alpha_d * c.cz[i]);
+    const bool finite = __all_sync(FULL, ok) != 0;
     if (finite) {
-      for (int i = tid; i < (n_st + 1) * NXT; i += THREADS)
-        s_dx[i] = s_dx[i] + alpha_p * (s_dxt[i] - s_dx[i]);
-      for (int i = tid; i < n_st * NU; i += THREADS)
-        s_du[i] = s_du[i] + alpha_p * (s_dut[i] - s_du[i]);
-      for (int i = tid; i < nr; i += THREADS) {
-        s_s[i] = s_s[i] + alpha_p * s_r[i];
-        s_lam[i] = s_lam[i] + alpha_d * s_cz[i];
+      for (int i = lane; i < (n_st + 1) * NXT; i += THREADS)
+        c.dx[i] = c.dx[i] + alpha_p * (c.dxt[i] - c.dx[i]);
+      for (int i = lane; i < n_st * NU; i += THREADS)
+        c.du[i] = c.du[i] + alpha_p * (c.kff[i] - c.du[i]);
+      for (int i = lane; i < nr; i += THREADS) {
+        c.s[i] = c.s[i] + alpha_p * c.r[i];
+        c.lam[i] = c.lam[i] + alpha_d * c.cz[i];
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // ---- G. convergence / divergence bookkeeping on the updated iterate
-    row_products(n_st, s_dx, s_du, s_tx, s_tu, s_tr, cpx, cpu, s_cz);
-    __syncthreads();
+    // ---- convergence / divergence bookkeeping on the updated iterate
+    row_products(c, c.dx, c.du, c.cz);
     float rmax = 0.f, sl = 0.f;
-    for (int i = tid; i < nr; i += THREADS) {
-      rmax = nan_max(rmax, fabsf(s_cz[i] + s_s[i] - s_d[i]));
-      sl += s_s[i] * s_lam[i];
+    for (int i = lane; i < nr; i += THREADS) {
+      rmax = nan_max(rmax, fabsf(c.cz[i] + c.s[i] - c.d[i]));
+      sl += c.s[i] * c.lam[i];
     }
-    const float r_ineq = block_max(rmax, s_red);
-    const float mu_post = block_sum(sl, s_red) / m_act;
+    const float r_ineq = warp_max(rmax);
+    const float mu_post = warp_sum(sl) / m_act;
     const float alpha_min = fminf(alpha_p, alpha_d);
     const float om = 1.f - alpha_min;
     const float sigma = fminf(fmaxf(om * om, 0.1f), 0.8f);
@@ -494,45 +888,62 @@ ipm_kernel(Inputs in, Outputs out, int n_st, int max_iter, float eps_ipm) {
     ++it;
     const bool conv = (mu_post < eps_ipm) && (r_ineq < 2e-4f);
     const bool diverged = !finite || (mu_post > 1e6f);
+    __syncwarp();
     if (conv || diverged) break;
   }
 
   // ---- final verdict on the returned iterate
-  row_products(n_st, s_dx, s_du, s_tx, s_tu, s_tr, cpx, cpu, s_cz);
-  __syncthreads();
+  row_products(c, c.dx, c.du, c.cz);
   float rmax = 0.f, sl = 0.f;
-  for (int i = tid; i < nr; i += THREADS) {
-    rmax = nan_max(rmax, fabsf(s_cz[i] + s_s[i] - s_d[i]));
-    sl += s_s[i] * s_lam[i];
+  for (int i = lane; i < nr; i += THREADS) {
+    rmax = nan_max(rmax, fabsf(c.cz[i] + c.s[i] - c.d[i]));
+    sl += c.s[i] * c.lam[i];
   }
-  const float r_fin = block_max(rmax, s_red);
-  const float mu_fin = block_sum(sl, s_red) / m_act;
+  const float r_fin = warp_max(rmax);
+  const float mu_fin = warp_sum(sl) / m_act;
 
-  for (int i = tid; i < (n_st + 1) * NXT; i += THREADS)
-    out.dx[(size_t)b * (n_st + 1) * NXT + i] = s_dx[i];
-  for (int i = tid; i < n_st * NU; i += THREADS)
-    out.du[(size_t)b * n_st * NU + i] = s_du[i];
-  for (int i = tid; i < nr; i += THREADS) {
-    out.lam[(size_t)b * nr + i] = s_lam[i];
-    out.s[(size_t)b * nr + i] = s_s[i];
+  for (int i = lane; i < (n_st + 1) * NXT; i += THREADS)
+    out.dx[(size_t)b * (n_st + 1) * NXT + i] = c.dx[i];
+  for (int i = lane; i < n_st * NU; i += THREADS)
+    out.du[(size_t)b * n_st * NU + i] = c.du[i];
+  for (int i = lane; i < nr; i += THREADS) {
+    out.lam[(size_t)b * nr + i] = c.lam[i];
+    out.s[(size_t)b * nr + i] = c.s[i];
   }
-  if (tid == 0) {
+  if (lane == 0) {
     out.iters[b] = it;
     out.solved[b] = (mu_fin < 10.f * eps_ipm) && (r_fin < 1e-3f);
     out.mu[b] = mu_fin;
   }
 }
 
+// The carve-up of ipm_kernel, each region rounded to 16 bytes.
 size_t smem_floats(int n_st) {
-  const int nr = n_st * NC;
-  return 6 * (size_t)nr + n_st * NU * NXT + n_st * NU
-         + 2 * ((n_st + 1) * NXT + n_st * NU)
-         + NXT * NXT + NXT + NXT * NXT + NU * NXT + NU * NU + NXT + NU
-         + NXT * NX + NXT * NU + NXT + NX * NU + NX + NU + DOF + NWARPS;
+  const int regions[] = {n_st * NC, n_st * NC, n_st * NC, n_st * NC,
+                         n_st * NC, n_st * NC, n_st * SLOT, TP_FLOATS,
+                         n_st * NU, (n_st + 1) * NXT, n_st * NU,
+                         (n_st + 1) * NXT, TILE, NX * NU, NX, NU, DOF, 1,
+                         SLOT};
+  size_t n = 0;
+  for (int r : regions) n += pad4(r);
+  return n;
+}
+
+// Opt the kernel into `bytes` of dynamic shared memory, with the largest
+// shared-memory carve-out of the SM (so 8 blocks fit at N = 10).
+cudaError_t prepare(size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ipm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(ipm_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
+// scheme: 0 adaptive, 1 Mehrotra (then `fact` is a (batch, n_st, 161)
+// float scratch).  Returns the cudaError_t of the launch.
 extern "C" int mpcc_ipm_solve(
     const float* hxx, const float* hux, const float* huu, const float* r2,
     const float* gx, const float* gu, const float* gxu, const float* e,
@@ -540,17 +951,51 @@ extern "C" int mpcc_ipm_solve(
     const float* tr, const float* d, const float* cpx, const float* cpu,
     const float* s0, const float* lam0,
     float* dx, float* du, float* lam, float* s, int* iters, int* solved,
-    float* mu, int batch, int n_st, int max_iter, float eps_ipm,
-    void* stream) {
+    float* mu, float* fact, int batch, int n_st, int max_iter, float eps_ipm,
+    int scheme, void* stream) {
+  if (scheme != SCHEME_ADAPTIVE && scheme != SCHEME_MEHROTRA)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (scheme == SCHEME_MEHROTRA && fact == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
   const size_t bytes = smem_floats(n_st) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ipm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = prepare(bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   Inputs in{hxx, hux, huu, r2, gx, gu, gxu, e, bd, a_sv, tx, tu, tr,
             d, cpx, cpu, s0, lam0};
   Outputs out{dx, du, lam, s, iters, solved, mu};
   ipm_kernel<<<batch, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      in, out, n_st, max_iter, eps_ipm);
+      in, out, fact, n_st, max_iter, eps_ipm, scheme);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch at horizon n_st: out = {dynamic shared memory bytes per block,
+// threads per block, blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
+// local-memory (stack and spill) bytes per thread, SMs on the card}.  Both
+// schemes run the same kernel.  Returns a cudaError_t.
+extern "C" int mpcc_ipm_launch_config(int n_st, int scheme, int* out) {
+  if (scheme != SCHEME_ADAPTIVE && scheme != SCHEME_MEHROTRA)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_floats(n_st) * sizeof(float);
+  cudaError_t err = prepare(bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, ipm_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ipm_kernel,
+                                                      THREADS, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(bytes);
+  out[1] = THREADS;
+  out[2] = blocks;
+  out[3] = fa.numRegs;
+  out[4] = static_cast<int>(fa.localSizeBytes);
+  out[5] = sms;
+  return 0;
 }

@@ -2,12 +2,14 @@
 
     python -m mpcc_manipulator_tpu_torch.profile_tick [--batch 1024]
 
-For the default configuration (RTI, the Riccati path), its converged mode
-and the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
-MPCC_QP_BACKEND=pallas`` ablation), each layer of the tick is timed on the
-host clock with a ``torch.cuda.synchronize()`` before and after it (which
-slows the tick), summed over ``--ticks`` ticks after ``--warmup`` ticks,
-and printed per tick; on the ADMM path also the mean ADMM iterations a
+For the default configuration (RTI, the Riccati path), its converged mode,
+the Riccati RTI path with Mehrotra's centering in K1 (the JAX bench's
+``MPCC_IPM_SCHEME=mehrotra``) and the dense ADMM path under RTI (the JAX
+bench's ``MPCC_QP_SOLVER=admm MPCC_QP_BACKEND=pallas`` ablation), each
+layer of the tick is timed on the host clock with a
+``torch.cuda.synchronize()`` before and after it (which slows the tick),
+summed over ``--ticks`` ticks after ``--warmup`` ticks, and printed per
+tick, with the mean QP iterations per lane-tick; on the ADMM path also the mean ADMM iterations a
 lane runs in each K5 launch, for the phase-1 and phase-2 launches of the QP
 solve apart (their ``max_iter`` budgets, ``qp_check_every`` and the rest
 of ``qp_max_iter``, tell them apart), which sets K5's time per tick against
@@ -41,6 +43,7 @@ from .solver import qp_admm
 from .solver import sqp as sqp_mod
 
 TS = 0.01
+MEHROTRA_RTI = SQPConfig(ipm_scheme="mehrotra")
 ADMM_RTI = SQPConfig(qp_solver="admm", qp_backend="pallas",
                      qp_assembly="xla", qp_max_iter=200, qp_check_every=25)
 
@@ -108,13 +111,14 @@ def _ticks(problem, state, n, cfg):
 
 
 def layer_profile(problem, batch, dev, cfg, warmup, ticks):
-    """(median wrapped tick s, mean SQP iterations, {layer: s per tick},
-    {K5 max_iter budget: mean iterations per lane of each launch})."""
+    """(median wrapped tick s, mean SQP iterations, mean QP iterations per
+    lane-tick, {layer: s per tick}, {K5 max_iter budget: mean iterations
+    per lane of each launch})."""
     acc = collections.defaultdict(float)
     k5_iters = collections.defaultdict(list)
     saved = [(mod, name, getattr(mod, name)) for _, mod, name in LAYERS]
     state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
-    times, iters = [], []
+    times, iters, qp_iters = [], [], []
     try:
         for label, mod, name in LAYERS:
             setattr(mod, name, _wrap(label, getattr(mod, name), acc))
@@ -127,10 +131,12 @@ def layer_profile(problem, batch, dev, cfg, warmup, ticks):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             iters.append(float(out.sqp_iters.float().mean()))
+            qp_iters.append(float(out.qp_iters.float().mean()))
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     return (statistics.median(times), float(np.mean(iters)),
+            float(np.mean(qp_iters)),
             {k: v / ticks for k, v in acc.items()}, k5_iters)
 
 
@@ -174,11 +180,13 @@ def main() -> None:
     problem = build_problem(torch.float32, dev)
     for label, cfg in [("RTI (default)", SQPConfig()),
                        ("converged", SQPConfig(rti=False, max_iter=20)),
+                       ("Mehrotra RTI", MEHROTRA_RTI),
                        ("ADMM RTI (K4 + K5)", ADMM_RTI)]:
-        med, iters, layers, k5_iters = layer_profile(
+        med, iters, qp_iters, layers, k5_iters = layer_profile(
             problem, args.batch, dev, cfg, args.warmup, args.ticks)
         print(f"== {label}, batch {args.batch}: wrapped tick median "
-              f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}")
+              f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}, mean "
+              f"QP iterations per lane-tick {qp_iters:.3f}")
         for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
             print(f"   {k}: {v * 1e3:.3f} ms/tick")
         # phase 1 runs qp_check_every iterations, phase 2 the rest (175
@@ -188,7 +196,8 @@ def main() -> None:
                   f"{len(runs)}, mean ADMM iterations per lane "
                   f"{np.mean(runs):.2f} (min {min(runs):.2f}, max "
                   f"{max(runs):.2f})")
-    for label, cfg in [("RTI", SQPConfig()), ("ADMM RTI", ADMM_RTI)]:
+    for label, cfg in [("RTI", SQPConfig()), ("Mehrotra RTI", MEHROTRA_RTI),
+                       ("ADMM RTI", ADMM_RTI)]:
         busy, n_kernels, wall, tick, prof = device_profile(
             problem, args.batch, dev, cfg, args.warmup)
         print(f"profiler, 3 {label} ticks: device kernel time "

@@ -1,12 +1,14 @@
 """Structured QP solver: primal-dual interior point + Riccati recursion,
 batch-first (`mpcc_manipulator_tpu/solver/qp_ipm.py::solve_qp_ipm_s`).
 
-The adaptive-centering scheme with optional warm start, on the structured
-:class:`~..ocp.qp_stages.StageQPS`.  This is the plain version of the K1
-kernel (`solver/qp_ipm_kernel.py`).  The Newton loop is a fixed-trip loop
-with per-lane freeze masks -- a lane stops updating once it has converged
-or diverged, the semantics of ``vmap(while_loop)`` -- and it returns early
-once every lane is frozen (which changes no result).
+Both centering schemes of the JAX function (adaptive, and Mehrotra's
+predictor-corrector against a saved factorization), with optional warm
+start, on the structured :class:`~..ocp.qp_stages.StageQPS`.  This is
+the plain version of the K1 kernel (`solver/qp_ipm_kernel.py`).  The
+Newton loop is a fixed-trip loop with per-lane freeze masks -- a lane
+stops updating once it has converged or diverged, the semantics of
+``vmap(while_loop)`` -- and it returns early once every lane is frozen
+(which changes no result).
 
 Rows are handled as seven exact-shape groups per stage,
 ``(xu, xl, uu, ul, ru, rl, p)``: the state box covers knots 1..N, the
@@ -26,6 +28,7 @@ from ..utils.linalg_small import cho_solve_small, cholesky_small
 # environment override for its ablations).
 EPS_IPM = 1e-5
 FRAC_TO_BOUNDARY = 0.995
+SCHEMES = ("adaptive", "mehrotra")   # centering schemes (solve_qp_ipm_s)
 
 
 @dataclasses.dataclass
@@ -56,8 +59,13 @@ def groups_to_rows(cat: torch.Tensor, base: float, nx: int) -> torch.Tensor:
     return rows
 
 
-def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term):
-    """Structured backward sweep (fused matrix + vector recursions)."""
+def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term,
+                      with_vectors: bool = True):
+    """Structured backward sweep: ``(k_gains, k_ffs, fact)``.  With
+    ``with_vectors`` the matrix and vector recursions run fused; without,
+    only the matrix recursion runs (``k_ffs`` are zero) and ``fact = (P's
+    x-columns, Cholesky factors, s_bars)`` per stage supports later
+    vector-only sweeps (:func:`_riccati_ff`)."""
     bd, a_sv = qp.bd, qp.a_sv[:, None]
     nx, nu = bd.shape[-2:]
     nxt = nx + nu
@@ -65,9 +73,11 @@ def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term):
     bdt = bd.transpose(-1, -2)
     eye_u = torch.eye(nu, dtype=bd.dtype, device=bd.device)
     p_mat, p_vec = hbar_term, gbar_term
-    k_gains, k_ffs = [None] * hbar.shape[1], [None] * hbar.shape[1]
-    for k in reversed(range(hbar.shape[1])):
-        h_k, g_k = hbar[:, k], gbar[:, k]
+    n_st = hbar.shape[1]
+    k_gains, k_ffs = [None] * n_st, [None] * n_st
+    p_xs, chols, s_bars = [None] * n_st, [None] * n_st, [None] * n_st
+    for k in reversed(range(n_st)):
+        h_k = hbar[:, k]
         pa_x = p_mat[:, :, :nx].clone()
         pa_x[:, :, vs_idx] += a_sv * p_mat[:, :, s_idx]
         contrib = pa_x[:, :nx, :].clone()
@@ -79,19 +89,52 @@ def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term):
         pb = p_mat[:, :, :nx] @ bd + p_mat[:, :, nx:]
         r_bar = h_k[:, nxt:, nxt:] + bdt @ pb[:, :nx, :] + pb[:, nx:, :]
         chol = cholesky_small(r_bar + 1e-9 * eye_u, nu)
-        m_vec = p_vec + (p_mat[:, :, :nx] @ qp.e[:, k, :nx, None])[..., 0]
-        qx_bar = g_k[:, :nxt].clone()
-        qx_bar[:, :nx] += m_vec[:, :nx]
-        qx_bar[:, vs_idx] += a_sv[:, 0] * m_vec[:, s_idx]
-        ru_bar = (g_k[:, nxt:] + (bdt @ m_vec[:, :nx, None])[..., 0]
-                  + m_vec[:, nx:])
-        sol = -cho_solve_small(
-            chol, torch.cat([s_bar, ru_bar[..., None]], dim=-1), nu)
-        k_gains[k], k_ffs[k] = sol[..., :nxt], sol[..., nxt]
-        p_vec = qx_bar + (s_bar.transpose(-1, -2) @ k_ffs[k][..., None])[..., 0]
+        p_xs[k], chols[k], s_bars[k] = p_mat[:, :, :nx], chol, s_bar
+        if with_vectors:
+            qx_bar, ru_bar = _riccati_vector(qp, k, p_mat[:, :, :nx], p_vec,
+                                             gbar[:, k])
+            sol = -cho_solve_small(
+                chol, torch.cat([s_bar, ru_bar[..., None]], dim=-1), nu)
+            k_gains[k], k_ffs[k] = sol[..., :nxt], sol[..., nxt]
+            p_vec = (qx_bar
+                     + (s_bar.transpose(-1, -2) @ k_ffs[k][..., None])[..., 0])
+        else:
+            k_gains[k] = -cho_solve_small(chol, s_bar, nu)
+            k_ffs[k] = torch.zeros_like(h_k[:, 0, :nu])
         p_new = q_bar + s_bar.transpose(-1, -2) @ k_gains[k]
         p_mat = 0.5 * (p_new + p_new.transpose(-1, -2))
-    return k_gains, k_ffs
+    return k_gains, k_ffs, (p_xs, chols, s_bars)
+
+
+def _riccati_vector(qp: StageQPS, k: int, p_x, p_vec, g_k):
+    """One vector Riccati step against P_{k+1}'s x-columns ``p_x``:
+    ``(qx_bar, ru_bar)``."""
+    bd, a_sv = qp.bd, qp.a_sv
+    nx, nu = bd.shape[-2:]
+    nxt = nx + nu
+    s_idx, vs_idx = nx - 2, nx - 1
+    m_vec = p_vec + (p_x @ qp.e[:, k, :nx, None])[..., 0]
+    qx_bar = g_k[:, :nxt].clone()
+    qx_bar[:, :nx] += m_vec[:, :nx]
+    qx_bar[:, vs_idx] += a_sv * m_vec[:, s_idx]
+    bdt_m = (bd.transpose(-1, -2) @ m_vec[:, :nx, None])[..., 0]
+    ru_bar = g_k[:, nxt:] + bdt_m + m_vec[:, nx:]
+    return qx_bar, ru_bar
+
+
+def _riccati_ff(qp: StageQPS, fact, k_gains, gbar, gbar_term):
+    """Vector-only backward sweep against a saved factorization, then the
+    forward rollout (the Mehrotra probe and corrector)."""
+    nu = qp.bd.shape[-1]
+    p_xs, chols, s_bars = fact
+    p_vec = gbar_term
+    k_ffs = [None] * len(k_gains)
+    for k in reversed(range(len(k_gains))):
+        qx_bar, ru_bar = _riccati_vector(qp, k, p_xs[k], p_vec, gbar[:, k])
+        k_ffs[k] = -cho_solve_small(chols[k], ru_bar, nu)
+        p_vec = (qx_bar
+                 + (s_bars[k].transpose(-1, -2) @ k_ffs[k][..., None])[..., 0])
+    return _riccati_forward(qp, k_gains, k_ffs)
 
 
 def _riccati_forward(qp: StageQPS, k_gains, k_ffs):
@@ -113,12 +156,20 @@ def _riccati_forward(qp: StageQPS, k_gains, k_ffs):
 
 def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
                    warm_s: torch.Tensor | None = None,
-                   warm_lam: torch.Tensor | None = None) -> IPMSolution:
-    """Adaptive-centering IPM on a batch of structured stage QPs.
+                   warm_lam: torch.Tensor | None = None,
+                   scheme: str = "adaptive") -> IPMSolution:
+    """Interior-point solve of a batch of structured stage QPs.
 
-    ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage) warm-start iterates;
-    ``None`` is the cold start (all ones).
+    ``scheme``: ``"adaptive"`` (one fused matrix + vector sweep per Newton
+    iteration against the carried barrier parameter) or ``"mehrotra"``
+    (the matrix sweep once per iteration, then an affine probe and a
+    centering corrector as vector-only sweeps against the saved
+    factorization).  ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage)
+    warm-start iterates; ``None`` is the cold start (all ones).
     """
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
+                         f"{SCHEMES}")
     dtype, dev = qp.e.dtype, qp.e.device
     bsz, n_st = qp.e.shape[:2]
     nx, nu = qp.bd.shape[-2:]
@@ -153,6 +204,22 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
         ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0),
                             torch.full_like(v, float("inf")))
         return torch.clamp(FRAC_TO_BOUNDARY * ratio.amin((-1, -2)), max=1.0)
+
+    def gradient(r_g):
+        """gbar, gbar_term from the (B, N, nc) gradient rows."""
+        r_xu, r_xl, r_uu, r_ul, r_ru, r_rl, r_p = split(r_g)
+        gx_box = tx * (r_xu - r_xl)
+        gr = tr * (r_ru - r_rl)
+        gbar = qp.g.clone()
+        gbar[..., :nx] += torch.einsum("bkrz,bkr->bkz", cpx, r_p)
+        gbar[:, 1:, :nx] += gx_box[:, :n_st - 1]
+        gbar[..., nxt:] += tu * (r_uu - r_ul) + torch.einsum(
+            "bkrz,bkr->bkz", qp.cpu, r_p)
+        gbar[..., nxt + ar_d] += gr
+        gbar[..., nx + ar_d] += -gr
+        gbar_term = qp.g_term.clone()
+        gbar_term[:, :nx] += gx_box[:, n_st - 1]
+        return gbar, gbar_term
 
     ones = torch.ones(bsz, n_st, nc, dtype=dtype, device=dev)
     s = ones if warm_s is None else rows_to_groups(warm_s, nx).to(dtype)
@@ -189,26 +256,42 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
         hbar_term = qp.h_term.clone()
         hbar_term[:, ar_x, ar_x] += dxx[:, n_st - 1]
 
-        # ---- one fused sweep against the carried barrier parameter mu
-        r_g = w * (s - d_all) + mu[:, None, None] / s_safe
-        r_xu, r_xl, r_uu, r_ul, r_ru, r_rl, r_p = split(r_g)
-        gx_box = tx * (r_xu - r_xl)
-        gr = tr * (r_ru - r_rl)
-        gbar = qp.g.clone()
-        gbar[..., :nx] += torch.einsum("bkrz,bkr->bkz", cpx, r_p)
-        gbar[:, 1:, :nx] += gx_box[:, :n_st - 1]
-        gbar[..., nxt:] += tu * (r_uu - r_ul) + torch.einsum(
-            "bkrz,bkr->bkz", qp.cpu, r_p)
-        gbar[..., nxt + ar_d] += gr
-        gbar[..., nx + ar_d] += -gr
-        gbar_term = qp.g_term.clone()
-        gbar_term[:, :nx] += gx_box[:, n_st - 1]
+        if scheme == "mehrotra":
+            k_gains, _, fact = _riccati_backward(
+                qp, hbar, None, hbar_term, None, with_vectors=False)
+            sweep = lambda gb, gt: _riccati_ff(qp, fact, k_gains, gb, gt)
+        else:
+            def sweep(gb, gt):
+                k_gains, k_ffs, _ = _riccati_backward(qp, hbar, gb,
+                                                      hbar_term, gt)
+                return _riccati_forward(qp, k_gains, k_ffs)
 
-        dx_t, du_t = _riccati_forward(qp, *_riccati_backward(
-            qp, hbar, gbar, hbar_term, gbar_term))
-        cz = row_dots(dx_t, du_t)
-        step_s = (d_all - cz) - s
-        step_lam = (mu[:, None, None] / s_safe + w * (cz + s - d_all)) - lam
+        def solve_rhs(rhs):
+            """Targets (dx, du, s, lam) of the Newton system whose
+            complementarity right-hand side is ``rhs`` (B, N, nc)."""
+            dx_t, du_t = sweep(*gradient(w * (s - d_all) + rhs / s_safe))
+            cz = row_dots(dx_t, du_t)
+            return (dx_t, du_t, d_all - cz,
+                    rhs / s_safe + w * (cz + s - d_all))
+
+        if scheme == "mehrotra":
+            # affine probe, then the centering corrector with the
+            # second-order term (JAX `solve_qp_ipm_s(scheme="mehrotra")`)
+            mu_meas = (s * lam).sum((-1, -2)) / m_act
+            _, _, s_a, lam_a = solve_rhs(torch.zeros_like(s))
+            ds_a, dlam_a = s_a - s, lam_a - lam
+            a_p_aff = max_alpha(s, ds_a)[:, None, None]
+            a_d_aff = max_alpha(lam, dlam_a)[:, None, None]
+            mu_aff = ((s + a_p_aff * ds_a) * (lam + a_d_aff * dlam_a)).sum(
+                (-1, -2)) / m_act
+            sigma_m = torch.clamp(
+                (mu_aff / torch.clamp(mu_meas, min=1e-12)) ** 3, 1e-4, 1.0)
+            rhs = (sigma_m * mu_meas)[:, None, None] - ds_a * dlam_a
+        else:
+            rhs = mu[:, None, None].expand_as(s)
+        dx_t, du_t, s_t, lam_t = solve_rhs(rhs)
+        step_s = s_t - s
+        step_lam = lam_t - lam
         alpha_p = max_alpha(s, step_s)
         alpha_d = max_alpha(lam, step_lam)
 

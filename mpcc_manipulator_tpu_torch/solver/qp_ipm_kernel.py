@@ -19,9 +19,15 @@ import torch
 from ..ocp.qp_stages import StageQPK, qpk_to_qps
 from ..ops import cuda_build
 from ..system import PANDA, System
-from .qp_ipm import (EPS_IPM, IPMSolution, groups_to_rows, rows_to_groups,
-                     solve_qp_ipm_s)
+from .qp_ipm import (EPS_IPM, SCHEMES, IPMSolution, groups_to_rows,
+                     rows_to_groups, solve_qp_ipm_s)
 
+# floats of Mehrotra's saved factorization per scenario and stage: the
+# Cholesky factor L (8 x 8), s_bar's x-columns (8 x 9), P_{k+1} e_k (17) and
+# 1 / diag(L) (8)
+FACT_FLOATS = 64 + 72 + 17 + 8
+_LAUNCH_FIELDS = ("shared_bytes", "threads", "blocks_per_sm", "registers",
+                  "local_bytes", "sms")
 _INPUT_FIELDS = ("hxx", "hux", "huu", "r2", "gx", "gu", "gxu", "e", "bd",
                  "a_sv", "tx", "tu", "t_rate")
 
@@ -29,10 +35,11 @@ _INPUT_FIELDS = ("hxx", "hux", "huu", "r2", "gx", "gu", "gxu", "e", "bd",
 def solve_qp_ipm_plain(qp: StageQPK, max_iter: int = 25,
                        warm_s: torch.Tensor | None = None,
                        warm_lam: torch.Tensor | None = None,
-                       system: System = PANDA) -> IPMSolution:
+                       system: System = PANDA,
+                       scheme: str = "adaptive") -> IPMSolution:
     """Plain PyTorch version of K1 (any device)."""
     return solve_qp_ipm_s(qpk_to_qps(qp, system), max_iter=max_iter,
-                          warm_s=warm_s, warm_lam=warm_lam)
+                          warm_s=warm_s, warm_lam=warm_lam, scheme=scheme)
 
 
 def _expected_shapes(b: int, n: int, system: System) -> dict:
@@ -49,15 +56,21 @@ def _expected_shapes(b: int, n: int, system: System) -> dict:
 def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
                    warm_s: torch.Tensor | None = None,
                    warm_lam: torch.Tensor | None = None,
-                   system: System = PANDA) -> IPMSolution:
+                   system: System = PANDA,
+                   scheme: str = "adaptive") -> IPMSolution:
     """Solve a batch of stage QPs: K1 on CUDA, the plain version on CPU.
 
     ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage) warm-start iterates;
-    ``None`` is the cold start (all ones).
+    ``None`` is the cold start (all ones).  ``scheme``: ``"adaptive"`` or
+    ``"mehrotra"`` (:func:`~.qp_ipm.solve_qp_ipm_s`).
     """
     dev = qp.e.device
     if dev.type == "cpu":
-        return solve_qp_ipm_plain(qp, max_iter, warm_s, warm_lam, system)
+        return solve_qp_ipm_plain(qp, max_iter, warm_s, warm_lam, system,
+                                  scheme)
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
+                         f"{SCHEMES}")
     if dev.type != "cuda":
         raise ValueError(f"solve_qp_ipm_k: unsupported device {dev}")
     if (system.nx, system.nu, system.dof, system.npc) != (9, 8, 7, 11):
@@ -94,15 +107,19 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     iters = torch.empty(b, dtype=torch.int32, device=dev)
     solved = torch.empty(b, dtype=torch.int32, device=dev)
     mu = torch.empty(b, **f32)
+    # Mehrotra's saved factorization, per scenario and stage (L2-resident)
+    fact = (torch.empty(b, n_st, FACT_FLOATS, **f32) if scheme == "mehrotra"
+            else None)
 
     ptrs = [getattr(qp, f).data_ptr() for f in _INPUT_FIELDS]
     ptrs += [d_cat.data_ptr(), qp.cpx.data_ptr(), qp.cpu.data_ptr(),
              warm[0].data_ptr(), warm[1].data_ptr()]
     ptrs += [t.data_ptr() for t in (dx, du, lam, s, iters, solved, mu)]
+    ptrs.append(None if fact is None else fact.data_ptr())
     lib = cuda_build.library()
     solve_qp_ipm_k.launches += 1
     err = lib.mpcc_ipm_solve(*ptrs, b, n_st, int(max_iter),
-                             ctypes.c_float(EPS_IPM),
+                             ctypes.c_float(EPS_IPM), SCHEMES.index(scheme),
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K1 qp_ipm kernel")
     return IPMSolution(dx_tilde=dx, du=du, lam=groups_to_rows(lam, 0.0, nx),
@@ -112,3 +129,14 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
 
 
 solve_qp_ipm_k.launches = 0
+
+
+def launch_config(n_st: int = 10, scheme: str = "adaptive") -> dict:
+    """How K1 launches at horizon ``n_st`` on the current card: dynamic
+    shared memory and threads per block (one block per scenario), the
+    blocks an SM holds at once, the kernel's registers and local-memory
+    bytes (stack and spills) per thread, and the card's SM count."""
+    out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
+    cuda_build.check(cuda_build.library().mpcc_ipm_launch_config(
+        n_st, SCHEMES.index(scheme), out), f"K1 launch config ({scheme})")
+    return dict(zip(_LAUNCH_FIELDS, out))

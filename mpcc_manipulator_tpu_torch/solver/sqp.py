@@ -4,7 +4,8 @@ Two bodies, routed by ``cfg.qp_solver``:
 
 * ``"riccati_pallas"``: stage-QP assembly (K2 for ``qp_assembly="pallas"``,
   the plain assembly for ``"xla"``) -> NaN guard -> K1 interior-point solve
-  (warm-started from the carried slacks/duals, clipped off the boundary) ->
+  in ``cfg.ipm_scheme`` (adaptive or Mehrotra centering; warm-started from
+  the carried slacks/duals, clipped off the boundary) ->
   optional second-order correction re-solve -> step back to the dense
   layout -> filter or l1-merit line search (the trial values from K3 or the
   plain evaluation);
@@ -40,6 +41,7 @@ from ..params import MPCCParams, SQPConfig
 from ..splines.arc_length import TrackSpline
 from ..system import PANDA, System
 from . import qp_admm
+from .qp_ipm import SCHEMES
 from .qp_ipm_kernel import solve_qp_ipm_k
 
 
@@ -88,7 +90,8 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
     todo = {
         "qp_assembly other than 'pallas' (K2/K3) or 'xla' (plain)":
             cfg.qp_assembly not in ("pallas", "xla"),
-        "ipm_scheme='mehrotra' (ROADMAP item 11)": cfg.ipm_scheme != "adaptive",
+        "ipm_scheme other than 'adaptive' or 'mehrotra'":
+            cfg.ipm_scheme not in SCHEMES,
         "qp_backend other than 'pallas' (K5) or 'xla' (plain, CPU)":
             cfg.qp_backend not in qp_admm.BACKENDS,
         "line_search other than 'filter' or 'merit'":
@@ -255,7 +258,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
         if not cfg.ipm_warm_start:
             warm_s = warm_lam = None
         return solve_qp_ipm_k(rep, max_iter=cfg.ipm_max_iter, warm_s=warm_s,
-                              warm_lam=warm_lam, system=system)
+                              warm_lam=warm_lam, system=system,
+                              scheme=cfg.ipm_scheme)
 
     def solve_dense(p, q, a, lo, hi, **warm):
         return qp_admm.solve_qp(p, q, a, lo, hi, max_iter=cfg.qp_max_iter,

@@ -54,11 +54,13 @@ def problem():
     return (track, params, sel_nn, env_nn, carry, u0, obs), port, x0
 
 
-def test_mpc_step_matches_jax_closed_loop(problem):
+def _closed_loop_matches_jax(problem, cfg, jax_cfg):
+    """The port's ``mpc_step`` under ``cfg`` against JAX ``mpc_step`` under
+    ``jax_cfg``, tick for tick: status, IPM iterations and states."""
     (track, params, sel_nn, env_nn, carry0, u0, obs), port, x0 = problem
     step = jax.jit(lambda c, x, u: jax_mpc_step(
         track, params, sel_nn, env_nn, c, x, u, obs,
-        jnp.asarray(0.0, jnp.float64), ts=TS, cfg=JAX_CFG))
+        jnp.asarray(0.0, jnp.float64), ts=TS, cfg=jax_cfg))
 
     carries = [carry0] * BATCH
     xj = [jnp.asarray(x0[i]) for i in range(BATCH)]
@@ -69,7 +71,6 @@ def test_mpc_step_matches_jax_closed_loop(problem):
     u = torch.zeros(BATCH, 8, dtype=dt)
     obs_t = torch.tensor(np.asarray(obs), dtype=dt).expand(BATCH, 3)
     rad = torch.zeros(BATCH, dtype=dt)
-    cfg = SQPConfig()
     for t in range(N_TICKS):
         carry, out = mpc_step(port["track"], port["params"], port["sel_nn"],
                               port["env_nn"], carry, x, u, obs_t, rad,
@@ -89,6 +90,19 @@ def test_mpc_step_matches_jax_closed_loop(problem):
     assert bool(out.ok.all())
     # the loop made progress along the track
     assert float(x[:, 7].min()) > float(torch.tensor(x0[:, 7]).min())
+
+
+def test_mpc_step_matches_jax_closed_loop(problem):
+    _closed_loop_matches_jax(problem, SQPConfig(), JAX_CFG)
+
+
+def test_mehrotra_mpc_step_matches_jax_closed_loop(problem):
+    """Mehrotra's centering (the plain route, which is K1's plain version)
+    against JAX's structured Mehrotra IPM."""
+    import dataclasses
+    _closed_loop_matches_jax(
+        problem, SQPConfig(ipm_scheme="mehrotra", qp_assembly="xla"),
+        dataclasses.replace(JAX_CFG, ipm_scheme="mehrotra"))
 
 
 def test_rti_passes_oracle_conformance_gate():
@@ -133,7 +147,7 @@ def test_rti_passes_oracle_conformance_gate():
 
 
 @pytest.mark.parametrize("change", [
-    dict(ipm_scheme="mehrotra"), dict(fleet_mode=True), dict(nn_bf16=True),
+    dict(fleet_mode=True), dict(nn_bf16=True),
     dict(mani_grad="fd"), dict(qp_solver="riccati"),
     dict(kin_backend="xla"), dict(ipm_interpret=True)],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
@@ -152,12 +166,12 @@ def test_off_slice_settings_raise(change):
 @pytest.mark.parametrize("change", [
     dict(qp_assembly="pallas"), dict(do_SOC=True), dict(line_search="merit"),
     dict(rti=False), dict(qp_solver="admm"),
-    dict(qp_solver="admm", use_BFGS=True)],
+    dict(qp_solver="admm", use_BFGS=True), dict(ipm_scheme="mehrotra")],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_slice_settings_are_supported(change):
     """The kernel assembly route, SOC, the merit line search, the converged
-    mode, and the dense ADMM path with BFGS run in the port (the kernel
-    route is the default)."""
+    mode, the dense ADMM path with BFGS, and Mehrotra's centering run in the
+    port (the kernel route is the default)."""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),

@@ -1,5 +1,6 @@
 """K1 (`solver/qp_ipm_kernel.py`): its plain version against the JAX
-interior-point solvers, cold and warm started.
+interior-point solvers, cold and warm started, in both centering schemes
+(adaptive, and Mehrotra's predictor-corrector).
 
 * float32 against the Pallas kernel `_solve_batched(interpret=True)`, under
   the JAX kernel test's contract (tests/test_qp_ipm_pallas.py): iteration
@@ -81,43 +82,68 @@ def _check_f32_contract(sol, ref):
                             - np.asarray(ref.lam)[ok]).max()) < 0.5
 
 
-def _warm_rows(qpk, dtype):
+# Warm-start rows are clipped to the JAX kernel test's [1e-2, 1e3], except
+# against the Pallas kernel under Mehrotra, where they take the SQP's own
+# [0.1, 100] (SQPConfig.ipm_warm_clip_*): at [1e-2, 1e3] the Mehrotra lanes
+# sit on the stopping thresholds in float32, and JAX's own solve_qp_ipm_s and
+# its Pallas kernel stop more than one iteration apart on one lane of this
+# batch, so the JAX contract's +-1 does not hold between the two JAX
+# functions themselves.
+JAX_TEST_CLIP = (1e-2, 1e3)
+SQP_CLIP = (0.1, 100.0)
+
+
+def _warm_rows(qpk, dtype, scheme, clip=JAX_TEST_CLIP):
     """Warm-start rows from a cold solve, clipped off the boundary."""
-    cold = solve_qp_ipm_plain(convert.stage_qpk(qpk, dtype, device="cpu"))
-    return (torch.clamp(cold.s_rows, 1e-2, 1e3),
-            torch.clamp(cold.lam_rows, 1e-2, 1e3), cold)
+    cold = solve_qp_ipm_plain(convert.stage_qpk(qpk, dtype, device="cpu"),
+                              scheme=scheme)
+    return (torch.clamp(cold.s_rows, *clip),
+            torch.clamp(cold.lam_rows, *clip), cold)
 
 
-@pytest.mark.parametrize("start", ["cold", "warm"])
-def test_plain_matches_pallas_kernel_f32(qpk64, start):
+# (scheme, start); the adaptive cases keep their ids "cold" and "warm"
+CASES = [pytest.param("adaptive", "cold", id="cold"),
+         pytest.param("adaptive", "warm", id="warm"),
+         pytest.param("mehrotra", "cold", id="mehrotra-cold"),
+         pytest.param("mehrotra", "warm", id="mehrotra-warm")]
+
+
+@pytest.mark.parametrize("scheme,start", CASES)
+def test_plain_matches_pallas_kernel_f32(qpk64, scheme, start):
     f32 = torch.float32
     qpk = convert.stage_qpk(qpk64, f32, device="cpu")
     ws = wl = None
     if start == "warm":
-        ws, wl, _ = _warm_rows(qpk64, f32)
-    sol = solve_qp_ipm_plain(qpk, max_iter=25, warm_s=ws, warm_lam=wl)
+        ws, wl, _ = _warm_rows(
+            qpk64, f32, scheme,
+            SQP_CLIP if scheme == "mehrotra" else JAX_TEST_CLIP)
+    sol = solve_qp_ipm_plain(qpk, max_iter=25, warm_s=ws, warm_lam=wl,
+                             scheme=scheme)
     jw = {} if ws is None else dict(warm_s=jnp.asarray(ws.numpy()),
                                     warm_lam=jnp.asarray(wl.numpy()))
     ref = qp_ipm_pallas._solve_batched(_jax_tree(qpk64, jnp.float32),
-                                       max_iter=25, interpret=True, **jw)
+                                       max_iter=25, interpret=True,
+                                       scheme=scheme, **jw)
     _check_f32_contract(sol, ref)
     assert bool(sol.solved.all())
 
 
-@pytest.mark.parametrize("start", ["cold", "warm"])
-def test_plain_matches_xla_reference_f64(qpk64, start):
+@pytest.mark.parametrize("scheme,start", CASES)
+def test_plain_matches_xla_reference_f64(qpk64, scheme, start):
     f64 = torch.float64
     qpk = convert.stage_qpk(qpk64, f64, device="cpu")
     ws = wl = None
     if start == "warm":
-        ws, wl, cold = _warm_rows(qpk64, f64)
-    sol = solve_qp_ipm_plain(qpk, max_iter=25, warm_s=ws, warm_lam=wl)
+        ws, wl, cold = _warm_rows(qpk64, f64, scheme)
+    sol = solve_qp_ipm_plain(qpk, max_iter=25, warm_s=ws, warm_lam=wl,
+                             scheme=scheme)
     jq = jax.vmap(jqs.qpk_to_qps)(_jax_tree(qpk64, jnp.float64))
     if ws is None:
-        ref = jax.vmap(lambda q: qp_ipm.solve_qp_ipm_s(q, max_iter=25))(jq)
+        ref = jax.vmap(lambda q: qp_ipm.solve_qp_ipm_s(
+            q, max_iter=25, scheme=scheme))(jq)
     else:
         ref = jax.vmap(lambda q, a, b: qp_ipm.solve_qp_ipm_s(
-            q, max_iter=25, warm_s=a, warm_lam=b))(
+            q, max_iter=25, scheme=scheme, warm_s=a, warm_lam=b))(
             jq, jnp.asarray(ws.numpy()), jnp.asarray(wl.numpy()))
     np.testing.assert_array_equal(sol.iters.numpy(), np.asarray(ref.iters))
     np.testing.assert_array_equal(sol.solved.numpy(), np.asarray(ref.solved))
@@ -140,6 +166,12 @@ def test_wrapper_takes_plain_version_on_cpu(qpk64):
     assert solve_qp_ipm_k.launches == before
 
 
+def test_unknown_scheme_raises(qpk64):
+    qpk = convert.stage_qpk(qpk64, torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="unknown IPM scheme"):
+        solve_qp_ipm_k(qpk, scheme="predictor")
+
+
 def test_group_row_layout_round_trip():
     """The kernel's (N, nc) group rows <-> the packed (N+1, nc) rows, in
     the order of the JAX wrapper (`_rows_to_groups` / `groups_to_rows`)."""
@@ -154,3 +186,18 @@ def test_group_row_layout_round_trip():
     assert np.array_equal(back[:, 1:, :18], rows[:, 1:, :18])
     assert np.array_equal(back[:, :10, 18:], rows[:, :10, 18:])
     assert np.all(back[:, 0, :18] == 1.0) and np.all(back[:, 10, 18:] == 1.0)
+
+
+def test_profile_k1_instruments_the_kernel_source():
+    """`profile_k1` places its clock64 timers by csrc/qp_ipm.cu's comments:
+    every anchor is found once, and each phase gets a timer."""
+    import os
+    from mpcc_manipulator_tpu_torch import profile_k1
+    from mpcc_manipulator_tpu_torch.ops import cuda_build
+    with open(os.path.join(cuda_build._CSRC, "qp_ipm.cu")) as f:
+        src = f.read()
+    instr, names = profile_k1._instrumented(src, new=True)
+    assert len(names) == len({n for _, n in profile_k1.WARP_PHASES})
+    for p in range(len(names)):
+        assert f"c.prof[{p}] +=" in instr
+    assert 'extern "C" int prof_ipm_solve(' in instr
