@@ -972,11 +972,9 @@ extern "C" int mpcc_ipm_solve(
 // The launch at horizon n_st: out = {dynamic shared memory bytes per block,
 // threads per block, blocks an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-// local-memory (stack and spill) bytes per thread, SMs on the card}.  Both
-// schemes run the same kernel.  Returns a cudaError_t.
-extern "C" int mpcc_ipm_launch_config(int n_st, int scheme, int* out) {
-  if (scheme != SCHEME_ADAPTIVE && scheme != SCHEME_MEHROTRA)
-    return static_cast<int>(cudaErrorInvalidValue);
+// local-memory (stack and spill) bytes per thread, SMs on the card}, the
+// same for both schemes (one kernel).  Returns a cudaError_t.
+extern "C" int mpcc_ipm_launch_config(int n_st, int* out) {
   const size_t bytes = smem_floats(n_st) * sizeof(float);
   cudaError_t err = prepare(bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

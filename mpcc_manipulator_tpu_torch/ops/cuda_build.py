@@ -96,7 +96,7 @@ def library() -> ctypes.CDLL:
     lib.mpcc_ipm_solve.argtypes = ([_P] * 18 + [_P] * 8
                                    + [_I, _I, _I, _F, _I, _P])
     lib.mpcc_ipm_solve.restype = _I
-    lib.mpcc_ipm_launch_config.argtypes = [_I, _I, _P]
+    lib.mpcc_ipm_launch_config.argtypes = [_I, _P]
     lib.mpcc_ipm_launch_config.restype = _I
     lib.mpcc_assembly.argtypes = [_P] * 29 + [_I, _I, _I, _F, _F, _P]
     lib.mpcc_assembly.restype = _I

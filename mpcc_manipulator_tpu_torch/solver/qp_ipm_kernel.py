@@ -131,12 +131,13 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
 solve_qp_ipm_k.launches = 0
 
 
-def launch_config(n_st: int = 10, scheme: str = "adaptive") -> dict:
-    """How K1 launches at horizon ``n_st`` on the current card: dynamic
-    shared memory and threads per block (one block per scenario), the
-    blocks an SM holds at once, the kernel's registers and local-memory
-    bytes (stack and spills) per thread, and the card's SM count."""
+def launch_config(n_st: int = 10) -> dict:
+    """How K1 launches at horizon ``n_st`` on the current card, either
+    scheme (one kernel): dynamic shared memory and threads per block (one
+    block per scenario), the blocks an SM holds at once, the kernel's
+    registers and local-memory bytes (stack and spills) per thread, and the
+    card's SM count."""
     out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
-    cuda_build.check(cuda_build.library().mpcc_ipm_launch_config(
-        n_st, SCHEMES.index(scheme), out), f"K1 launch config ({scheme})")
+    cuda_build.check(cuda_build.library().mpcc_ipm_launch_config(n_st, out),
+                     "K1 launch config")
     return dict(zip(_LAUNCH_FIELDS, out))
