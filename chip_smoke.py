@@ -30,24 +30,38 @@ Phases (the first failure exits non-zero and prints no result line):
    first tick at the 1024 perturbed home states, cold and warm; a NaN lane
    runs to its budget, comes out NaN and leaves the other lanes
    bit-identical;
-8. the Riccati path, the default configuration (RTI, K1-K4): 1024
+8. the kernels' Husky+Panda instantiations (the 10-DOF mobile manipulator,
+   BASELINE config 5): K1's launch configuration (registers, local bytes,
+   blocks an SM, waves at batch 4096 and 1024), K1 in both schemes, cold
+   and warm, against its plain version on the StageQPK of 4096 perturbed
+   mobile home states (iterations within +-1, identical verdicts, steps
+   within 1e-3), and a NaN lane; K2 and K3 at 4096 lanes on the mobile
+   track (the first tick's iterate, 0.02-perturbed trial points, one and
+   five candidates, each cost term alone); K4 at (4096, 11, 10); each
+   timed at batch 4096 and 1024;
+9. the Husky+Panda RTI path (``mpc_step(system=HUSKY_PANDA)``, K1-K4):
+   4096 and then 1024 scenarios x 20 ticks + the plant step; every lane ok
+   every tick, finite states, s rising after the start transient, the mean
+   base x growing, each kernel launched once per tick; the median and p99
+   tick;
+10. the Riccati path, the default configuration (RTI, K1-K4): 1024
    scenarios x 30 ticks of ``mpc_step`` + the plant step; every lane ok
    every tick, finite states, s strictly increasing once the start
    transient has passed, and each kernel launched once per tick;
-9. the converged mode (``rti=False, max_iter=20``): 1024 x 10 ticks, then 3
+11. the converged mode (``rti=False, max_iter=20``): 1024 x 10 ticks, then 3
    ticks each with the second-order correction and with the merit line
    search; every lane ok, and each kernel launched as often as the SQP
    iterations run call for;
-10. the Riccati path under RTI with Mehrotra's centering
+12. the Riccati path under RTI with Mehrotra's centering
     (``ipm_scheme="mehrotra"``): 1024 x 10 ticks, every lane ok, K1
     launched once per SQP iteration and K2-K4 once per tick;
-11. the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
+13. the dense ADMM path under RTI (the JAX bench's ``MPCC_QP_SOLVER=admm
     MPCC_QP_BACKEND=pallas`` ablation, ``qp_max_iter=200``): 1024 x 10
     ticks, every lane ok, K5 launched twice per tick and K4 once, K1-K3
     never; then the converged ADMM mode (``rti=False, max_iter=20,
     qp_max_iter=400``) 3 ticks each plain, with BFGS, SOC and the merit
     line search, K5 launched twice per SQP iteration (four times with SOC);
-12. 8 lanes through the plain path on the CPU in float64, held to the
+14. 8 lanes through the plain path on the CPU in float64, held to the
     repo's closed-loop envelope: the RTI loop closed loop (10 ticks), the
     Mehrotra RTI loop tick by tick from the GPU run's inputs (10 ticks; the
     closed-loop gap printed), the converged loop tick by tick from the GPU
@@ -57,9 +71,11 @@ Phases (the first failure exits non-zero and prints no result line):
     Mehrotra RTI loop (1024 lanes x 10 ticks), the kernel's and the plain
     version's float32 solve on the card, against float64: the kernel no
     further from it than twice the plain solve, in split Newton counts and
-    in |d du|.
+    in |d du|; and the Husky+Panda RTI loop tick by tick from the GPU run's
+    inputs (20 ticks, q over all 10 joints).
 
-The line before last is the kernels' JSON record; the last line is
+Then the command time and the card.  The line before last is the kernels'
+JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -87,6 +103,9 @@ S_RISING_FROM = 15     # tick from which s must rise on every lane
 K4_SINGULAR_BELOW = 0.01   # the controller's singularity buffer (tol_sing)
 K1_LAM_WELL_POSED = 100.0  # duals above sit on the clamped s-row margin
 K1_NAN_LANE = 5
+# the Panda K1 warm solves' times before the per-system instantiation
+# (H100 80GB HBM3, 700 W; PERF.md section 6)
+K1_PR5_MS = {"adaptive": 0.5503, "mehrotra": 0.9512}
 # K2 / K3: the JAX kernel tests' float32 contract
 # (tests/test_pallas_assembly.py: 5e-4 x max(1, max|block|); rtol = atol)
 K23_TOL = 5e-4
@@ -114,6 +133,17 @@ MEHROTRA_TICKS = 10
 # the kernel against float64 on the Mehrotra loop's QPs: at most this many
 # times the plain float32 solve's split Newton counts and largest |d du|
 MEHROTRA_SPLIT_RATIO = 2
+# the Husky+Panda path (BASELINE config 5): the JAX bench's batch 4096
+# (`bench.py:384`) and its matched point 1024 (`bench.py:400-416`)
+MOBILE_BATCHES = (4096, 1024)
+MOBILE_TICKS = 20
+# tick from which s must rise on every mobile lane: before it the
+# projection may still move s back on some lanes while contouring pulls the
+# perturbed starts onto the track (the run prints the count per tick)
+MOBILE_S_RISING_FROM = 17
+# K1-h against its plain version: tests/test_qp_ipm_pallas_mobile.py's
+# contract (iterations within +-1, identical verdicts, steps within 1e-3)
+MOBILE_IPM_TOL = 1e-3
 K5_RANDOM_BATCH = 256
 K5_NAN_LANE = 5
 # K5 against its plain version: the JAX kernel test's contract
@@ -198,11 +228,41 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
-def perturbed_states(batch: int, dtype, device) -> torch.Tensor:
-    from mpcc_manipulator_tpu_torch.problem import X0_HOME
+def home(system=None) -> np.ndarray:
+    """The system's home state (the Panda's when ``system`` is None)."""
+    from mpcc_manipulator_tpu_torch import problem
+    mobile = system is not None and system.base_dof != 0
+    return problem.X0_HOME_MOBILE if mobile else problem.X0_HOME
+
+
+def perturbed_states(batch: int, dtype, device, system=None) -> torch.Tensor:
+    """The home state + 0.01 N(0, 1) on every component (the JAX bench's
+    draw, `bench.py:163-165`)."""
+    x_home = home(system)
     rng = np.random.default_rng(SEED)
-    x0 = X0_HOME[None] + 0.01 * rng.standard_normal((batch, 9))
+    x0 = x_home[None] + 0.01 * rng.standard_normal((batch, x_home.size))
     return torch.tensor(x0, dtype=dtype, device=device)
+
+
+def check_k4(label, got, ref) -> tuple:
+    """K4's outputs against its plain version's.  The JAX kernel test's f32
+    contract, held on every configuration outside the controller's
+    singularity buffer (m >= tol_sing = 0.01).  Closer to a singularity
+    det(J J') cancels in float32: there the plain version itself is off its
+    float64 value by up to 3.7e-6 in m and 1.6e-2 in dm (measured on the
+    CPU at the Panda's inputs), so two float32 computations cannot meet the
+    contract; they are checked for finiteness and their gap is returned.
+    Returns (max error, configurations held, the other ones' m / dm gaps)."""
+    well = ref[4] >= K4_SINGULAR_BELOW
+    names = ["p_ee", "r_ee", "jv", "jw", "manipul", "d_manipul"]
+    tol = [(2e-6, 0.0)] * 4 + [(1e-6, 2e-5), (2e-4, 2e-3)]
+    err = max(check_close(f"{label} {n}", g[well], r[well], a, rt)
+              for n, g, r, (a, rt) in zip(names, got, ref, tol))
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"{label}: non-finite output")
+    near = [float((g[~well] - r[~well]).abs().max()) if bool((~well).any())
+            else 0.0 for g, r in zip(got[4:], ref[4:])]
+    return err, int(well.sum()), int((~well).sum()), near
 
 
 def phase_k4(device) -> dict:
@@ -215,26 +275,11 @@ def phase_k4(device) -> dict:
     got = kin_sweep(qs)
     ref = kin_sweep_plain(qs)
     torch.cuda.synchronize()
-    # The JAX kernel test's f32 contract, held on every configuration
-    # outside the controller's singularity buffer (m >= tol_sing = 0.01).
-    # Closer to a singularity det(J J') cancels in float32: there the plain
-    # version itself is off its float64 value by up to 3.7e-6 in m and
-    # 1.6e-2 in dm (measured on the CPU at these inputs), so two float32
-    # computations cannot meet the contract; they are checked for
-    # finiteness and their gap is printed.
-    well = ref[4] >= K4_SINGULAR_BELOW
-    names = ["p_ee", "r_ee", "jv", "jw", "manipul", "d_manipul"]
-    tol = [(2e-6, 0.0)] * 4 + [(1e-6, 2e-5), (2e-4, 2e-3)]
-    err = max(check_close(f"K4 {n}", g[well], r[well], a, rt)
-              for n, g, r, (a, rt) in zip(names, got, ref, tol))
-    if not all(bool(torch.isfinite(g).all()) for g in got):
-        raise AssertionError("K4: non-finite output")
-    near = [float((g[~well] - r[~well]).abs().max()) if bool((~well).any())
-            else 0.0 for g, r in zip(got[4:], ref[4:])]
+    err, n_well, n_near, near = check_k4("K4", got, ref)
     ms = cuda_time(lambda: kin_sweep(qs), 50)
     plain_ms = cuda_time(lambda: kin_sweep_plain(qs), 20)
     print(f"K4 vs plain at {tuple(qs.shape)}: max|err| {err:.3e} on "
-          f"{int(well.sum())} configurations; {int((~well).sum())} with "
+          f"{n_well} configurations; {n_near} with "
           f"m < {K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
           f"{near[1]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     # bytes: the configurations in, the six outputs out; operations: ~3
@@ -247,10 +292,10 @@ def phase_k4(device) -> dict:
             **bound(nbytes(qs, *got), 3e3 * qs[..., 0].numel())}
 
 
-def main_path_inputs(problem, device):
+def main_path_inputs(problem, device, system=None, batch=BATCH):
     """The first tick's iterate on the main path's own track, float32:
     ``(z, trial z, candidates, current u, RobotData)``.  z is the cold-start
-    horizon at the ``BATCH`` perturbed home states; the trial points are
+    horizon at the ``batch`` perturbed home states; the trial points are
     z + 0.02 N(0,1) and the candidates ``CANDIDATES`` such draws per lane
     (so the inputs, their rates and the smoothness pair are non-zero);
     current u is 0.02 N(0,1); the RobotData is z's, as the SQP loop holds
@@ -258,24 +303,27 @@ def main_path_inputs(problem, device):
     from mpcc_manipulator_tpu_torch.mpc import _cold_start, _unwrap_s
     from mpcc_manipulator_tpu_torch.ocp import qp_data
     from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    system = system or PANDA
     track, _, sel_nn, env_nn = problem
     f32 = dict(dtype=torch.float32, device=device)
-    x0 = perturbed_states(BATCH, torch.float32, device)
-    z = _unwrap_s(_cold_start(x0), track.length)
+    x0 = perturbed_states(batch, torch.float32, device, system)
+    z = _unwrap_s(_cold_start(x0, system), track.length, system)
     rng = np.random.default_rng(SEED + 11)
     draw = lambda *shape: torch.tensor(0.02 * rng.standard_normal(shape),
                                        **f32)
     zt = z + draw(*z.shape)
-    zc = z[:, None] + draw(BATCH, CANDIDATES, z.shape[-1])
-    cu = draw(BATCH, 8)
-    xs, _ = qp_data.split_z(z)
+    zc = z[:, None] + draw(batch, CANDIDATES, z.shape[-1])
+    cu = draw(batch, system.nu)
+    xs, _ = qp_data.split_z(z, system)
     obs = torch.tensor([[3.0, 3.0, 3.0]], **f32)
-    rb = compute_robot_data(xs[..., :7].contiguous(), obs.expand(BATCH, 3),
-                            torch.zeros(BATCH, **f32), sel_nn, env_nn)
+    rb = compute_robot_data(xs[..., :system.dof].contiguous(),
+                            obs.expand(batch, 3), torch.zeros(batch, **f32),
+                            sel_nn, env_nn, system)
     return z, zt, zc, cu, rb
 
 
-def single_term_params(problem, device) -> list:
+def single_term_params(problem, device, system=None, batch=BATCH) -> list:
     """``(weight, params)`` for each cost weight: the main path's
     parameters with every other weight zero and this one scaled so that its
     term's median over the main path's trial points is 10 in magnitude.  A
@@ -283,8 +331,10 @@ def single_term_params(problem, device) -> list:
     where the full objective hides it (the input costs are ~1e-4 of it)."""
     from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
         eval_point_plain)
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    system = system or PANDA
     track, params = problem[:2]
-    _, zt, _, cu, rb = main_path_inputs(problem, device)
+    _, zt, _, cu, rb = main_path_inputs(problem, device, system, batch)
     cost = params.cost
     zero = {w: torch.zeros_like(getattr(cost, w)) for w in COST_WEIGHTS}
     alone = lambda w, scale: dataclasses.replace(
@@ -293,7 +343,7 @@ def single_term_params(problem, device) -> list:
     out = []
     for w in COST_WEIGHTS:
         med = abs(float(eval_point_plain(track, zt, rb, alone(w, 1.0), cu,
-                                         TS)[0].median()))
+                                         TS, system)[0].median()))
         if not med > 0.0:
             raise AssertionError(f"K2/K3: the {w} term is zero on the main "
                                  "path's trial points")
@@ -301,17 +351,23 @@ def single_term_params(problem, device) -> list:
     return out
 
 
-def stage_qp_batch(problem, device):
-    """The StageQPK the first tick builds for the ``BATCH`` perturbed states
+def stage_qp_batch(problem, device, system=None, batch=BATCH):
+    """The StageQPK the first tick builds for the ``batch`` perturbed states
     (cold-start horizon at each state, current u zero)."""
     from mpcc_manipulator_tpu_torch.ocp import qp_stages
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    system = system or PANDA
     track, params = problem[:2]
-    z, _, _, _, rb = main_path_inputs(problem, device)
-    u0 = torch.zeros(BATCH, 8, dtype=torch.float32, device=device)
-    return qp_stages.build_qp_stages_k(track, z, rb, params, u0, TS)
+    z, _, _, _, rb = main_path_inputs(problem, device, system, batch)
+    u0 = torch.zeros(batch, system.nu, dtype=torch.float32, device=device)
+    return qp_stages.build_qp_stages_k(track, z, rb, params, u0, TS,
+                                       system=system)
 
 
-def compare_ipm(label, sol, ref) -> float:
+def compare_ipm(label, sol, ref, step_tol=5e-4, duals=True) -> float:
+    """K1's solution against its plain version's: iteration counts within
+    +-1, identical verdicts, steps within ``step_tol``, and (``duals``) the
+    duals of solved lanes as below."""
     d_it = int((sol.iters - ref.iters).abs().max())
     if d_it > 1:
         raise AssertionError(f"K1 {label}: iteration counts differ by {d_it}")
@@ -319,8 +375,16 @@ def compare_ipm(label, sol, ref) -> float:
         raise AssertionError(
             f"K1 {label}: verdicts differ on "
             f"{int((sol.solved != ref.solved).sum())} lanes")
-    err = max(check_close(f"K1 {label} du", sol.du, ref.du, 5e-4),
-              check_close(f"K1 {label} dx", sol.dx_tilde, ref.dx_tilde, 5e-4))
+    err = max(check_close(f"K1 {label} du", sol.du, ref.du, step_tol),
+              check_close(f"K1 {label} dx", sol.dx_tilde, ref.dx_tilde,
+                          step_tol))
+    if not duals:
+        print(f"K1 {label}: iters kernel mean {sol.iters.float().mean():.2f} "
+              f"max {int(sol.iters.max())}, plain mean "
+              f"{ref.iters.float().mean():.2f}; solved "
+              f"{int(sol.solved.sum())}/{sol.solved.numel()}; "
+              f"max|d du, d dx| {err:.3e}")
+        return err
     # Duals on solved lanes, the JAX test's absolute 0.5, on every row whose
     # dual is at most 100.  The perturbed start (s < 0 on some lanes) puts
     # the s lower-box row on its 1e-6 clamped margin, where s ends below
@@ -341,22 +405,32 @@ def compare_ipm(label, sol, ref) -> float:
     return err
 
 
-def k1_flops(scheme: str, iters: torch.Tensor) -> float:
+def k1_flops(scheme: str, iters: torch.Tensor, system=None) -> float:
     """Float32 operations of K1 on lanes that ran ``iters`` Newton
-    iterations.  Adaptive: ~0.2 MFLOP per iteration (the stage blocks
-    H + C' diag(w) C, ~50 kFLOP; the fused matrix + vector Riccati sweep,
-    ~136 kFLOP; rollout, row products, targets, step and test, ~30 kFLOP).
-    Mehrotra adds one right-hand side per iteration (the affine probe and
-    the corrector against one matrix sweep), counted from csrc/qp_ipm.cu at
-    N stages and nr = 59 N rows:
+    iterations.  Adaptive, at the Panda's dims: ~0.2 MFLOP per iteration
+    (the stage blocks H + C' diag(w) C, ~50 kFLOP; the fused matrix +
+    vector Riccati sweep, ~136 kFLOP; rollout, row products, targets, step
+    and test, ~30 kFLOP).  Mehrotra adds one right-hand side per iteration
+    (the affine probe and the corrector against one matrix sweep), counted
+    from csrc/qp_ipm.cu at N stages and nr = 59 N rows:
       gradient rows 5 nr + gradient blocks 24 x 30 N + vector Riccati step
       900 N + rollout 434 N + row products 4,300 + targets 10 nr
       + the probe's mu_aff and the corrector's right-hand side 8 nr
-    = 38,410 at N = 10."""
-    per_iter = 2e5
+    = 38,410 at N = 10.  At other dims each term scales with its sizes: the
+    stage blocks with the slot's matrix entries, the sweeps with
+    nxt^2 nu (matrix) or nxt nu (vector), the gradient blocks with their
+    entries, the row terms with nc."""
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    sy = system or PANDA
+    nx, nu, dof, nxt, nc = sy.nx, sy.nu, sy.dof, sy.nxt, sy.nc_stage
+    matrix_entries = nx * (nx + 1) // 2 + nu * nx + nu * (nu + 1) // 2 + dof
+    per_iter = 2e5 * (50 * matrix_entries / 160 + 136 * nxt * nxt * nu / 2312
+                      + 30 * nc / 59) / 216
     if scheme == "mehrotra":
-        n_st, nr = KNOTS - 1, 59 * (KNOTS - 1)
-        per_iter += (5 * nr + 720 * n_st + 900 * n_st + 434 * n_st + 4300
+        n_st, nr = KNOTS - 1, nc * (KNOTS - 1)
+        vec = nxt * nu / 136
+        per_iter += (5 * nr + (nx + dof + nu) * 30 * n_st
+                     + (900 + 434) * vec * n_st + 4300 * nc / 59
                      + 10 * nr + 8 * nr)
     return per_iter * float(iters.double().sum())
 
@@ -427,8 +501,9 @@ def phase_k1(problem, device) -> dict:
         b = bound(nbytes(*ins, ws, wl, *outs), k1_flops(scheme, warm.iters))
         print(f"K1 {scheme} warm solve at batch {BATCH} (mean "
               f"{warm.iters.double().mean():.3f} iterations): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+              f"{ms:.4f} ms (PR 5: {K1_PR5_MS[scheme]} ms), plain "
+              f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
         if scheme == "adaptive":
             entry.update(ms=ms, plain_ms=plain_ms, **b,
                          registers=cfg["registers"],
@@ -943,17 +1018,19 @@ def phase_k5(problem, device) -> dict:
 # ------------------------------------------------------------ closed loops
 
 
-def closed_loop(problem, x0, ticks, cfg, record: int = 0):
+def closed_loop(problem, x0, ticks, cfg, record: int = 0, system=None):
     """``ticks`` closed-loop ticks from states ``x0``; returns per-tick
     host times, ok flags, plant states, IPM and SQP iterations, and for the
     first ``record`` lanes each tick's inputs (state, input, carry) on the
     CPU."""
     from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
     from mpcc_manipulator_tpu_torch.mpc import MPCCarry, init_carry, mpc_step
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    system = system or PANDA
     track, params, sel_nn, env_nn = problem
     b, dtype, dev = x0.shape[0], x0.dtype, x0.device
-    carry = init_carry(b, dtype, dev)
-    x, u = x0, torch.zeros(b, 8, dtype=dtype, device=dev)
+    carry = init_carry(b, dtype, dev, system)
+    x, u = x0, torch.zeros(b, system.nu, dtype=dtype, device=dev)
     obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=dtype, device=dev).expand(b, 3)
     rad = torch.zeros(b, dtype=dtype, device=dev)
     times, oks, states, iters, sqp_iters, inputs = [], [], [], [], [], []
@@ -966,7 +1043,7 @@ def closed_loop(problem, x0, ticks, cfg, record: int = 0):
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry, out = mpc_step(track, params, sel_nn, env_nn, carry, x, u,
-                              obs, rad, ts=TS, cfg=cfg)
+                              obs, rad, ts=TS, cfg=cfg, system=system)
         u = out.u0
         x = sim_time_step(out.x0_updated, u, TS)
         if dev.type == "cuda":
@@ -1155,10 +1232,12 @@ def phase_admm_converged(problem, x0, card):
               f"{launches}")
 
 
-def envelope_gaps(label, states, states_gpu) -> None:
+def envelope_gaps(label, states, states_gpu, dof: int = 7) -> dict:
+    """The float64 states' largest gaps to the GPU run's over q (all dof
+    joints), s and vs, held to the envelope."""
     d = (states - states_gpu.to(torch.float64)).abs()
-    gaps = {"q": float(d[..., :7].max()), "s": float(d[..., 7].max()),
-            "vs": float(d[..., 8].max())}
+    gaps = {"q": float(d[..., :dof].max()), "s": float(d[..., dof].max()),
+            "vs": float(d[..., dof + 1].max())}
     print(f"CPU float64 cross-check ({label}), {d.shape[1]} lanes x "
           f"{d.shape[0]} ticks: max |dq| {gaps['q']:.3e}, |ds| "
           f"{gaps['s']:.3e}, |dvs| {gaps['vs']:.3e} (envelope {ENVELOPE})")
@@ -1166,6 +1245,7 @@ def envelope_gaps(label, states, states_gpu) -> None:
         if not v < ENVELOPE[k]:
             raise AssertionError(f"CPU float64 check ({label}): |d {k}| "
                                  f"{v:.3e} >= {ENVELOPE[k]}")
+    return gaps
 
 
 def phase_cpu_check_rti(x0_gpu, states_gpu):
@@ -1337,6 +1417,332 @@ def phase_cpu_check_admm(inputs, states_gpu):
                   states_gpu[:len(inputs), :CHECK_LANES])
 
 
+# ------------------------------------------------------------ Husky+Panda
+
+
+def mobile_system():
+    from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA
+    return HUSKY_PANDA
+
+
+def both_batches(label, fn, reps, plain_fn, plain_reps) -> dict:
+    """``fn(batch)`` and ``plain_fn(batch)`` timed at each of
+    ``MOBILE_BATCHES``: {batch: (kernel ms, plain ms)}."""
+    out = {}
+    for b in MOBILE_BATCHES:
+        out[b] = (cuda_time(lambda: fn(b), reps),
+                  cuda_time(lambda: plain_fn(b), plain_reps))
+        print(f"{label} at batch {b}: kernel {out[b][0]:.4f} ms, plain "
+              f"{out[b][1]:.4f} ms")
+    return out
+
+
+def mobile_entry(name, source, replaces, err, times, bounds) -> dict:
+    """A kernel record at the first of ``MOBILE_BATCHES`` (``ms``,
+    ``plain_ms``, the bound) with the second's beside it."""
+    b0, b1 = MOBILE_BATCHES
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "batch": b0,
+            "ms": times[b0][0], "plain_ms": times[b0][1], **bounds[b0],
+            f"ms_{b1}": times[b1][0], f"plain_ms_{b1}": times[b1][1],
+            f"bound_ms_{b1}": bounds[b1]["bound_ms"]}
+
+
+def phase_k4_mobile(device) -> dict:
+    """K4's Husky+Panda instantiation against its plain version at
+    (4096, 11, 10): the arm's configurations as in the Panda phase, base
+    poses about (0, 0, 0) with the same spread."""
+    from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import (
+        kin_sweep, kin_sweep_plain)
+    sy = mobile_system()
+    rng = np.random.default_rng(SEED + 21)
+    qs = torch.tensor(
+        home(sy)[:sy.dof]
+        + 0.3 * rng.standard_normal((MOBILE_BATCHES[0], KNOTS, sy.dof)),
+        dtype=torch.float32, device=device)
+    got = kin_sweep(qs, sy)
+    ref = kin_sweep_plain(qs, sy)
+    torch.cuda.synchronize()
+    err, n_well, n_near, near = check_k4("K4-m", got, ref)
+    if not bool((got[5][..., :sy.base_dof] == 0).all()):
+        raise AssertionError("K4-m: non-zero manipulability gradient on a "
+                             "base column")
+    print(f"K4-m vs plain at {tuple(qs.shape)}: max|err| {err:.3e} on "
+          f"{n_well} configurations; {n_near} with m < "
+          f"{K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
+          f"{near[1]:.3e}")
+    part = {b: qs[:b].contiguous() for b in MOBILE_BATCHES}
+    times = both_batches("K4-m", lambda b: kin_sweep(part[b], sy), 50,
+                         lambda b: kin_sweep_plain(part[b], sy), 10)
+    # bytes: the configurations in, the six outputs out; operations: ~3.3
+    # kFLOP per configuration (the Panda's ~3 k and the base composition)
+    bounds = {b: bound(nbytes(part[b], *kin_sweep(part[b], sy)),
+                       3.3e3 * b * KNOTS) for b in MOBILE_BATCHES}
+    return mobile_entry(
+        "K4-m kinematics sweep, Husky+Panda (kin_sweep, system=HUSKY_PANDA)",
+        "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",
+        "mpcc_manipulator_tpu/ops/pallas_kinematics.py:241", err, times,
+        bounds)
+
+
+def phase_k1_mobile(mproblem, device) -> dict:
+    """K1's Husky+Panda instantiation in both schemes, cold and warm,
+    against its plain version on the StageQPK of 4096 perturbed mobile home
+    states, under tests/test_qp_ipm_pallas_mobile.py's contract; a NaN
+    lane; the launch configuration; the warm solves timed at both
+    batches."""
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
+        launch_config, solve_qp_ipm_k, solve_qp_ipm_plain)
+    sy = mobile_system()
+    nb = MOBILE_BATCHES[0]
+    cfg = launch_config(KNOTS - 1, sy)
+    at_once = cfg["blocks_per_sm"] * cfg["sms"]
+    waves = {b: -(-b // at_once) for b in MOBILE_BATCHES}
+    print(f"K1-h launch, both schemes (one kernel): {cfg}; {at_once} "
+          f"scenarios at once; waves {waves}")
+    if not at_once:
+        raise AssertionError("K1-h: no block fits an SM")
+    qpk = stage_qp_batch(mproblem, device, sy, nb)
+    err, times, bounds = 0.0, {}, {}
+    part = lambda t, b: t[:b].contiguous()
+    for scheme in ("adaptive", "mehrotra"):
+        cold = solve_qp_ipm_k(qpk, system=sy, scheme=scheme)
+        cold_ref = solve_qp_ipm_plain(qpk, system=sy, scheme=scheme)
+        torch.cuda.synchronize()
+        err = max(err, compare_ipm(f"Husky {scheme} cold", cold, cold_ref,
+                                   MOBILE_IPM_TOL, duals=False))
+        ws = torch.clamp(cold_ref.s_rows, 0.1, 100.0)
+        wl = torch.clamp(cold_ref.lam_rows, 0.1, 100.0)
+        warm = solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl, system=sy,
+                              scheme=scheme)
+        warm_ref = solve_qp_ipm_plain(qpk, warm_s=ws, warm_lam=wl,
+                                      system=sy, scheme=scheme)
+        torch.cuda.synchronize()
+        err = max(err, compare_ipm(f"Husky {scheme} warm", warm, warm_ref,
+                                   MOBILE_IPM_TOL, duals=False))
+        qpk_nan = dataclasses.replace(qpk, hxx=qpk.hxx.clone())
+        qpk_nan.hxx[K1_NAN_LANE, 3, 2, 2] = float("nan")
+        dirty = solve_qp_ipm_k(qpk_nan, warm_s=ws, warm_lam=wl, system=sy,
+                               scheme=scheme)
+        torch.cuda.synchronize()
+        keep = torch.ones(nb, dtype=torch.bool, device=device)
+        keep[K1_NAN_LANE] = False
+        fields = ("dx_tilde", "du", "lam", "s_rows", "iters", "solved", "mu")
+        if bool(dirty.solved[K1_NAN_LANE]) or not all(
+                torch.equal(getattr(dirty, f)[keep], getattr(warm, f)[keep])
+                for f in fields):
+            raise AssertionError(f"K1-h {scheme} NaN lane: solved, or another "
+                                 "lane changed")
+        print(f"K1-h {scheme}, NaN in hxx of lane {K1_NAN_LANE}: not solved, "
+              f"the other {nb - 1} lanes bit-identical")
+        qb = {b: (qpk if b == nb else type(qpk)(**{
+            f.name: part(getattr(qpk, f.name), b)
+            for f in dataclasses.fields(qpk)}), part(ws, b), part(wl, b))
+              for b in MOBILE_BATCHES}
+        solve = lambda b: solve_qp_ipm_k(qb[b][0], warm_s=qb[b][1],
+                                         warm_lam=qb[b][2], system=sy,
+                                         scheme=scheme)
+        plain = lambda b: solve_qp_ipm_plain(qb[b][0], warm_s=qb[b][1],
+                                             warm_lam=qb[b][2], system=sy,
+                                             scheme=scheme)
+        times[scheme] = both_batches(f"K1-h {scheme} warm solve", solve, 20,
+                                     plain, 2)
+        bounds[scheme] = {}
+        for b in MOBILE_BATCHES:
+            sol = solve(b)
+            ins = [getattr(qb[b][0], f.name)
+                   for f in dataclasses.fields(qpk)]
+            outs = [sol.dx_tilde, sol.du, sol.lam, sol.s_rows, sol.iters,
+                    sol.solved, sol.mu]
+            bounds[scheme][b] = bound(
+                nbytes(*ins, qb[b][1], qb[b][2], *outs),
+                k1_flops(scheme, sol.iters, sy))
+            print(f"K1-h {scheme} warm at batch {b}: mean "
+                  f"{sol.iters.double().mean():.3f} iterations; bound "
+                  f"{bounds[scheme][b]['bound_ms']:.4f} ms "
+                  f"({bounds[scheme][b]['bound_by']})")
+    entry = mobile_entry(
+        "K1-h interior-point QP solve, Husky+Panda (solve_qp_ipm_k, "
+        "system=HUSKY_PANDA)", "mpcc_manipulator_tpu_torch/csrc/qp_ipm.cu",
+        "mpcc_manipulator_tpu/solver/qp_ipm_pallas.py:64", err,
+        times["adaptive"], bounds["adaptive"])
+    entry.update(registers=cfg["registers"], local_bytes=cfg["local_bytes"],
+                 shared_bytes=cfg["shared_bytes"],
+                 blocks_per_sm=cfg["blocks_per_sm"], waves=waves,
+                 mehrotra_ms=times["mehrotra"][nb][0],
+                 mehrotra_plain_ms=times["mehrotra"][nb][1],
+                 mehrotra_bound_ms=bounds["mehrotra"][nb]["bound_ms"])
+    return entry
+
+
+def phase_k23_mobile(mproblem, device) -> list:
+    """K2's and K3's Husky+Panda instantiations against their plain
+    versions at 4096 lanes on the mobile track: the first tick's iterate
+    and 0.02-perturbed trial points, one and five candidates, and each
+    cost term alone; both timed at both batches."""
+    from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
+    sy = mobile_system()
+    nb = MOBILE_BATCHES[0]
+    track, params = mproblem[:2]
+    z, zt, zc, cu, rb = main_path_inputs(mproblem, device, sy, nb)
+    singles = single_term_params(mproblem, device, sy, nb)
+    err2 = 0.0
+    cases = [("iterate", params, z), ("trial", params, zt)] + [
+        (f"trial, {w} alone", p_w, zt) for w, p_w in singles]
+    for label, p, zz in cases:
+        got = ak.build_qp_stages_k_kernel(track, zz, rb, p, cu, TS,
+                                          system=sy)
+        ref = ak.build_qp_stages_k_plain(track, zz, rb, p, cu, TS, system=sy)
+        torch.cuda.synchronize()
+        worst = (0.0, "")
+        for f in dataclasses.fields(ref):
+            r, g = getattr(ref, f.name), getattr(got, f.name)
+            if g.shape != r.shape or not g.is_contiguous():
+                raise AssertionError(f"K2-h {f.name}: {tuple(g.shape)}, "
+                                     f"expected contiguous {tuple(r.shape)}")
+            scale = max(1.0, float(r.abs().max()))
+            e = check_close(f"K2-h {label} {f.name}", g, r, K23_TOL * scale)
+            err2 = max(err2, e)
+            worst = max(worst, (e / scale, f.name))
+        print(f"K2-h vs plain, {label}, {nb} lanes: every block within "
+              f"{K23_TOL} x max(1, max|block|); worst {worst[1]} "
+              f"{worst[0]:.3e} of its scale")
+    err3 = 0.0
+    cases = [("trial", params, zt), (f"x{CANDIDATES} candidates", params, zc)
+             ] + [(f"trial, {w} alone", p_w, zt) for w, p_w in singles]
+    for label, p, zz in cases:
+        err3 = max(err3, check_k3(
+            f"Husky {label}",
+            ak.eval_point_kernel(track, zz, rb, p, cu, TS, sy),
+            ak.eval_point_plain(track, zz, rb, p, cu, TS, sy)))
+    sub = {b: (z[:b].contiguous(), zt[:b].contiguous(), cu[:b].contiguous(),
+               type(rb)(**{f.name: getattr(rb, f.name)[:b]
+                           for f in dataclasses.fields(rb)}))
+           for b in MOBILE_BATCHES}
+    t2 = both_batches(
+        "K2-h assembly",
+        lambda b: ak.build_qp_stages_k_kernel(track, sub[b][0], sub[b][3],
+                                              params, sub[b][2], TS,
+                                              system=sy), 50,
+        lambda b: ak.build_qp_stages_k_plain(track, sub[b][0], sub[b][3],
+                                             params, sub[b][2], TS,
+                                             system=sy), 5)
+    t3 = both_batches(
+        "K3-h evaluation",
+        lambda b: ak.eval_point_kernel(track, sub[b][1], sub[b][3], params,
+                                       sub[b][2], TS, sy), 50,
+        lambda b: ak.eval_point_plain(track, sub[b][1], sub[b][3], params,
+                                      sub[b][2], TS, sy), 5)
+    table = ak.pack_tables(track, params, TS, sy)
+    b2, b3 = {}, {}
+    for b in MOBILE_BATCHES:
+        zz, zzt, cc, rr = sub[b]
+        got = ak.build_qp_stages_k_kernel(track, zz, rr, params, cc, TS,
+                                          system=sy)
+        b2[b] = bound(nbytes(zz, cc, *(getattr(rr, f) for f in ak._K2_ROBOT),
+                             table, *(getattr(got, f) for f in ak._K2_OUT)),
+                      3e3 * b * KNOTS)
+        b3[b] = bound(nbytes(zzt, cc, *(getattr(rr, f)
+                                        for f in ak._K3_ROBOT), table)
+                      + 8 * b, 1.5e3 * b * KNOTS)
+    src = "mpcc_manipulator_tpu_torch/csrc/assembly.cu"
+    return [mobile_entry("K2-h stage-QP assembly, Husky+Panda "
+                         "(build_qp_stages_k_kernel, system=HUSKY_PANDA)",
+                         src, "mpcc_manipulator_tpu/ops/pallas_assembly.py:290",
+                         err2, t2, b2),
+            mobile_entry("K3-h line-search evaluation, Husky+Panda "
+                         "(eval_point_kernel, system=HUSKY_PANDA)", src,
+                         "mpcc_manipulator_tpu/ops/pallas_assembly.py:756",
+                         err3, t3, b3)]
+
+
+def phase_mobile_rti(mproblem, device, card) -> dict:
+    """The Husky+Panda RTI path (`mpc_step(system=HUSKY_PANDA)` under
+    ``SQPConfig()``, K1-K4) + the plant step: ``MOBILE_TICKS`` ticks at each
+    of ``MOBILE_BATCHES``, the counts set to 0 just before each run and
+    read just after.  Every lane ok every tick, finite states, s rising
+    after the start transient, the mean base x growing, K1-K4 once per
+    tick.  Returns the first run's launches, states and recorded inputs."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    sy = mobile_system()
+    first = None
+    for b in MOBILE_BATCHES:
+        x0 = perturbed_states(b, torch.float32, device, sy)
+        reset_counts()
+        times, oks, states, iters, _, inputs = closed_loop(
+            mproblem, x0, MOBILE_TICKS, SQPConfig(),
+            record=CHECK_LANES if first is None else 0, system=sy)
+        launches = read_counts()
+        check_ok(f"Husky RTI, batch {b}", oks, states)
+        s = states[:, :, sy.s_idx]
+        xb = states[:, :, 0].double().mean(1)
+        back = (s[1:] <= s[:-1]).sum(1)
+        if not bool((s[MOBILE_S_RISING_FROM + 1:]
+                     > s[MOBILE_S_RISING_FROM:-1]).all()) \
+                or not bool((s[-1] > s[0]).all()):
+            raise AssertionError(
+                f"Husky RTI, batch {b}: s not strictly increasing after "
+                f"tick {MOBILE_S_RISING_FROM}; non-increasing lanes per tick "
+                f"{back.tolist()}")
+        if not bool((xb[1:] > xb[:-1]).all()):
+            raise AssertionError(f"Husky RTI, batch {b}: the mean base x "
+                                 f"does not grow: {xb.tolist()}")
+        want = dict(K1=MOBILE_TICKS, K2=MOBILE_TICKS, K3=MOBILE_TICKS,
+                    K4=MOBILE_TICKS, K5=0)
+        if launches != want:
+            raise AssertionError(f"Husky RTI, batch {b}: launches "
+                                 f"{launches}, expected {want}")
+        tick_ms = np.asarray(times[1:]) * 1e3
+        med, p99 = float(np.median(tick_ms)), float(np.percentile(tick_ms,
+                                                                  99))
+        print(f"Husky+Panda RTI (K1-K4) {b} x {MOBILE_TICKS} ticks on {card}: "
+              f"all ok; median tick {med:.3f} ms, p99 {p99:.3f} ms (of "
+              f"{tick_ms.size} ticks; first {times[0] * 1e3:.1f} ms), "
+              f"{b / med * 1e3:.1f} solves/s; mean IPM iters "
+              f"{iters.float().mean():.2f}, max {int(iters.max())}; "
+              f"non-increasing s lane-ticks per tick {back.tolist()}; s "
+              f"{float(s[0].mean()):.5f} -> {float(s[-1].mean()):.5f}; mean "
+              f"x_b {float(xb[0]):.5f} -> {float(xb[-1]):.5f}; launches "
+              f"{launches}")
+        if first is None:
+            first = dict(launches=launches, states=states, inputs=inputs,
+                         iters=iters)
+    return first
+
+
+def phase_cpu_check_mobile(inputs, states_gpu, iters_gpu):
+    """The Husky+Panda RTI loop tick by tick from the GPU run's inputs
+    (state, input, carry) for ``CHECK_LANES`` lanes, through the plain path
+    in float64 on the CPU, every lane-tick held to the envelope (q over
+    all 10 joints)."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    sy = mobile_system()
+    problem64 = build_problem(torch.float64, "cpu", system=sy)
+    f64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
+    obs = torch.tensor([[3.0, 3.0, 3.0]] * CHECK_LANES, dtype=torch.float64)
+    rad = torch.zeros(CHECK_LANES, dtype=torch.float64)
+    states, iters = [], []
+    for x, u, carry in inputs:
+        carry64 = MPCCarry(**{f.name: f64(getattr(carry, f.name))
+                              for f in dataclasses.fields(MPCCarry)})
+        _, out = mpc_step(*problem64, carry64, f64(x), f64(u), obs, rad,
+                          ts=TS, cfg=SQPConfig(), system=sy)
+        if not bool(out.ok.all()):
+            raise AssertionError("CPU float64 check (Husky RTI): a lane was "
+                                 "not ok")
+        states.append(sim_time_step(out.x0_updated, out.u0, TS))
+        iters.append(out.qp_iters)
+    split_at = (torch.stack(iters)
+                != iters_gpu[:, :CHECK_LANES]).nonzero().tolist()
+    print(f"  Husky RTI tick by tick, (tick, lane) whose Newton iterations "
+          f"differ from float64: {split_at or 'none'}")
+    envelope_gaps("Husky+Panda RTI, tick by tick", torch.stack(states),
+                  states_gpu[:, :CHECK_LANES], dof=sy.dof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1344,6 +1750,7 @@ def main() -> int:
     from mpcc_manipulator_tpu_torch.ops import cuda_build
     from mpcc_manipulator_tpu_torch.problem import build_problem
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1364,6 +1771,13 @@ def main() -> int:
                phase_k2(problem, aproblem, device),
                phase_k3(problem, aproblem, device), phase_k4(device),
                phase_k5(problem, device)]
+    mproblem = build_problem(torch.float32, device, system=mobile_system())
+    mkernels = [phase_k1_mobile(mproblem, device),
+                *phase_k23_mobile(mproblem, device),
+                phase_k4_mobile(device)]
+    mobile = phase_mobile_rti(mproblem, device, card)
+    for k in mkernels:
+        k["launches"] = mobile["launches"][k["name"][:2]]
     # each path's kernels carry the launches of that path's own run
     x0, states, launches = phase_closed_loop(problem, device, card)
     states_conv, inputs = phase_converged(problem, x0, card)
@@ -1381,9 +1795,12 @@ def main() -> int:
                              solves_meh)
     phase_cpu_check_converged(inputs, states_conv)
     phase_cpu_check_admm(inputs_admm, states_admm)
+    phase_cpu_check_mobile(mobile["inputs"], mobile["states"],
+                           mobile["iters"])
 
+    print(f"command time {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + mkernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,12 +12,19 @@
 // `total_objective` + `constraint_values` + `constraint_norm` of
 // ocp/qp_data.py in this package (the plain versions).
 //
-// What bounds them on the H100: bytes for K2.  Each non-terminal knot
+// Both are instantiated per system from one source: the dims struct
+// Dims<BASE_DOF> (the Panda, BASE_DOF = 0: nx 9, nu 8, dof 7; the
+// Husky+Panda, BASE_DOF = 3: nx 12, nu 11, dof 10; 9 env links either way)
+// derives every size and table offset; the C entries take the system as
+// their first int argument.
+//
+// What bounds them on the H100: bytes for K2.  Each non-terminal Panda knot
 // writes 424 floats (hxx 81, huu 64, cpx 99, cpu 88 and the vectors), the
 // terminal knot 90 (hxx and gx): ~17.7 MB out at batch 1024 and N = 10,
-// against ~7 MB in (~159 floats per knot).  The arithmetic (~3k flops per
-// knot of 3-vector and 3x3 work, one atan2, a few sin/cos/log) is small
-// beside that.  K3 writes two floats per candidate and reads ~110 per knot:
+// against ~7 MB in (~159 floats per knot); a Husky+Panda knot writes 640
+// (hxx 144, huu 121, cpx 132, cpu 121 and the vectors).  The arithmetic
+// (~3k flops per knot of 3-vector and 3x3 work, one atan2, a few
+// sin/cos/log) is small beside that.  K3 writes two floats per candidate and reads ~110 per knot:
 // it is latency-bound on its knot loop.
 //
 // Design: K2 runs one thread per (scenario, knot), over B x (N+1) threads.
@@ -39,14 +46,15 @@
 // multiplies a structural zero into a NaN (the dense Ad/Bd product, the
 // zero vs column of the error Jacobians) the kernel does too.
 //
-// Layouts (row-major, batch-first, K = N+1 knots, n_var = 9K + 8N):
-//   z (B, n_var) [K2] or (B, A, n_var) [K3], cu (B, 8), ee_pos (B,K,3),
-//   ee_rot (B,K,3,3), jv/jw (B,K,3,7), mani (B,K), dmani (B,K,7),
-//   sel (B,K), dsel (B,K,7), env (B,K,9), denv (B,K,9,7), radius (B),
+// Layouts (row-major, batch-first, K = N+1 knots, n_var = nx K + nu N; the
+// Panda's sizes nx 9, nu 8, dof 7):
+//   z (B, n_var) [K2] or (B, A, n_var) [K3], cu (B, nu), ee_pos (B,K,3),
+//   ee_rot (B,K,3,3), jv/jw (B,K,3,dof), mani (B,K), dmani (B,K,dof),
+//   sel (B,K), dsel (B,K,dof), env (B,K,9), denv (B,K,9,dof), radius (B),
 //   tables: see `table_len` (ops/assembly_kernel.py::pack_tables)
-//   K2 -> hxx (B,K,9,9) huu (B,N,8,8) gx (B,K,9) gu (B,N,8) gxu (B,N,7)
-//         e (B,N,9) d_xu/d_xl (B,N,9) d_uu/d_ul (B,N,8) d_ru/d_rl (B,N,7)
-//         d_p (B,N,11) cpx (B,N,11,9) cpu (B,N,11,8)
+//   K2 -> hxx (B,K,nx,nx) huu (B,N,nu,nu) gx (B,K,nx) gu (B,N,nu)
+//         gxu (B,N,dof) e (B,N,nx) d_xu/d_xl (B,N,nx) d_uu/d_ul (B,N,nu)
+//         d_ru/d_rl (B,N,dof) d_p (B,N,11) cpx (B,N,11,nx) cpu (B,N,11,nu)
 //   K3 -> obj, vio (B, A)
 
 #include <cmath>
@@ -55,8 +63,6 @@
 
 namespace {
 
-constexpr int NX = 9, NU = 8, DOF = 7, NL = 9, NPC = 2 + NL;
-constexpr int S_IDX = DOF, VS_IDX = DOF + 1, DVS_IDX = DOF;
 constexpr float EPS = 1e-8f;          // so3._EPS
 constexpr float RBF_DELTA = -0.5f;
 constexpr float PI_F = 3.14159265358979323846f;
@@ -69,16 +75,26 @@ enum Sc {
   SC_TOL_SELCOL, SC_TOL_SING, SC_TOL_ENVCOL, SC_V_DES, SC_DEACC, SC_S_TRUST,
   SC_R_DDQ, N_SC
 };
-// table layout after the scalars
-constexpr int T_TX = N_SC, T_TU = T_TX + NX, T_XL = T_TU + NU,
-              T_XU = T_XL + NX, T_UL = T_XU + NX, T_UU = T_UL + NU,
-              T_DDQL = T_UU + NU, T_DDQU = T_DDQL + DOF, T_AD = T_DDQU + DOF,
-              T_BD = T_AD + NX * NX, T_PTBL = T_BD + NX * NU;
 constexpr int P_ROW = 12, R_ROW = 14;   // position / rotation table rows
 
-__host__ __device__ constexpr int table_len(int nseg) {
-  return T_PTBL + nseg * P_ROW + (nseg - 1) * R_ROW;
-}
+// One system's dims: a planar base of BASE_DOF joints (0 or 3) under the
+// 7-joint arm, 9 env-collision links; the table layout after the scalars.
+template <int BASE_DOF>
+struct Dims {
+  static constexpr int DOF = BASE_DOF + 7, NX = DOF + 2, NU = DOF + 1;
+  static constexpr int NL = 9, NPC = 2 + NL;
+  static constexpr int S_IDX = DOF, VS_IDX = DOF + 1, DVS_IDX = DOF;
+  static constexpr int T_TX = N_SC, T_TU = T_TX + NX, T_XL = T_TU + NU,
+                       T_XU = T_XL + NX, T_UL = T_XU + NX, T_UU = T_UL + NU,
+                       T_DDQL = T_UU + NU, T_DDQU = T_DDQL + DOF,
+                       T_AD = T_DDQU + DOF, T_BD = T_AD + NX * NX,
+                       T_PTBL = T_BD + NX * NU;
+  static constexpr int table_len(int nseg) {
+    return T_PTBL + nseg * P_ROW + (nseg - 1) * R_ROW;
+  }
+};
+using Panda = Dims<0>;
+using HuskyPanda = Dims<3>;
 
 // NaN-propagating min / max / clamp (jnp.minimum, jnp.maximum, jnp.clip and
 // torch.clamp semantics; fminf / fmaxf would drop the NaN)
@@ -194,15 +210,16 @@ struct TrackPoint {
   float p[3], t[3], n[3], r[9], dr[3];
 };
 
-__device__ void track_eval(const float* __restrict__ tb, int nseg, float s,
-                           TrackPoint& o) {
+// (ptbl: the system's offset of the position table)
+__device__ void track_eval(const float* __restrict__ tb, int ptbl, int nseg,
+                           float s, TrackPoint& o) {
   const float delta = tb[SC_DELTA], len = tb[SC_LENGTH];
   const float s_c = nclamp(s, 0.f, len);
   const float segf = floorf(nclamp(s_c / delta, 0.f, (float)(nseg - 2)));
   const int seg = segf == segf ? (int)segf : 0;
   const float dx = s_c - (float)seg * delta;
   const bool at_end = s_c >= len;
-  const float* pc = tb + T_PTBL + seg * P_ROW;
+  const float* pc = tb + ptbl + seg * P_ROW;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     const float a = pc[4 * ch], b = pc[4 * ch + 1], c = pc[4 * ch + 2],
@@ -214,7 +231,7 @@ __device__ void track_eval(const float* __restrict__ tb, int nseg, float s,
     o.t[ch] = at_end ? 0.f : der;
     o.n[ch] = at_end ? 0.f : sec;
   }
-  const float* rc = tb + T_PTBL + nseg * P_ROW + seg * R_ROW;
+  const float* rc = tb + ptbl + nseg * P_ROW + seg * R_ROW;
   const float cc = rc[12], dd = rc[13];
   const float blend = cc * dx * dx + dd * dx * dx * dx;
   const float dblend = 2.f * cc * dx + 3.f * dd * dx * dx;
@@ -256,15 +273,17 @@ __device__ __forceinline__ float desired_velocity(const float* tb, float s) {
 
 // Ad x + Bd u as the plain version's dense product (a NaN anywhere in x or
 // u reaches every row, as it does there)
-__device__ void dyn_pred(const float* __restrict__ tb, const float x[NX],
-                         const float u[NU], float pred[NX]) {
+template <class D>
+__device__ void dyn_pred(const float* __restrict__ tb, const float x[D::NX],
+                         const float u[D::NU], float pred[D::NX]) {
+  constexpr int NX = D::NX, NU = D::NU;
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     float a = 0.f, b = 0.f;
 #pragma unroll
-    for (int j = 0; j < NX; ++j) a += tb[T_AD + NX * i + j] * x[j];
+    for (int j = 0; j < NX; ++j) a += tb[D::T_AD + NX * i + j] * x[j];
 #pragma unroll
-    for (int j = 0; j < NU; ++j) b += tb[T_BD + NU * i + j] * u[j];
+    for (int j = 0; j < NU; ++j) b += tb[D::T_BD + NU * i + j] * u[j];
     pred[i] = a + b;
   }
 }
@@ -276,19 +295,21 @@ struct Robot {
       *denv, *radius;
 };
 
+template <class D>
 __device__ __forceinline__ float poly_h(const float* tb, const Robot& rb,
                                         size_t bk, int b, int row) {
   if (row == 0) return 0.01f * rb.sel[bk] - 0.01f * tb[SC_TOL_SELCOL];
   if (row == 1) return rb.mani[bk] - tb[SC_TOL_SING];
-  return 0.01f * (rb.env[bk * NL + row - 2] - 1.2f * rb.radius[b])
+  return 0.01f * (rb.env[bk * D::NL + row - 2] - 1.2f * rb.radius[b])
          - 0.01f * tb[SC_TOL_ENVCOL];
 }
 
+template <class D>
 __device__ __forceinline__ float poly_d(const Robot& rb, size_t bk, int row,
                                         int j) {
-  if (row == 0) return 0.01f * rb.dsel[bk * DOF + j];
-  if (row == 1) return rb.dmani[bk * DOF + j];
-  return 0.01f * rb.denv[(bk * NL + row - 2) * DOF + j];
+  if (row == 0) return 0.01f * rb.dsel[bk * D::DOF + j];
+  if (row == 1) return rb.dmani[bk * D::DOF + j];
+  return 0.01f * rb.denv[(bk * D::NL + row - 2) * D::DOF + j];
 }
 
 struct AsmOut {
@@ -296,10 +317,13 @@ struct AsmOut {
       *dp, *cpx, *cpu;
 };
 
+template <class D>
 __global__ void __launch_bounds__(128)
 assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
                 Robot rb, const float* __restrict__ tb, AsmOut out,
                 int batch, int n_h, int nseg, float ts, float jr_sign) {
+  constexpr int NX = D::NX, NU = D::NU, DOF = D::DOF, NPC = D::NPC;
+  constexpr int S_IDX = D::S_IDX, VS_IDX = D::VS_IDX, DVS_IDX = D::DVS_IDX;
   const int nk = n_h + 1;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= batch * nk) return;
@@ -315,7 +339,7 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   for (int i = 0; i < NU; ++i) u[i] = term ? 0.f : us[NU * k + i];
 
   TrackPoint tp;
-  track_eval(tb, nseg, x[S_IDX], tp);
+  track_eval(tb, D::T_PTBL, nseg, x[S_IDX], tp);
 
   // ---- heading: log(R_ref' R_cur), d_log = Jr^-1 R_cur' [jw | -dr_ref]
   const float* rc = rb.ee_rot + bk * 9;
@@ -353,7 +377,8 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   float tjv[DOF];
 #pragma unroll
   for (int j = 0; j < DOF; ++j)
-    tjv[j] = tp.t[0] * jv[j] + tp.t[1] * jv[DOF + j] + tp.t[2] * jv[2 * DOF + j];
+    tjv[j] = tp.t[0] * jv[j] + tp.t[1] * jv[DOF + j]
+             + tp.t[2] * jv[2 * DOF + j];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     lag[i] = tp.t[i] * te;
@@ -379,8 +404,8 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   sched_weights(tb, rb.sel[bk], rb.mani[bk], qc, ql, qo);
   const float qck = term ? tb[SC_Q_C_N_MULT] * qc : qc;
   const float dv = x[VS_IDX] - desired_velocity(tb, x[S_IDX]);
-  const float* tx = tb + T_TX;
-  const float* tu = tb + T_TU;
+  const float* tx = tb + D::T_TX;
+  const float* tu = tb + D::T_TU;
 
   // ---- gradient f_x (scaled by T_x)
   const float* dm = rb.dmani + bk * DOF;
@@ -453,12 +478,12 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   float xn[NX], pred[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) xn[i] = zb[NX * (k + 1) + i];
-  dyn_pred(tb, x, u, pred);
+  dyn_pred<D>(tb, x, u, pred);
   const float len = tb[SC_LENGTH], trust = tb[SC_S_TRUST];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     out.e[bs * NX + i] = -((xn[i] - pred[i]) * (1.f / tx[i]));
-    float hi = tb[T_XU + i], lo = tb[T_XL + i];
+    float hi = tb[D::T_XU + i], lo = tb[D::T_XL + i];
     if (i == S_IDX) {
       hi = nmin(xn[i] + trust, len);
       lo = nmax(xn[i] - trust, 0.f);
@@ -473,26 +498,26 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   }
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
-    out.duu[bs * NU + j] = tb[T_UU + j] - u[j];
-    out.dul[bs * NU + j] = u[j] - tb[T_UL + j];
+    out.duu[bs * NU + j] = tb[D::T_UU + j] - u[j];
+    out.dul[bs * NU + j] = u[j] - tb[D::T_UL + j];
   }
 #pragma unroll
   for (int j = 0; j < DOF; ++j) {
     const float rate = ddq[j] / ts;
-    out.dru[bs * DOF + j] = tb[T_DDQU + j] - rate;
-    out.drl[bs * DOF + j] = rate - tb[T_DDQL + j];
+    out.dru[bs * DOF + j] = tb[D::T_DDQU + j] - rate;
+    out.drl[bs * DOF + j] = rate - tb[D::T_DDQL + j];
   }
 
   // ---- RBF polytopic rows: d_p = -c, cpx = drbf(h) d T_x, cpu = -d T_u
   for (int row = 0; row < NPC; ++row) {
-    const float h = poly_h(tb, rb, bk, b, row);
+    const float h = poly_h<D>(tb, rb, bk, b, row);
     const float dr = drbf(h);
     float lin = 0.f;
     float* cx = out.cpx + (bs * NPC + row) * NX;
     float* cuo = out.cpu + (bs * NPC + row) * NU;
 #pragma unroll
     for (int j = 0; j < DOF; ++j) {
-      const float d = poly_d(rb, bk, row, j);
+      const float d = poly_d<D>(rb, bk, row, j);
       lin += d * u[j];
       cx[j] = dr * d * tx[j];
       cuo[j] = -d * tu[j];
@@ -504,11 +529,14 @@ assembly_kernel(const float* __restrict__ z, const float* __restrict__ cu,
   }
 }
 
+template <class D>
 __global__ void __launch_bounds__(128)
 eval_kernel(const float* __restrict__ z, const float* __restrict__ cu,
             Robot rb, const float* __restrict__ tb, float* __restrict__ obj_out,
             float* __restrict__ vio_out, int batch, int n_cand, int n_h,
             int nseg, float ts) {
+  constexpr int NX = D::NX, NU = D::NU, DOF = D::DOF, NPC = D::NPC;
+  constexpr int S_IDX = D::S_IDX, VS_IDX = D::VS_IDX, DVS_IDX = D::DVS_IDX;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= batch * n_cand) return;
   const int b = t / n_cand;
@@ -527,7 +555,7 @@ eval_kernel(const float* __restrict__ z, const float* __restrict__ cu,
 #pragma unroll
     for (int i = 0; i < NU; ++i) u[i] = term ? 0.f : us[NU * k + i];
     TrackPoint tp;
-    track_eval(tb, nseg, x[S_IDX], tp);
+    track_eval(tb, D::T_PTBL, nseg, x[S_IDX], tp);
 
     // ---- objective
     float qc, ql, qo;
@@ -573,7 +601,7 @@ eval_kernel(const float* __restrict__ z, const float* __restrict__ cu,
     // ---- violation: state box (s row: trust region around this knot's s)
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      float hi = tb[T_XU + i], lo = tb[T_XL + i];
+      float hi = tb[D::T_XU + i], lo = tb[D::T_XL + i];
       if (i == S_IDX) {
         hi = nmin(x[i] + trust, len);
         lo = nmax(x[i] - trust, 0.f);
@@ -583,26 +611,27 @@ eval_kernel(const float* __restrict__ z, const float* __restrict__ cu,
     if (term) continue;
     // dynamics defect of k -> k+1 (rows l = u = 0)
     float pred[NX];
-    dyn_pred(tb, x, u, pred);
+    dyn_pred<D>(tb, x, u, pred);
 #pragma unroll
     for (int i = 0; i < NX; ++i)
-      vio += fabsf((zb[NX * (k + 1) + i] - pred[i]) * (1.f / tb[T_TX + i]));
+      vio += fabsf((zb[NX * (k + 1) + i] - pred[i]) * (1.f / tb[D::T_TX + i]));
     // input box, ddq rate rows (at k = 0 against the current input)
 #pragma unroll
     for (int j = 0; j < NU; ++j)
-      vio += nmax(tb[T_UL + j] - u[j], 0.f) + nmax(u[j] - tb[T_UU + j], 0.f);
+      vio += nmax(tb[D::T_UL + j] - u[j], 0.f)
+             + nmax(u[j] - tb[D::T_UU + j], 0.f);
 #pragma unroll
     for (int j = 0; j < DOF; ++j) {
       const float rate = (u[j] - (k == 0 ? cb[j] : us[NU * (k - 1) + j])) / ts;
-      vio += nmax(tb[T_DDQL + j] - rate, 0.f)
-             + nmax(rate - tb[T_DDQU + j], 0.f);
+      vio += nmax(tb[D::T_DDQL + j] - rate, 0.f)
+             + nmax(rate - tb[D::T_DDQU + j], 0.f);
     }
     // polytopic rows, one-sided (upper 0, lower -inf)
     for (int row = 0; row < NPC; ++row) {
       float lin = 0.f;
 #pragma unroll
-      for (int j = 0; j < DOF; ++j) lin += poly_d(rb, bk, row, j) * u[j];
-      vio += nmax(-lin + rbf(poly_h(tb, rb, bk, b, row)), 0.f);
+      for (int j = 0; j < DOF; ++j) lin += poly_d<D>(rb, bk, row, j) * u[j];
+      vio += nmax(-lin + rbf(poly_h<D>(tb, rb, bk, b, row)), 0.f);
     }
   }
   obj_out[t] = obj;
@@ -611,7 +640,13 @@ eval_kernel(const float* __restrict__ z, const float* __restrict__ cu,
 
 }  // namespace
 
-extern "C" int mpcc_assembly_table_len(int nseg) { return table_len(nseg); }
+// system: the base_dof of the system's instantiation (0 Panda, 3
+// Husky+Panda); -1 for an unknown system.
+extern "C" int mpcc_assembly_table_len(int system, int nseg) {
+  if (system == 0) return Panda::table_len(nseg);
+  if (system == 3) return HuskyPanda::table_len(nseg);
+  return -1;
+}
 
 extern "C" int mpcc_assembly(
     const float* z, const float* cu, const float* ee_pos, const float* ee_rot,
@@ -620,18 +655,24 @@ extern "C" int mpcc_assembly(
     const float* radius, const float* tables, float* hxx, float* huu,
     float* gx, float* gu, float* gxu, float* e, float* dxu, float* dxl,
     float* duu, float* dul, float* dru, float* drl, float* dp, float* cpx,
-    float* cpu, int batch, int n_h, int nseg, float ts, float jr_sign,
-    void* stream) {
+    float* cpu, int system, int batch, int n_h, int nseg, float ts,
+    float jr_sign, void* stream) {
   const int n = batch * (n_h + 1);
   if (n <= 0) return 0;
   const Robot rb{ee_pos, ee_rot, jv, jw, mani, dmani, sel, dsel, env, denv,
                  radius};
   const AsmOut out{hxx, huu, gx, gu, gxu, e, dxu, dxl, duu, dul, dru, drl,
                    dp, cpx, cpu};
-  const int threads = 128;
-  assembly_kernel<<<(n + threads - 1) / threads, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      z, cu, rb, tables, out, batch, n_h, nseg, ts, jr_sign);
+  const int threads = 128, blocks = (n + threads - 1) / threads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (system == 0)
+    assembly_kernel<Panda><<<blocks, threads, 0, st>>>(
+        z, cu, rb, tables, out, batch, n_h, nseg, ts, jr_sign);
+  else if (system == 3)
+    assembly_kernel<HuskyPanda><<<blocks, threads, 0, st>>>(
+        z, cu, rb, tables, out, batch, n_h, nseg, ts, jr_sign);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -640,14 +681,21 @@ extern "C" int mpcc_eval_point(
     const float* mani, const float* dmani, const float* sel,
     const float* dsel, const float* env, const float* denv,
     const float* radius, const float* tables, float* obj, float* vio,
-    int batch, int n_cand, int n_h, int nseg, float ts, void* stream) {
+    int system, int batch, int n_cand, int n_h, int nseg, float ts,
+    void* stream) {
   const int n = batch * n_cand;
   if (n <= 0) return 0;
   const Robot rb{ee_pos, ee_rot, nullptr, nullptr, mani, dmani, sel, dsel,
                  env, denv, radius};
-  const int threads = 128;
-  eval_kernel<<<(n + threads - 1) / threads, threads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      z, cu, rb, tables, obj, vio, batch, n_cand, n_h, nseg, ts);
+  const int threads = 128, blocks = (n + threads - 1) / threads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (system == 0)
+    eval_kernel<Panda><<<blocks, threads, 0, st>>>(
+        z, cu, rb, tables, obj, vio, batch, n_cand, n_h, nseg, ts);
+  else if (system == 3)
+    eval_kernel<HuskyPanda><<<blocks, threads, 0, st>>>(
+        z, cu, rb, tables, obj, vio, batch, n_cand, n_h, nseg, ts);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

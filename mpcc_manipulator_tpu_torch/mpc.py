@@ -28,6 +28,7 @@ import torch
 from .models import collision_nn as cnn
 from .models import dynamics as dyn
 from .models import kinematics as kin
+from .models import kinematics_mobile as kinm
 from .ocp import qp_data
 from .ocp.robot_data import compute_robot_data
 from .params import MPCCParams, SQPConfig
@@ -120,10 +121,14 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
 
     # --- 1. projection + vs re-derivation
     last_s = x0[:, system.s_idx]
-    p_ee, _, origins, axes = kin.fk_chain(q)
+    if system.base_dof == 0:
+        p_ee, _, origins, axes = kin.fk_chain(q)
+        jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)  # (B,7,3)
+    else:
+        p_ee = kinm.ee_position(q)
+        jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)          # (B,10,3)
     s_proj = als.project_on_spline(track, last_s, p_ee,
                                    params.model.max_dist_proj)
-    jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)   # (B, 7, 3)
     vs = ((dq[:, :, None] * jv).sum(1)
           * als.track_derivative(track, s_proj)).sum(-1)
     x0_new = x0.clone()

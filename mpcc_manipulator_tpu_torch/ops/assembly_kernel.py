@@ -156,11 +156,12 @@ def tables(track: TrackSpline, params: MPCCParams, ts,
 
 
 def _cached(track: TrackSpline, params: MPCCParams, ts, system: System,
-            dev):
-    """:func:`tables`, checked against the kernels' own table length and
-    the device."""
+            sid: int, dev):
+    """:func:`tables`, checked against the length the system's kernel
+    instantiation reads and the device."""
     tbl, shared = tables(track, params, ts, system)
-    want = cuda_build.library().mpcc_assembly_table_len(track.sx.a.shape[0])
+    want = cuda_build.library().mpcc_assembly_table_len(
+        sid, track.sx.a.shape[0])
     if tbl.numel() != want:
         raise AssertionError(f"assembly table: {tbl.numel()} floats, the "
                              f"kernels read {want}")
@@ -176,12 +177,6 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous {shape}, got "
                          f"{tuple(t.shape)}")
-
-
-def _check_system(system: System, what: str) -> None:
-    if (system.nx, system.nu, system.dof, system.num_links) != (9, 8, 7, 9):
-        raise NotImplementedError(f"{what} is compiled for the Panda dims "
-                                  "(Husky+Panda: ROADMAP item 12)")
 
 
 def _robot_inputs(rb: RobotData, b: int, k: int, dev, fields,
@@ -226,16 +221,16 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
     if dev.type == "cpu":
         return build_qp_stages_k_plain(track, z, rb, params, current_u, ts,
                                        exact_heading_jac, system)
+    sid = cuda_build.system_id(system, "K2")
     if dev.type != "cuda":
         raise ValueError(f"build_qp_stages_k_kernel: unsupported device {dev}")
-    _check_system(system, "K2")
     nx, nu, dof, npc = system.nx, system.nu, system.dof, system.npc
     n_h = system.horizon
     b = z.shape[0]
     _check_cuda("z", z, (b, system.n_var), dev)
     _check_cuda("current_u", current_u, (b, nu), dev)
     robot = _robot_inputs(rb, b, n_h + 1, dev, _K2_ROBOT, system)
-    tables, shared = _cached(track, params, ts, system, dev)
+    tables, shared = _cached(track, params, ts, system, sid, dev)
     kw = dict(dtype=torch.float32, device=dev)
     shapes = dict(hxx=(n_h + 1, nx, nx), huu=(n_h, nu, nu), gx=(n_h + 1, nx),
                   gu=(n_h, nu), gxu=(n_h, dof), e=(n_h, nx), d_xu=(n_h, nx),
@@ -249,7 +244,7 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
         z.data_ptr(), current_u.data_ptr(),
         *[t.data_ptr() for t in robot], tables.data_ptr(),
         *[outs[f].data_ptr() for f in _K2_OUT],
-        b, n_h, track.sx.a.shape[0], float(ts),
+        sid, b, n_h, track.sx.a.shape[0], float(ts),
         -1.0 if exact_heading_jac else 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K2 assembly kernel")
@@ -270,9 +265,9 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     dev = z.device
     if dev.type == "cpu":
         return eval_point_plain(track, z, rb, params, current_u, ts, system)
+    sid = cuda_build.system_id(system, "K3")
     if dev.type != "cuda":
         raise ValueError(f"eval_point_kernel: unsupported device {dev}")
-    _check_system(system, "K3")
     if z.dim() not in (2, 3):
         raise ValueError(f"eval_point_kernel: z must be (B, n_var) or "
                          f"(B, A, n_var), got {tuple(z.shape)}")
@@ -282,7 +277,7 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     _check_cuda("current_u", current_u, (b, system.nu), dev)
     robot = _robot_inputs(rb, b, system.horizon + 1, dev, _K3_ROBOT,
                           system)
-    tables, _ = _cached(track, params, ts, system, dev)
+    tables, _ = _cached(track, params, ts, system, sid, dev)
     obj = torch.empty(z.shape[:-1], dtype=torch.float32, device=dev)
     vio = torch.empty_like(obj)
     lib = cuda_build.library()
@@ -290,7 +285,7 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     err = lib.mpcc_eval_point(
         z.data_ptr(), current_u.data_ptr(),
         *[t.data_ptr() for t in robot], tables.data_ptr(),
-        obj.data_ptr(), vio.data_ptr(), b, n_cand, system.horizon,
+        obj.data_ptr(), vio.data_ptr(), sid, b, n_cand, system.horizon,
         track.sx.a.shape[0], float(ts),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K3 eval kernel")

@@ -82,6 +82,24 @@ def build() -> tuple[str, str]:
     return path, "".join(logs)
 
 
+# The systems each kernel source is instantiated for, keyed by their dims
+# (base_dof, arm_dof, num_links), with the integer the C entries take as
+# their system argument: the Panda and the Husky+Panda.
+_INSTANTIATIONS = {(0, 7, 9): 0, (3, 7, 9): 3}
+
+
+def system_id(system, what: str) -> int:
+    """The C entries' system argument for ``system``; raises for dims no
+    kernel is instantiated for."""
+    key = (system.base_dof, system.arm_dof, system.num_links)
+    if key not in _INSTANTIATIONS:
+        raise NotImplementedError(
+            f"{what}: no kernel instantiation for {system.name} (base_dof, "
+            f"arm_dof, num_links) = {key}; the kernels are instantiated for "
+            f"{sorted(_INSTANTIATIONS)}")
+    return _INSTANTIATIONS[key]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -91,16 +109,16 @@ _F = ctypes.c_float
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(build()[0])
-    lib.mpcc_kin_sweep.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P]
+    lib.mpcc_kin_sweep.argtypes = [_P, _P, _I, _I] + [_P] * 7
     lib.mpcc_kin_sweep.restype = _I
     lib.mpcc_ipm_solve.argtypes = ([_P] * 18 + [_P] * 8
-                                   + [_I, _I, _I, _F, _I, _P])
+                                   + [_I, _I, _I, _I, _F, _I, _P])
     lib.mpcc_ipm_solve.restype = _I
-    lib.mpcc_ipm_launch_config.argtypes = [_I, _P]
+    lib.mpcc_ipm_launch_config.argtypes = [_I, _I, _P]
     lib.mpcc_ipm_launch_config.restype = _I
-    lib.mpcc_assembly.argtypes = [_P] * 29 + [_I, _I, _I, _F, _F, _P]
+    lib.mpcc_assembly.argtypes = [_P] * 29 + [_I, _I, _I, _I, _F, _F, _P]
     lib.mpcc_assembly.restype = _I
-    lib.mpcc_eval_point.argtypes = [_P] * 14 + [_I, _I, _I, _I, _F, _P]
+    lib.mpcc_eval_point.argtypes = [_P] * 14 + [_I] * 5 + [_F, _P]
     lib.mpcc_eval_point.restype = _I
     lib.mpcc_admm_solve.argtypes = [_P] * 17 + [_I] * 5 + [_F] * 4 + [_P]
     lib.mpcc_admm_solve.restype = _I
@@ -109,7 +127,7 @@ def library() -> ctypes.CDLL:
     lib.mpcc_admm_solve_cluster.restype = _I
     lib.mpcc_admm_launch_config.argtypes = [_I, _I, _I, _P]
     lib.mpcc_admm_launch_config.restype = _I
-    lib.mpcc_assembly_table_len.argtypes = [_I]
+    lib.mpcc_assembly_table_len.argtypes = [_I, _I]
     lib.mpcc_assembly_table_len.restype = _I
     lib.mpcc_error_string.argtypes = [_I]
     lib.mpcc_error_string.restype = ctypes.c_char_p

@@ -170,6 +170,27 @@ _X_KEYS = ["q1", "q2", "q3", "q4", "q5", "q6", "q7", "s", "vs"]
 _U_KEYS = ["dq1", "dq2", "dq3", "dq4", "dq5", "dq6", "dq7", "dVs"]
 _DDQ_KEYS = ["ddq1", "ddq2", "ddq3", "ddq4", "ddq5", "ddq6", "ddq7"]
 
+# Mobile-base (Husky+Panda) keys, prepended for system.base_dof = 3; their
+# values come from assets/params/mobile.json merged over the Panda files.
+_XB_KEYS = ["xb", "yb", "thb"]
+_UB_KEYS = ["dxb", "dyb", "dthb"]
+_DDB_KEYS = ["ddxb", "ddyb", "ddthb"]
+
+
+def _sys_keys(system: System):
+    if system.base_dof == 0:
+        return _X_KEYS, _U_KEYS, _DDQ_KEYS
+    return _XB_KEYS + _X_KEYS, _UB_KEYS + _U_KEYS, _DDB_KEYS + _DDQ_KEYS
+
+
+def _merge_mobile(js: dict, file: str, system: System) -> dict:
+    """The mobile system's base keys (mobile.json beside ``file``) under
+    the file's own keys."""
+    if system.base_dof == 0:
+        return js
+    mob = _load_json(os.path.join(os.path.dirname(file), "mobile.json"))
+    return {**mob, **js}
+
 
 def load_params(param_dir: str | None = None,
                 overrides: Mapping[str, Mapping[str, float]] | None = None,
@@ -183,13 +204,13 @@ def load_params(param_dir: str | None = None,
     structure keys (``max_iter``, ``line_search_max_iter``, ``do_SOC``,
     ``use_BFGS``); everything else keeps its default.
     """
-    if system.base_dof != 0:
-        raise NotImplementedError(
-            "only the fixed-base Panda is ported (Husky+Panda: ROADMAP item 12)")
     ov = overrides or {}
 
-    def group(file, key):
-        js = _load_json(param_path(file, param_dir))
+    def group(file, key, mobile=False):
+        path = param_path(file, param_dir)
+        js = _load_json(path)
+        if mobile:
+            js = _merge_mobile(js, path, system)
         return lambda k: _get(js, ov.get(key), k)
 
     def t(v):
@@ -211,15 +232,16 @@ def load_params(param_dir: str | None = None,
         q_c_red_ratio=t(c("qC_reduction_ratio")),
         q_l_inc_ratio=t(c("qL_increase_ratio")),
         q_ori_red_ratio=t(c("qOri_reduction_ratio")))
-    b = group("bounds.json", "bounds")
+    xk, uk, ddk = _sys_keys(system)
+    b = group("bounds.json", "bounds", mobile=True)
     vec = lambda g, keys, suffix: t([float(g(k + suffix)) for k in keys])
     bounds = BoundsParams(
-        x_l=vec(b, _X_KEYS, "l"), x_u=vec(b, _X_KEYS, "u"),
-        u_l=vec(b, _U_KEYS, "l"), u_u=vec(b, _U_KEYS, "u"),
-        ddq_l=vec(b, _DDQ_KEYS, "l"), ddq_u=vec(b, _DDQ_KEYS, "u"))
-    n = group("normalization.json", "normalization")
+        x_l=vec(b, xk, "l"), x_u=vec(b, xk, "u"),
+        u_l=vec(b, uk, "l"), u_u=vec(b, uk, "u"),
+        ddq_l=vec(b, ddk, "l"), ddq_u=vec(b, ddk, "u"))
+    n = group("normalization.json", "normalization", mobile=True)
     normalization = NormalizationParams(
-        t_x=vec(n, _X_KEYS, ""), t_u=vec(n, _U_KEYS, ""))
+        t_x=vec(n, xk, ""), t_u=vec(n, uk, ""))
     s = group("sqp.json", "sqp")
     sqp = SQPParams(
         eps_prim=t(s("eps_prim")), eps_dual=t(s("eps_dual")),

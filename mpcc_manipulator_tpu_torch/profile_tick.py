@@ -1,8 +1,9 @@
 """Per-layer profile of the batched closed-loop tick on one GPU.
 
     python -m mpcc_manipulator_tpu_torch.profile_tick [--batch 1024]
+        [--system panda|husky_panda]
 
-For the default configuration (RTI, the Riccati path), its converged mode,
+For the Panda (the default ``--system``): for the default configuration (RTI, the Riccati path), its converged mode,
 the Riccati RTI path with Mehrotra's centering in K1 (the JAX bench's
 ``MPCC_IPM_SCHEME=mehrotra``) and the dense ADMM path under RTI (the JAX
 bench's ``MPCC_QP_SOLVER=admm MPCC_QP_BACKEND=pallas`` ablation), each
@@ -17,7 +18,9 @@ its bound.  Then ``torch.profiler`` traces three unwrapped ticks of each
 RTI path and prints the device time and the number of device kernels,
 counted from the device-side kernel events only (each aten operator's row
 also carries the device time of the kernels it launched, so a sum over all
-rows counts that time twice).
+rows counts that time twice).  For the Husky+Panda (``--system
+husky_panda``) the same for its one path, the default configuration (RTI,
+K1-K4; the dense ADMM path is Panda-only).
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ from .ocp import qp_data
 from .ops import admm_kernel
 from .ops import assembly_kernel as ak
 from .params import SQPConfig
-from .problem import X0_HOME, build_problem
+from .problem import X0_HOME, X0_HOME_MOBILE, build_problem
 from .solver import qp_admm
 from .solver import sqp as sqp_mod
+from .system import PANDA, SYSTEMS
 
 TS = 0.01
 MEHROTRA_RTI = SQPConfig(ipm_scheme="mehrotra")
@@ -90,34 +94,37 @@ def _count_iters(fn, rec):
     return counted
 
 
-def _start(batch, dev):
+def _start(batch, dev, system=PANDA):
+    x_home = X0_HOME if system.base_dof == 0 else X0_HOME_MOBILE
     rng = np.random.default_rng(0)
-    x = torch.tensor(X0_HOME[None] + 0.01 * rng.standard_normal((batch, 9)),
+    x = torch.tensor(x_home[None]
+                     + 0.01 * rng.standard_normal((batch, system.nx)),
                      dtype=torch.float32, device=dev)
-    u = torch.zeros(batch, 8, device=dev)
-    carry = mpc_mod.init_carry(batch, torch.float32, dev)
+    u = torch.zeros(batch, system.nu, device=dev)
+    carry = mpc_mod.init_carry(batch, torch.float32, dev, system)
     obs = torch.tensor([[3.0, 3.0, 3.0]], device=dev).expand(batch, 3)
     return x, u, carry, obs, torch.zeros(batch, device=dev)
 
 
-def _ticks(problem, state, n, cfg):
+def _ticks(problem, state, n, cfg, system=PANDA):
     x, u, carry, obs, rad = state
     for _ in range(n):
         carry, out = mpc_mod.mpc_step(*problem, carry, x, u, obs, rad, ts=TS,
-                                      cfg=cfg)
+                                      cfg=cfg, system=system)
         u = out.u0
         x = sim_time_step(out.x0_updated, u, TS)
     return (x, u, carry, obs, rad), out
 
 
-def layer_profile(problem, batch, dev, cfg, warmup, ticks):
+def layer_profile(problem, batch, dev, cfg, warmup, ticks, system=PANDA):
     """(median wrapped tick s, mean SQP iterations, mean QP iterations per
     lane-tick, {layer: s per tick}, {K5 max_iter budget: mean iterations
     per lane of each launch})."""
     acc = collections.defaultdict(float)
     k5_iters = collections.defaultdict(list)
     saved = [(mod, name, getattr(mod, name)) for _, mod, name in LAYERS]
-    state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
+    state, _ = _ticks(problem, _start(batch, dev, system), warmup, cfg,
+                      system)
     times, iters, qp_iters = [], [], []
     try:
         for label, mod, name in LAYERS:
@@ -127,7 +134,7 @@ def layer_profile(problem, batch, dev, cfg, warmup, ticks):
         for _ in range(ticks):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, out = _ticks(problem, state, 1, cfg)
+            state, out = _ticks(problem, state, 1, cfg, system)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             iters.append(float(out.sqp_iters.float().mean()))
@@ -140,24 +147,26 @@ def layer_profile(problem, batch, dev, cfg, warmup, ticks):
             {k: v / ticks for k, v in acc.items()}, k5_iters)
 
 
-def device_profile(problem, batch, dev, cfg, warmup, ticks=3):
+def device_profile(problem, batch, dev, cfg, warmup, ticks=3,
+                   system=PANDA):
     """(device kernel s, kernels launched, profiled wall s, median
     unprofiled tick s) over ``ticks`` ticks of ``cfg``, the first three
     from the profiler's device-side kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    state, _ = _ticks(problem, _start(batch, dev), warmup, cfg)
+    state, _ = _ticks(problem, _start(batch, dev, system), warmup, cfg,
+                      system)
     plain = []
     for _ in range(10):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = _ticks(problem, state, 1, cfg)
+        state, _ = _ticks(problem, state, 1, cfg, system)
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _ticks(problem, state, ticks, cfg)
+        _ticks(problem, state, ticks, cfg, system)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -170,23 +179,27 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--system", choices=sorted(SYSTEMS), default="panda")
     args = ap.parse_args()
+    system = SYSTEMS[args.system]
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    problem = build_problem(torch.float32, dev)
-    for label, cfg in [("RTI (default)", SQPConfig()),
-                       ("converged", SQPConfig(rti=False, max_iter=20)),
-                       ("Mehrotra RTI", MEHROTRA_RTI),
-                       ("ADMM RTI (K4 + K5)", ADMM_RTI)]:
+    problem = build_problem(torch.float32, dev, system=system)
+    paths = [("RTI (default)", SQPConfig())]
+    if system.base_dof == 0:
+        paths += [("converged", SQPConfig(rti=False, max_iter=20)),
+                  ("Mehrotra RTI", MEHROTRA_RTI),
+                  ("ADMM RTI (K4 + K5)", ADMM_RTI)]
+    for label, cfg in paths:
         med, iters, qp_iters, layers, k5_iters = layer_profile(
-            problem, args.batch, dev, cfg, args.warmup, args.ticks)
-        print(f"== {label}, batch {args.batch}: wrapped tick median "
-              f"{med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}, mean "
-              f"QP iterations per lane-tick {qp_iters:.3f}")
+            problem, args.batch, dev, cfg, args.warmup, args.ticks, system)
+        print(f"== {system.name} {label}, batch {args.batch}: wrapped tick "
+              f"median {med * 1e3:.3f} ms, mean SQP iterations {iters:.3f}, "
+              f"mean QP iterations per lane-tick {qp_iters:.3f}")
         for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
             print(f"   {k}: {v * 1e3:.3f} ms/tick")
         # phase 1 runs qp_check_every iterations, phase 2 the rest (175
@@ -196,11 +209,14 @@ def main() -> None:
                   f"{len(runs)}, mean ADMM iterations per lane "
                   f"{np.mean(runs):.2f} (min {min(runs):.2f}, max "
                   f"{max(runs):.2f})")
-    for label, cfg in [("RTI", SQPConfig()), ("Mehrotra RTI", MEHROTRA_RTI),
-                       ("ADMM RTI", ADMM_RTI)]:
+    traced = [("RTI", SQPConfig())]
+    if system.base_dof == 0:
+        traced += [("Mehrotra RTI", MEHROTRA_RTI), ("ADMM RTI", ADMM_RTI)]
+    for label, cfg in traced:
         busy, n_kernels, wall, tick, prof = device_profile(
-            problem, args.batch, dev, cfg, args.warmup)
-        print(f"profiler, 3 {label} ticks: device kernel time "
+            problem, args.batch, dev, cfg, args.warmup, system=system)
+        print(f"profiler, 3 {system.name} {label} ticks, batch {args.batch}: "
+              f"device kernel time "
               f"{busy * 1e3:.3f} ms in {wall * 1e3:.1f} ms wall (profiled); "
               f"{n_kernels} device kernels, {n_kernels / 3:.0f} per tick; "
               f"unprofiled tick median {tick * 1e3:.3f} ms, device busy "

@@ -22,10 +22,16 @@ from ..system import PANDA, System
 from .qp_ipm import (EPS_IPM, SCHEMES, IPMSolution, groups_to_rows,
                      rows_to_groups, solve_qp_ipm_s)
 
-# floats of Mehrotra's saved factorization per scenario and stage: the
-# Cholesky factor L (8 x 8), s_bar's x-columns (8 x 9), P_{k+1} e_k (17) and
-# 1 / diag(L) (8)
-FACT_FLOATS = 64 + 72 + 17 + 8
+
+def fact_floats(system: System = PANDA) -> int:
+    """Floats of Mehrotra's saved factorization per scenario and stage: the
+    Cholesky factor L (nu x nu), s_bar's x-columns (nu x nx), P_{k+1} e_k
+    (nxt) and 1 / diag(L) (nu); 161 for the Panda, 287 for the
+    Husky+Panda."""
+    nx, nu = system.nx, system.nu
+    return nu * nu + nu * nx + (nx + nu) + nu
+
+
 _LAUNCH_FIELDS = ("shared_bytes", "threads", "blocks_per_sm", "registers",
                   "local_bytes", "sms")
 _INPUT_FIELDS = ("hxx", "hux", "huu", "r2", "gx", "gu", "gxu", "e", "bd",
@@ -71,11 +77,9 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     if scheme not in SCHEMES:
         raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
                          f"{SCHEMES}")
+    sid = cuda_build.system_id(system, "K1")
     if dev.type != "cuda":
         raise ValueError(f"solve_qp_ipm_k: unsupported device {dev}")
-    if (system.nx, system.nu, system.dof, system.npc) != (9, 8, 7, 11):
-        raise NotImplementedError("K1 is compiled for the Panda dims "
-                                  "(Husky+Panda: ROADMAP item 12)")
     b, n_st = qp.e.shape[:2]
     nx, nc = system.nx, system.nc_stage
     for name, shape in _expected_shapes(b, n_st, system).items():
@@ -108,8 +112,8 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     solved = torch.empty(b, dtype=torch.int32, device=dev)
     mu = torch.empty(b, **f32)
     # Mehrotra's saved factorization, per scenario and stage (L2-resident)
-    fact = (torch.empty(b, n_st, FACT_FLOATS, **f32) if scheme == "mehrotra"
-            else None)
+    fact = (torch.empty(b, n_st, fact_floats(system), **f32)
+            if scheme == "mehrotra" else None)
 
     ptrs = [getattr(qp, f).data_ptr() for f in _INPUT_FIELDS]
     ptrs += [d_cat.data_ptr(), qp.cpx.data_ptr(), qp.cpu.data_ptr(),
@@ -118,7 +122,7 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     ptrs.append(None if fact is None else fact.data_ptr())
     lib = cuda_build.library()
     solve_qp_ipm_k.launches += 1
-    err = lib.mpcc_ipm_solve(*ptrs, b, n_st, int(max_iter),
+    err = lib.mpcc_ipm_solve(*ptrs, sid, b, n_st, int(max_iter),
                              ctypes.c_float(EPS_IPM), SCHEMES.index(scheme),
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K1 qp_ipm kernel")
@@ -131,13 +135,15 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
 solve_qp_ipm_k.launches = 0
 
 
-def launch_config(n_st: int = 10) -> dict:
-    """How K1 launches at horizon ``n_st`` on the current card, either
-    scheme (one kernel): dynamic shared memory and threads per block (one
-    block per scenario), the blocks an SM holds at once, the kernel's
-    registers and local-memory bytes (stack and spills) per thread, and the
-    card's SM count."""
+def launch_config(n_st: int = 10, system: System = PANDA) -> dict:
+    """How K1's instantiation for ``system`` launches at horizon ``n_st`` on
+    the current card, either scheme (one kernel): dynamic shared memory and
+    threads per block (one block per scenario), the blocks an SM holds at
+    once, the kernel's registers and local-memory bytes (stack and spills)
+    per thread, and the card's SM count."""
     out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
-    cuda_build.check(cuda_build.library().mpcc_ipm_launch_config(n_st, out),
-                     "K1 launch config")
+    sid = cuda_build.system_id(system, "K1")
+    cuda_build.check(
+        cuda_build.library().mpcc_ipm_launch_config(sid, n_st, out),
+        "K1 launch config")
     return dict(zip(_LAUNCH_FIELDS, out))

@@ -108,8 +108,6 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
         "runs for CPU tensors)": cfg.kin_backend != "pallas",
         "ipm_interpret (no interpret mode exists in the port)":
             cfg.ipm_interpret is not None,
-        "a system other than the Panda (ROADMAP item 12)":
-            system.base_dof != 0,
         "max_iter < 1": cfg.max_iter < 1,
     }
     missing = [k for k, v in todo.items() if v]

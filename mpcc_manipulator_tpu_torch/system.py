@@ -1,8 +1,13 @@
-"""System descriptor: the robot platform as a frozen dataclass of integers
+"""System descriptors: the robot platform as a frozen dataclass of integers
 (`mpcc_manipulator_tpu/system.py`).
 
-Only the fixed-base Panda is ported so far; the mobile Husky+Panda is
-ROADMAP item 12.  ``horizon`` stays a field, but only N=10 is exercised.
+* ``PANDA``: the fixed-base 7-DOF arm (state ``[q(7), s, vs]``, input
+  ``[dq(7), dVs]``);
+* ``HUSKY_PANDA``: the 10-DOF mobile manipulator, planar virtual base
+  joints + arm (state ``[x_b, y_b, th_b, q(7), s, vs]``, input
+  ``[dx_b, dy_b, dth_b, dq(7), dVs]``).
+
+``horizon`` stays a field, but only N=10 is exercised.
 """
 
 from __future__ import annotations
@@ -16,8 +21,8 @@ N = 10
 class System:
     """Static dimensional description of one robot platform."""
 
-    name: str            # "panda"
-    base_dof: int        # 0 (fixed base)
+    name: str            # "panda" | "husky_panda"
+    base_dof: int        # 0 (fixed base) or 3 (planar virtual joints)
     arm_dof: int = 7
     num_links: int = 9   # env-collision distance rows (link0..7 + hand)
     horizon: int = N     # MPC horizon (knots 0..horizon)
@@ -54,6 +59,11 @@ class System:
         return self.dof
 
     @property
+    def arm_slice(self) -> slice:
+        """Slice of the arm joints inside q / dq vectors."""
+        return slice(self.base_dof, self.base_dof + self.arm_dof)
+
+    @property
     def n_var(self) -> int:
         return self.nx * (self.horizon + 1) + self.nu * self.horizon
 
@@ -83,3 +93,6 @@ class System:
 
 
 PANDA = System(name="panda", base_dof=0)
+HUSKY_PANDA = System(name="husky_panda", base_dof=3)
+
+SYSTEMS = {s.name: s for s in (PANDA, HUSKY_PANDA)}

@@ -230,6 +230,7 @@ def _entry_points():
     from mpcc_manipulator_tpu_torch.models import collision_nn as pcnn
     from mpcc_manipulator_tpu_torch.splines import arc_length as pals
     from mpcc_manipulator_tpu_torch.splines import cubic, rotation
+    from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA
     dt = torch.float64
     x = np.linspace(0.0, 1.0, 6)
     rots = np.tile(np.eye(3), (6, 1, 1))
@@ -239,6 +240,8 @@ def _entry_points():
     cpu = lambda: pproblem.build_problem(dt, device="cpu")
     return {
         "build_problem": lambda **d: pproblem.build_problem(dt, **d),
+        "build_problem[husky_panda]": lambda **d: pproblem.build_problem(
+            dt, system=HUSKY_PANDA, **d),
         "load_params": lambda **d: pparams.load_params(dtype=dt, **d),
         "init_carry": lambda **d: pmpc.init_carry(2, dt, **d),
         "CollisionMLP": lambda **d: pcnn.CollisionMLP(
@@ -279,7 +282,8 @@ def _cpu_stage_qpk(problem):
                                        torch.zeros(1, 8, dtype=z.dtype), TS)
 
 
-ENTRY_POINTS = ["build_problem", "load_params", "init_carry", "CollisionMLP",
+ENTRY_POINTS = ["build_problem", "build_problem[husky_panda]", "load_params",
+                "init_carry", "CollisionMLP",
                 "load_self_collision_nn", "load_env_collision_nn",
                 "gen_6d_spline", "CubicSplineCoeffs.from_fit",
                 "RotSplineCoeffs.from_knots", "convert.mlp",
