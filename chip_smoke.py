@@ -9,9 +9,10 @@ Phases (the first failure exits non-zero and prints no result line):
    nvcc per source, all at once);
 3. K4 (kinematics sweep) against its plain PyTorch version at (1024, 11, 7);
 4. K1 (interior-point QP solve, one warp per scenario): its launch
-   configuration, one kernel for both centering schemes (one wave at batch
-   1024, no spills), then against its plain version on the StageQPK of 1024
-   perturbed home states, adaptive and Mehrotra, cold and warm started; a
+   configuration, one kernel for both centering schemes (held: 8 blocks an
+   SM, no local memory, one wave at batch 1024), then against its plain
+   version on the StageQPK of 1024 perturbed home states, adaptive and
+   Mehrotra, cold and warm started; a
    NaN in one lane's Hessian leaves that lane not solved and the other lanes
    bit-identical; each scheme's warm launch timed;
 5. K2 (stage-QP assembly) against its plain version at 1024 lanes, every
@@ -31,9 +32,12 @@ Phases (the first failure exits non-zero and prints no result line):
    runs to its budget, comes out NaN and leaves the other lanes
    bit-identical;
 8. the kernels' Husky+Panda instantiations (the 10-DOF mobile manipulator,
-   BASELINE config 5): K1's launch configuration (registers, local bytes,
-   blocks an SM, waves at batch 4096 and 1024), K1 in both schemes, cold
-   and warm, against its plain version on the StageQPK of 4096 perturbed
+   BASELINE config 5): K1's launch configuration at N = 5, 10 and 20 for
+   both systems (shared bytes, registers, local bytes, blocks an SM, waves
+   at the batches run; printed), K1-h's at N = 10 held to the budget (at
+   most 28,160 B of shared memory, 8 blocks an SM, no local memory), K1 in
+   both schemes, cold and warm, against its plain version on the StageQPK
+   of 4096 perturbed
    mobile home states (iterations within +-1, identical verdicts, steps
    within 1e-3), and a NaN lane; K2 and K3 at 4096 lanes on the mobile
    track (the first tick's iterate, 0.02-perturbed trial points, one and
@@ -144,6 +148,15 @@ MOBILE_S_RISING_FROM = 17
 # K1-h against its plain version: tests/test_qp_ipm_pallas_mobile.py's
 # contract (iterations within +-1, identical verdicts, steps within 1e-3)
 MOBILE_IPM_TOL = 1e-3
+# the budget K1 is written to at N = 10, for both systems (csrc/qp_ipm.cu):
+# 8 blocks an SM (28,160 B of shared memory a block) and no local memory
+K1_BLOCKS_PER_SM = 8
+K1_SMEM_BUDGET = 28160
+# K1's launch is printed at these horizons (ROADMAP item 13)
+K1_HORIZONS = (5, 10, 20)
+# the K1-h warm solves' times before its redesign for its dims, at batch
+# 4096 / 1024 (H100 80GB HBM3, 700 W; PERF.md section 6)
+K1H_BEFORE_MS = {"adaptive": (6.1284, 1.6439), "mehrotra": (4.2692, 1.8581)}
 K5_RANDOM_BATCH = 256
 K5_NAN_LANE = 5
 # K5 against its plain version: the JAX kernel test's contract
@@ -453,9 +466,13 @@ def phase_k1(problem, device) -> dict:
           f"{cfg['blocks_per_sm']} x {cfg['sms']} = "
           f"{cfg['blocks_per_sm'] * cfg['sms']} scenarios at once for batch "
           f"{BATCH}")
-    if cfg["blocks_per_sm"] * cfg["sms"] < BATCH or cfg["local_bytes"]:
-        raise AssertionError(f"K1: batch {BATCH} does not run in one wave, or "
-                             "the kernel spills")
+    if cfg["local_bytes"] or cfg["blocks_per_sm"] < K1_BLOCKS_PER_SM \
+            or cfg["blocks_per_sm"] * cfg["sms"] < BATCH:
+        raise AssertionError(
+            f"K1: {cfg['local_bytes']} B of local memory, "
+            f"{cfg['blocks_per_sm']} blocks an SM: the kernel spills, or "
+            f"holds fewer than {K1_BLOCKS_PER_SM} blocks an SM, or batch "
+            f"{BATCH} takes more than one wave")
     for scheme in ("adaptive", "mehrotra"):
         cold = solve_qp_ipm_k(qpk, scheme=scheme)
         cold_ref = solve_qp_ipm_plain(qpk, scheme=scheme)
@@ -1485,6 +1502,24 @@ def phase_k4_mobile(device) -> dict:
         bounds)
 
 
+def print_k1_launches() -> None:
+    """K1's launch at N = 5, 10 and 20 for both systems: shared bytes,
+    blocks an SM, registers, local bytes and the waves at the batches this
+    script runs (ROADMAP item 13; printed, held only at N = 10)."""
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import launch_config
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    for sy, batches in ((PANDA, (BATCH,)), (mobile_system(), MOBILE_BATCHES)):
+        for n in K1_HORIZONS:
+            cfg = launch_config(n, sy)
+            at_once = cfg["blocks_per_sm"] * cfg["sms"]
+            waves = {b: -(-b // at_once) if at_once else None
+                     for b in batches}
+            print(f"K1 launch, {sy.name}, N = {n}: {cfg['shared_bytes']} B "
+                  f"shared, {cfg['blocks_per_sm']} blocks an SM "
+                  f"({at_once} scenarios at once), {cfg['registers']} "
+                  f"registers, {cfg['local_bytes']} B local; waves {waves}")
+
+
 def phase_k1_mobile(mproblem, device) -> dict:
     """K1's Husky+Panda instantiation in both schemes, cold and warm,
     against its plain version on the StageQPK of 4096 perturbed mobile home
@@ -1495,13 +1530,20 @@ def phase_k1_mobile(mproblem, device) -> dict:
         launch_config, solve_qp_ipm_k, solve_qp_ipm_plain)
     sy = mobile_system()
     nb = MOBILE_BATCHES[0]
+    print_k1_launches()
     cfg = launch_config(KNOTS - 1, sy)
     at_once = cfg["blocks_per_sm"] * cfg["sms"]
-    waves = {b: -(-b // at_once) for b in MOBILE_BATCHES}
+    waves = {b: -(-b // at_once) for b in MOBILE_BATCHES} if at_once else {}
     print(f"K1-h launch, both schemes (one kernel): {cfg}; {at_once} "
           f"scenarios at once; waves {waves}")
-    if not at_once:
-        raise AssertionError("K1-h: no block fits an SM")
+    if cfg["local_bytes"] or cfg["blocks_per_sm"] < K1_BLOCKS_PER_SM \
+            or cfg["shared_bytes"] > K1_SMEM_BUDGET:
+        raise AssertionError(
+            f"K1-h at N = {KNOTS - 1}: {cfg['local_bytes']} B of local "
+            f"memory, {cfg['blocks_per_sm']} blocks an SM, "
+            f"{cfg['shared_bytes']} B of shared memory: the budget is no "
+            f"local memory, {K1_BLOCKS_PER_SM} blocks an SM and "
+            f"{K1_SMEM_BUDGET} B")
     qpk = stage_qp_batch(mproblem, device, sy, nb)
     err, times, bounds = 0.0, {}, {}
     part = lambda t, b: t[:b].contiguous()
@@ -1547,6 +1589,9 @@ def phase_k1_mobile(mproblem, device) -> dict:
                                              scheme=scheme)
         times[scheme] = both_batches(f"K1-h {scheme} warm solve", solve, 20,
                                      plain, 2)
+        print(f"K1-h {scheme} warm solve before its redesign (batch "
+              f"{' / '.join(map(str, MOBILE_BATCHES))}): "
+              f"{' / '.join(map(str, K1H_BEFORE_MS[scheme]))} ms")
         bounds[scheme] = {}
         for b in MOBILE_BATCHES:
             sol = solve(b)

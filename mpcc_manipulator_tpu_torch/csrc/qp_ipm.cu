@@ -57,12 +57,36 @@
 // One-wave budget: 1024 scenarios on 132 SMs need 8 blocks an SM, so a
 // block may use at most 28,160 B of shared memory (233,472 B an SM less
 // 1 KB reserved a block) and 256 registers a thread (8,192 a scenario);
-// the layout below takes 26,592 B at N = 10.  `mpcc_ipm_launch_config`
+// the Panda's layout takes 26,592 B at N = 10.  `mpcc_ipm_launch_config`
 // reports what the card gives: on an H100 80GB HBM3 at 700 W, 254
-// registers, no local memory, 8 blocks an SM.  The Husky+Panda layout takes
-// 39,360 B at N = 10 (at most 5 blocks an SM).  The sweep's row tiles and
+// registers, no local memory, 8 blocks an SM.  The sweep's row tiles and
 // bd are kept at a row stride of nu rounded up to 4 floats, so that their
 // rows load as 16-byte vectors at either system's dims.
+//
+// The Husky+Panda (WIDE): the Panda's layout at its dims
+// takes 39,360 B at N = 10 (5 blocks an SM) and spills (255 registers).
+// The changes below bring it to the budget.  They are selected at compile
+// time from the dims, so the Panda's instantiation is the code above,
+// unchanged, and both give the same results as before:
+// * the stage slots (319 floats a stage, 12,768 B at N = 10) live in a
+//   per-scenario global scratch (L2-resident, as Mehrotra's factorization).
+//   The sweep reads each stage's slot from a one-slot stage buffer in
+//   shared memory, which cp.async fills with stage k-1's slot while stage k
+//   factors r_bar and updates P (the buffer is free once r_bar is formed);
+//   the rollout loads K_{k+1}'s rows a stage ahead.  27,872 B at N = 10;
+// * r_bar is factored across lanes 0-10, a row a lane, pivots and column
+//   entries by shuffle (every lane holding L took 66 registers); L, with
+//   1 / diag(L) on its diagonal, goes over the consumed P Bt tile, and the
+//   triangular solves read its rows there as broadcasts;
+// * P Bt and P e come before the x-blocks, so that P's columns die as
+//   P At is formed;
+// * the lane index is read afresh (fresh_lane) in the sweep and the row
+//   loops, so that the compiler forms their lane-dependent addresses where
+//   they are used instead of hoisting them out of the Newton loop, where
+//   they stayed live across the kernel and spilled.
+// The d, w and r rows stay in shared memory: they are read on every row
+// loop, and the budget holds without moving them.  On an H100 80GB HBM3 at
+// 700 W: 255 registers, no local memory, 8 blocks an SM.
 //
 // Layouts (row-major, batch-first; N = stages, nc = 2 nx + 2 nu + 2 dof +
 // 11 rows per stage in the group order [xu | xl | uu | ul | ru | rl | p]):
@@ -72,7 +96,10 @@
 //   cpu (B,N,11,nu) s0/lam0 (B,N,nc)
 //   -> dx (B,N+1,nx+nu) du (B,N,nu) lam/s (B,N,nc) iters/solved (B) int,
 //      mu (B)
-//   scratch (Mehrotra only): fact (B,N,FACT), FACT = 161 (Panda), 287
+//   scratch (B,N,STRIDE): the Panda's is Mehrotra's factorization (FACT =
+//   161 floats a stage; none under adaptive centering); the Husky+Panda's
+//   is its slot (320) and, under Mehrotra, the factorization (FACT = 287,
+//   padded to 288): 320 or 608 floats a stage.
 
 #include <cmath>
 
@@ -84,9 +111,41 @@ constexpr int THREADS = 32;                             // one warp
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float FRAC_TO_BOUNDARY = 0.995f;
 constexpr int SCHEME_ADAPTIVE = 0, SCHEME_MEHROTRA = 1;
+// shared memory a block may take for 8 blocks an SM (the one-wave budget)
+constexpr int SMEM_BUDGET = 28160;
+
+// The type Mehrotra's saved factorization is held in: float, or double in
+// the float64 builds of `python -m mpcc_manipulator_tpu_torch.probe_mehrotra`
+// (-DMPCC_FACT_F64: r_bar factored again in float64 for it, and the vector
+// sweeps' triangular solves against it run in float64).  The vector sweeps'
+// own recursion runs in vsweep_t: float, or double with -DMPCC_VSWEEP_F64.
+#ifdef MPCC_FACT_F64
+using fact_t = double;
+#else
+using fact_t = float;
+#endif
+#ifdef MPCC_VSWEEP_F64
+using vsweep_t = double;
+#else
+using vsweep_t = float;
+#endif
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// 16 bytes global -> shared without registers (cp.async, L2 only), and the
+// wait for this thread's copies; a __syncwarp then shows them to the warp.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 struct Inputs {
   const float *hxx, *hux, *huu, *r2, *gx, *gu, *gxu, *e, *bd, *a_sv, *tx,
@@ -107,6 +166,14 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ int finitef(float x) {
   return fabsf(x) <= 3.402823466e38f;   // false for NaN and +-inf
 }
+// The lane index read from the hardware: the compiler cannot hoist it out
+// of a loop, so addresses derived from it are formed where they are used
+// instead of being held in registers across the whole kernel.
+__device__ __forceinline__ int fresh_lane() {
+  int l;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(l));
+  return l;
+}
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
@@ -123,11 +190,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // One scenario's view: its inputs and the shared-memory carve-up.
 struct Scn {
   const float *hxx, *hux, *huu, *r2, *gx, *gu, *gxu, *e, *cpx, *cpu;
-  float* fact;                 // Mehrotra scratch (N, FACT) or null
+  fact_t* fact;                // Mehrotra's factorization (N, FACT) or null
   float a_sv;
   int n_st, nr, lane;
+  int stride;                  // scratch floats a stage (WIDE)
   float *s, *lam, *w, *r, *d, *cz;   // rows (N, NC)
   float *slot, *tp, *kff;            // stage slots, terminal, k_ff / du_t
+  float* stage;                      // the sweep's stage buffer (WIDE)
   float *dx, *du, *dxt;              // iterate and target steps
   float *tile;                       // stage_blocks' tile, or:
   float *pb, *lt, *sbt;              // the sweep's warp tiles
@@ -226,6 +295,16 @@ struct K1 {
   static constexpr int F_LINV = F_PE + NXT, FACT = F_LINV + NU;
   static_assert(NU * NXT <= SRR_OFF, "K_k must not overwrite the rate "
                 "diagonals or the gradient of its slot");
+  // WIDE: the Husky+Panda's dims, at which the Panda's layout leaves 5
+  // blocks an SM at N = 10 and spills.  It selects the head note's
+  // changes: the slots in the global scratch behind a stage buffer, r_bar
+  // factored across lanes, and the lane read afresh.
+  static constexpr bool WIDE = BASE_DOF != 0;
+  // a slot's stride in the scratch (16-byte aligned for cp.async), and the
+  // factorization's floats after it under Mehrotra
+  static constexpr int SLOT_LD = pad4(SLOT);
+  static constexpr int FACT_LD = pad4(FACT * (int)(sizeof(fact_t) / 4));
+  static_assert(NU <= NXT, "L (NU rows) fits over the P Bt tile");
   static_assert(NXT < THREADS, "a lane per column of P, and one for k_ff");
   static_assert(NX < 16 && NU < 16, "slot entry codes pack indices in 4 bits");
 
@@ -240,6 +319,26 @@ struct K1 {
   }
   static __device__ __forceinline__ int symu(int i, int j) {
     return i <= j ? upu(i, j) : upu(j, i);
+  }
+
+  // Stage k's slot, and (Mehrotra) its saved factorization.
+  static __device__ __forceinline__ float* slot_at(const Scn& c, int k) {
+    if constexpr (WIDE) return c.slot + (size_t)k * c.stride;
+    else return c.slot + k * SLOT;
+  }
+  static __device__ __forceinline__ fact_t* fact_at(const Scn& c, int k) {
+    if constexpr (WIDE)
+      return reinterpret_cast<fact_t*>(c.slot + (size_t)k * c.stride
+                                       + SLOT_LD);
+    else return c.fact + (size_t)k * FACT;
+  }
+  // Stage k's slot from the scratch into the stage buffer, as one cp.async
+  // group (WIDE).
+  static __device__ __forceinline__ void stage_slot(const Scn& c, int k) {
+    const float* src = slot_at(c, k);
+    for (int q = c.lane; q < SLOT_LD / 4; q += THREADS)
+      cp_async16(c.stage + 4 * q, src + 4 * q);
+    cp_async_commit();
   }
 
   // Slot entry e's kind and indices: Q_xx[a][b] (0), S[a][b] (1), R[a][b]
@@ -368,7 +467,7 @@ struct K1 {
         float v = __ldg(h) + dg;
   #pragma unroll
         for (int r = 0; r < NPC; ++r) v += pa[r * sa] * pb[r * sb];
-        c.slot[k * SLOT + e] = v;
+        slot_at(c, k)[e] = v;
       }
       __syncwarp();
     }
@@ -424,7 +523,7 @@ struct K1 {
         if (u < DOF) v += c.tr[u] * (gk[O_RU + u] - gk[O_RL + u]);
         for (int r = 0; r < NPC; ++r) v += __ldg(cu + r * NU + u) * gk[O_P + r];
       }
-      c.slot[k * SLOT + GQ_OFF + e] = v;
+      slot_at(c, k)[GQ_OFF + e] = v;
     }
     __syncwarp();
   }
@@ -434,13 +533,14 @@ struct K1 {
   static __device__ void row_products(const Scn& c, const float* dx,
                                       const float* du, float* cz) {
     const int n = c.n_st;
-    for (int idx = c.lane; idx < n * NX; idx += THREADS) {
+    const int lane = WIDE ? fresh_lane() : c.lane;   // see the sweep
+    for (int idx = lane; idx < n * NX; idx += THREADS) {
       const int k = idx / NX, j = idx % NX;
       const float v = c.tx[j] * dx[(k + 1) * NXT + j];
       cz[k * NC + O_XU + j] = v;
       cz[k * NC + O_XL + j] = -v;
     }
-    for (int idx = c.lane; idx < n * NU; idx += THREADS) {
+    for (int idx = lane; idx < n * NU; idx += THREADS) {
       const int k = idx / NU, j = idx % NU;
       const float v = c.tu[j] * du[k * NU + j];
       cz[k * NC + O_UU + j] = v;
@@ -451,7 +551,7 @@ struct K1 {
         cz[k * NC + O_RL + j] = -r;
       }
     }
-    for (int idx = c.lane; idx < n * NPC; idx += THREADS) {
+    for (int idx = lane; idx < n * NPC; idx += THREADS) {
       const int k = idx / NPC, r = idx % NPC;
       const float* cx = c.cpx + ((size_t)k * NPC + r) * NX;
       const float* cu = c.cpu + ((size_t)k * NPC + r) * NU;
@@ -466,14 +566,89 @@ struct K1 {
 
   // ru_bar[u] = gu[u] + (bd' m[:nx])[u] + m[nx + u] for the u of this lane
   // (every lane takes part in the shuffles; lanes 0..nu-1 hold the results).
-  static __device__ __forceinline__ float ru_bar(const Scn& c, const float* sl,
-                                          float m, int u) {
-    float acc = 0.f;
+  template <class V>
+  static __device__ __forceinline__ V ru_bar(const Scn& c, const float* sl,
+                                             V m, int u) {
+    V acc = 0;
   #pragma unroll
     for (int i = 0; i < NX; ++i)
       acc += c.bd[i * NUP + u] * __shfl_sync(FULL, m, i);
     return (sl[GU_OFF + u] + acc) + __shfl_sync(FULL, m, NX + u);
   }
+
+  // The Cholesky of r_bar across the lanes (WIDE), right-looking: lane
+  // i < nu holds row i of r_bar in lr and ends with row i of L; pivots and
+  // column entries pass by shuffle.  The operations are the per-lane
+  // factor's, so L is the same (NaN on a non-PD pivot).  Row i of L, with
+  // 1 / L_ii on its diagonal, goes over the consumed P Bt tile; under
+  // Mehrotra (!FUSED) L and 1 / diag(L) also go to the saved factorization.
+  template <bool FUSED>
+  static __device__ __forceinline__ void factor_by_row(const Scn& c, int lane,
+                                                       float (&lr)[NU],
+                                                       fact_t* fk) {
+    float inv_own = 0.f;
+  #pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float inv = rsqrtf(__shfl_sync(FULL, lr[j], j));
+      if (lane == j) inv_own = inv;
+      lr[j] = lr[j] * inv;
+  #pragma unroll
+      for (int l = j + 1; l < NU; ++l) {
+        const float llj = __shfl_sync(FULL, lr[j], l);
+        if (l <= lane) lr[l] -= lr[j] * llj;
+      }
+    }
+    if (lane < NU) {
+      float row[NU];
+  #pragma unroll
+      for (int v = 0; v < NU; ++v)
+        row[v] = v < lane ? lr[v] : (v == lane ? inv_own : 0.f);
+      stv(c.pb + lane * NUP, row);
+    }
+    if (!FUSED) {
+#ifdef MPCC_FACT_F64
+      fact_f64(c, fk);
+#else
+      if (lane < NU) {
+  #pragma unroll
+        for (int v = 0; v < NU; ++v)
+          if (v <= lane) fk[F_L + lane * NU + v] = lr[v];
+        fk[F_LINV + lane] = inv_own;
+      }
+#endif
+    }
+  }
+
+#ifdef MPCC_FACT_F64
+  // Mehrotra's L and 1 / diag(L) factored again from r_bar (in the tile) in
+  // float64, on lane 0.
+  static __device__ void fact_f64(const Scn& c, fact_t* fk) {
+    if (c.lane != 0) return;
+    double l[NU][NU];
+  #pragma unroll
+    for (int i = 0; i < NU; ++i) {
+  #pragma unroll
+      for (int v = 0; v < NU; ++v) l[i][v] = c.lt[i * NUP + v];
+    }
+  #pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const double d = 1.0 / sqrt(l[j][j]);
+      fk[F_LINV + j] = d;
+  #pragma unroll
+      for (int i = j; i < NU; ++i) l[i][j] *= d;
+  #pragma unroll
+      for (int i = j + 1; i < NU; ++i) {
+  #pragma unroll
+        for (int v = j + 1; v <= i; ++v) l[i][v] -= l[i][j] * l[v][j];
+      }
+    }
+  #pragma unroll
+    for (int i = 0; i < NU; ++i) {
+  #pragma unroll
+      for (int v = 0; v <= i; ++v) fk[F_L + i * NU + v] = l[i][v];
+    }
+  }
+#endif
 
   // The backward Riccati sweep on the warp.  FUSED (adaptive): the matrix and
   // vector recursions together, K_k into the slot and k_ff_k into c.kff.
@@ -483,44 +658,58 @@ struct K1 {
   // the Cholesky; lane c < nxt solves for column c of K, lane nxt for k_ff.
   template <bool FUSED>
   static __device__ void riccati_sweep(const Scn& c) {
-    const int lane = c.lane;
-    const int jl = min(lane, NX - 1);       // clamped indices for loads
-    const int ul = min(lane, NU - 1);
-    const int u_l = lane - NX;              // lanes 9-16: the u_prev slots
     float pc[NXT];
     float pv = 0.f;
+    {
+      const int lane = WIDE ? fresh_lane() : c.lane;
+      const int jl = min(lane, NX - 1);
   #pragma unroll
-    for (int i = 0; i < NXT; ++i)
-      pc[i] = (lane < NX && i < NX) ? c.tp[symx(i, jl)] : 0.f;
-    if (FUSED) pv = lane < NX ? c.tp[Q_UP + jl] : 0.f;
+      for (int i = 0; i < NXT; ++i)
+        pc[i] = (lane < NX && i < NX) ? c.tp[symx(i, jl)] : 0.f;
+      if (FUSED) pv = lane < NX ? c.tp[Q_UP + jl] : 0.f;
+    }
+    if constexpr (WIDE) {             // the last stage's slot
+      stage_slot(c, c.n_st - 1);
+      cp_async_wait_all();
+      __syncwarp();
+    }
 
     for (int k = c.n_st - 1; k >= 0; --k) {
-      float* sl = c.slot + k * SLOT;
+      // WIDE: the lane's slot and tile offsets formed afresh each stage;
+      // hoisted out of the Newton loop, both sweeps' sets spill at its dims
+      const int lane = WIDE ? fresh_lane() : c.lane;
+      const int jl = min(lane, NX - 1);       // clamped indices for loads
+      const int ul = min(lane, NU - 1);
+      const int u_l = lane - NX;              // lanes 9-16: the u_prev slots
+      float* kout = slot_at(c, k);                     // K_k's place
+      const float* sl = WIDE ? c.stage : kout;  // stage k's blocks
       const float* ek = c.e + k * NX;
-      float* fk = FUSED ? nullptr : c.fact + (size_t)k * FACT;
+      fact_t* fk = FUSED ? nullptr : fact_at(c, k);
       const float srr_l = (u_l >= 0 && u_l < DOF) ? sl[SRR_OFF + u_l] : 0.f;
 
-      // pa = (P At)[:, :nx]: column vs += a_sv * column s
-      float pa[NXT];
-  #pragma unroll
-      for (int i = 0; i < NXT; ++i) {
-        const float ps = __shfl_sync(FULL, pc[i], S_IDX);
-        pa[i] = lane == VS_IDX ? pc[i] + c.a_sv * ps : pc[i];
-      }
-      // q_bar = Q + At' P At (x-block), diag(srr) on the u_prev slots
+      // the x-blocks: pa = (P At)[:, :nx] (column vs += a_sv * column s),
+      // q_bar and the s_bar column
       float qb[NXT];
-  #pragma unroll
-      for (int i = 0; i < NXT; ++i) {
-        float v = 0.f;
-        if (i < NX) {
-          const float ct = i == VS_IDX ? pa[i] + c.a_sv * pa[S_IDX] : pa[i];
-          v = sl[Q_OFF + symx(i, jl)] + ct;
-        }
-        qb[i] = lane < NX ? v : (lane == i ? srr_l : 0.f);
-      }
-      // s_bar column: S + bd' pa[:nx] + pa[nx:]; -srr on the u_prev diagonal
       float sb[NU];
-      {
+      auto x_blocks = [&]() {
+        float pa[NXT];
+  #pragma unroll
+        for (int i = 0; i < NXT; ++i) {
+          const float ps = __shfl_sync(FULL, pc[i], S_IDX);
+          pa[i] = lane == VS_IDX ? pc[i] + c.a_sv * ps : pc[i];
+        }
+        // q_bar = Q + At' P At (x-block), diag(srr) on the u_prev slots
+  #pragma unroll
+        for (int i = 0; i < NXT; ++i) {
+          float v = 0.f;
+          if (i < NX) {
+            const float ct = i == VS_IDX ? pa[i] + c.a_sv * pa[S_IDX] : pa[i];
+            v = sl[Q_OFF + symx(i, jl)] + ct;
+          }
+          qb[i] = lane < NX ? v : (lane == i ? srr_l : 0.f);
+        }
+        // s_bar column: S + bd' pa[:nx] + pa[nx:]; -srr on the u_prev
+        // diagonal
         float acc[NU] = {};
   #pragma unroll
         for (int i = 0; i < NX; ++i) {
@@ -535,9 +724,10 @@ struct K1 {
           const float vu = (u == u_l && u < DOF) ? -srr_l : 0.f;
           sb[u] = lane < NX ? vx : vu;
         }
-      }
-      // (P Bt)[i][:] from column i of P (P is symmetric), into the tile
-      {
+      };
+      // (P Bt)[i][:] from column i of P (P is symmetric) into the tile, and
+      // P_{k+1} e_k (row i from column i)
+      auto p_bt_pe = [&]() {
         float acc[NU] = {};
   #pragma unroll
         for (int j = 0; j < NX; ++j) {
@@ -549,11 +739,21 @@ struct K1 {
   #pragma unroll
         for (int v = 0; v < NU; ++v) acc[v] += pc[NX + v];
         if (lane < NXT) stv(c.pb + lane * NUP, acc);
-      }
-      // P_{k+1} e_k (row i from column i)
-      float pe = 0.f;
+        float pe = 0.f;
   #pragma unroll
-      for (int j = 0; j < NX; ++j) pe += pc[j] * __ldg(ek + j);
+        for (int j = 0; j < NX; ++j) pe += pc[j] * __ldg(ek + j);
+        return pe;
+      };
+      // WIDE: P Bt and P e first, so that P's columns (pc) die as pa
+      // is formed instead of living beside pa and q_bar
+      float pe;
+      if constexpr (WIDE) {
+        pe = p_bt_pe();
+        x_blocks();
+      } else {
+        x_blocks();
+        pe = p_bt_pe();
+      }
       float qx = 0.f;
       if (FUSED) {
         // vector step: m = p + P e, qx_bar, and ru_bar on lane nxt's rhs
@@ -575,6 +775,7 @@ struct K1 {
       __syncwarp();
 
       // r_bar = R + Bt' P Bt + 1e-9 I, row ul on lane ul, into the tile
+      float rb[NU];
       {
         float acc[NU] = {};
   #pragma unroll
@@ -587,7 +788,6 @@ struct K1 {
         }
         float pbu[NU];
         ldv(c.pb + (NX + ul) * NUP, pbu);
-        float rb[NU];
   #pragma unroll
         for (int v = 0; v < NU; ++v) {
           float t = (sl[R_OFF + symu(ul, v)] + acc[v]) + pbu[v];
@@ -597,44 +797,68 @@ struct K1 {
         if (lane < NU) stv(c.lt + lane * NUP, rb);
       }
       __syncwarp();
-      // right-looking Cholesky of r_bar on every lane from the tile (NaN on a
-      // non-PD pivot), so that every lane holds L and 1 / diag(L) (rsqrt)
-      float lm[NU][NU];
-  #pragma unroll
-      for (int i = 0; i < NU; ++i) ldv(c.lt + i * NUP, lm[i]);
-      float linv[NU];
-  #pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        linv[j] = rsqrtf(lm[j][j]);
-  #pragma unroll
-        for (int i = j; i < NU; ++i) lm[i][j] = lm[i][j] * linv[j];
-  #pragma unroll
-        for (int i = j + 1; i < NU; ++i) {
-  #pragma unroll
-          for (int l = j + 1; l <= i; ++l) lm[i][l] -= lm[i][j] * lm[l][j];
-        }
+      if constexpr (WIDE) {
+        // the stage buffer is read; stage k-1's slot lands meanwhile
+        if (k >= 1) stage_slot(c, k - 1);
       }
-      if (!FUSED) {              // Mehrotra keeps L and 1 / diag(L)
-  #pragma unroll
-        for (int i = 0; i < NU; ++i) {
-          if (lane == i) {
-  #pragma unroll
-            for (int v = 0; v <= i; ++v) fk[F_L + i * NU + v] = lm[i][v];
-            fk[F_LINV + i] = linv[i];
-          }
-        }
-      }
-
       // [K | k_ff] = -(L L')^-1 [s_bar | ru_bar], a column a lane.  Forward:
       // Y = L^-1 [s_bar | ru_bar]; s_bar' K = -Y'Y, so P's update needs only
       // Y and comes out symmetric; then backward (rows of L only).
       float y[NU];
+      float lm[NU][NU], linv[NU];   // L and 1 / diag(L) on every lane
+      if constexpr (WIDE) {
+        // the Cholesky across lanes 0..nu-1 (row i on lane i), L with
+        // 1 / diag(L) on its diagonal into the consumed P Bt tile; the
+        // forward solve reads it there
+        factor_by_row<FUSED>(c, lane, rb, fk);
+        __syncwarp();
   #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float acc = sb[i];
+        for (int i = 0; i < NU; ++i) {
+          float lr[NU];
+          ldv(c.pb + i * NUP, lr);
+          float acc = sb[i];
   #pragma unroll
-        for (int j = 0; j < i; ++j) acc -= lm[i][j] * y[j];
-        y[i] = acc * linv[i];
+          for (int j = 0; j < i; ++j) acc -= lr[j] * y[j];
+          y[i] = acc * lr[i];
+        }
+      } else {
+        // right-looking Cholesky of r_bar on every lane from the tile (NaN
+        // on a non-PD pivot), so that every lane holds L and 1 / diag(L)
+        // (rsqrt)
+  #pragma unroll
+        for (int i = 0; i < NU; ++i) ldv(c.lt + i * NUP, lm[i]);
+  #pragma unroll
+        for (int j = 0; j < NU; ++j) {
+          linv[j] = rsqrtf(lm[j][j]);
+  #pragma unroll
+          for (int i = j; i < NU; ++i) lm[i][j] = lm[i][j] * linv[j];
+  #pragma unroll
+          for (int i = j + 1; i < NU; ++i) {
+  #pragma unroll
+            for (int l = j + 1; l <= i; ++l) lm[i][l] -= lm[i][j] * lm[l][j];
+          }
+        }
+        if (!FUSED) {            // Mehrotra keeps L and 1 / diag(L)
+#ifdef MPCC_FACT_F64
+          fact_f64(c, fk);
+#else
+  #pragma unroll
+          for (int i = 0; i < NU; ++i) {
+            if (lane == i) {
+  #pragma unroll
+              for (int v = 0; v <= i; ++v) fk[F_L + i * NU + v] = lm[i][v];
+              fk[F_LINV + i] = linv[i];
+            }
+          }
+#endif
+        }
+  #pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          float acc = sb[i];
+  #pragma unroll
+          for (int j = 0; j < i; ++j) acc -= lm[i][j] * y[j];
+          y[i] = acc * linv[i];
+        }
       }
       if (lane < NXT) stv(c.sbt + lane * NUP, y);
       if (!FUSED && lane < NX) {
@@ -653,15 +877,26 @@ struct K1 {
         for (int u = 0; u < NU; ++u) acc += yr[u] * y[u];
         pc[i] = lane < NXT ? qb[i] - acc : 0.f;
       }
+      if constexpr (WIDE) {
   #pragma unroll
-      for (int i = NU - 1; i >= 0; --i) {
-        y[i] = y[i] * linv[i];
+        for (int i = NU - 1; i >= 0; --i) {
+          float lr[NU];
+          ldv(c.pb + i * NUP, lr);
+          y[i] = y[i] * lr[i];
   #pragma unroll
-        for (int j = 0; j < i; ++j) y[j] -= lm[i][j] * y[i];
+          for (int j = 0; j < i; ++j) y[j] -= lr[j] * y[i];
+        }
+      } else {
+  #pragma unroll
+        for (int i = NU - 1; i >= 0; --i) {
+          y[i] = y[i] * linv[i];
+  #pragma unroll
+          for (int j = 0; j < i; ++j) y[j] -= lm[i][j] * y[i];
+        }
       }
       if (lane < NXT) {
   #pragma unroll
-        for (int u = 0; u < NU; ++u) sl[u * NXT + lane] = -y[u];   // K_k
+        for (int u = 0; u < NU; ++u) kout[u * NXT + lane] = -y[u];   // K_k
       }
       if (FUSED) {
         // k_ff on lane nxt; p <- qx_bar + s_bar' k_ff
@@ -675,6 +910,7 @@ struct K1 {
           acc += sb[u] * -__shfl_sync(FULL, y[u], NXT);
         pv = lane < NXT ? qx + acc : 0.f;
       }
+      if constexpr (WIDE) cp_async_wait_all();
       __syncwarp();
     }
   }
@@ -682,68 +918,94 @@ struct K1 {
   // The vector-only backward sweep against Mehrotra's saved factorization:
   // k_ff_k into c.kff (the gradient blocks are in the slots, K_k too).
   static __device__ void vector_sweep(const Scn& c) {
+    using V = vsweep_t;
+    using W = decltype(V() + fact_t());   // the triangular solves' type
     const int lane = c.lane;
     const int u_l = lane - NX;
-    float pv = lane < NX ? c.tp[Q_UP + min(lane, NX - 1)] : 0.f;
+    V pv = lane < NX ? c.tp[Q_UP + min(lane, NX - 1)] : 0.f;
     for (int k = c.n_st - 1; k >= 0; --k) {
-      const float* sl = c.slot + k * SLOT;
-      const float* fk = c.fact + (size_t)k * FACT;
+      const float* sl = slot_at(c, k);
+      const fact_t* fk = fact_at(c, k);
       const float srr_l = (u_l >= 0 && u_l < DOF) ? sl[SRR_OFF + u_l] : 0.f;
-      const float pe = lane < NXT ? fk[F_PE + min(lane, NXT - 1)] : 0.f;
-      const float m = pv + pe;
-      const float ms = __shfl_sync(FULL, m, S_IDX);
+      const V pe = lane < NXT ? fk[F_PE + min(lane, NXT - 1)] : 0.f;
+      const V m = pv + pe;
+      const V ms = __shfl_sync(FULL, m, S_IDX);
       const float gq = lane < NXT - 1 ? sl[GQ_OFF + min(lane, NXT - 2)] : 0.f;
-      float qx = gq + (lane < NX ? m : 0.f);
+      V qx = gq + (lane < NX ? m : V(0));
       if (lane == VS_IDX) qx += c.a_sv * ms;
       // ru_bar[u] on lane u, gathered on lane nxt
-      const float ru = ru_bar(c, sl, m, min(lane, NU - 1));
-      float y[NU];
+      const V ru = ru_bar(c, sl, m, min(lane, NU - 1));
+      V y[NU];
   #pragma unroll
       for (int u = 0; u < NU; ++u) y[u] = __shfl_sync(FULL, ru, u);
       if (lane == NXT) {
-        // k_ff = -(L L')^-1 ru_bar against the saved L
+        // k_ff = -(L L')^-1 ru_bar against the saved L (in its type)
+        W z[NU];
+  #pragma unroll
+        for (int i = 0; i < NU; ++i) z[i] = y[i];
   #pragma unroll
         for (int i = 0; i < NU; ++i) {
-          float acc = y[i];
+          W acc = z[i];
   #pragma unroll
-          for (int j = 0; j < i; ++j) acc -= fk[F_L + i * NU + j] * y[j];
-          y[i] = acc * fk[F_LINV + i];
+          for (int j = 0; j < i; ++j) acc -= fk[F_L + i * NU + j] * z[j];
+          z[i] = acc * fk[F_LINV + i];
         }
   #pragma unroll
         for (int i = NU - 1; i >= 0; --i) {
-          float acc = y[i];
+          W acc = z[i];
   #pragma unroll
-          for (int j = i + 1; j < NU; ++j) acc -= fk[F_L + j * NU + i] * y[j];
-          y[i] = acc * fk[F_LINV + i];
+          for (int j = i + 1; j < NU; ++j) acc -= fk[F_L + j * NU + i] * z[j];
+          z[i] = acc * fk[F_LINV + i];
         }
   #pragma unroll
-        for (int u = 0; u < NU; ++u) c.kff[k * NU + u] = -y[u];
+        for (int u = 0; u < NU; ++u) {
+          y[u] = static_cast<V>(z[u]);
+          c.kff[k * NU + u] = static_cast<float>(-y[u]);
+        }
       }
-      float acc = 0.f;
+      V acc = 0;
   #pragma unroll
       for (int u = 0; u < NU; ++u) {
-        const float kf = -__shfl_sync(FULL, y[u], NXT);
+        const V kf = -__shfl_sync(FULL, y[u], NXT);
         const float sbu = lane < NX ? fk[F_SB + min(lane, NX - 1) * NU + u]
                                     : ((u == u_l && u < DOF) ? -srr_l : 0.f);
         acc += sbu * kf;
       }
-      pv = lane < NXT ? qx + acc : 0.f;
+      pv = lane < NXT ? qx + acc : V(0);
     }
     __syncwarp();
   }
 
   // Forward rollout of the targets from dx'_0 = 0 on the warp: dx_t into
   // c.dxt, du_t over k_ff in c.kff (each entry is read before it is written).
+  // WIDE: lane u < nu loads row u of K_{k+1} while stage k computes.
   static __device__ void rollout(const Scn& c) {
     const int lane = c.lane;
+    float kr[NXT], kn[NXT];
+    auto k_row = [&](int k, float (&r)[NXT]) {
+      const float* kg = slot_at(c, k) + min(lane, NU - 1) * NXT;
+  #pragma unroll
+      for (int j = 0; j < NXT; ++j) r[j] = kg[j];
+    };
+    if constexpr (WIDE) {
+      if (lane < NU) k_row(0, kr);
+    }
     if (lane < NXT) c.dxt[lane] = 0.f;
     __syncwarp();
     for (int k = 0; k < c.n_st; ++k) {
       const float* xk = c.dxt + k * NXT;
-      const float* kg = c.slot + k * SLOT;
+      if constexpr (WIDE) {
+        if (lane < NU && k + 1 < c.n_st) k_row(k + 1, kn);
+      }
       if (lane < NU) {
         float v = 0.f;
-        for (int j = 0; j < NXT; ++j) v += kg[lane * NXT + j] * xk[j];
+        if constexpr (WIDE) {
+  #pragma unroll
+          for (int j = 0; j < NXT; ++j) v += kr[j] * xk[j];
+        } else {
+          const float* kg = slot_at(c, k);
+          for (int j = 0; j < NXT; ++j) v += kg[lane * NXT + j] * xk[j];
+        }
         v += c.kff[k * NU + lane];
         c.kff[k * NU + lane] = v;
         c.dxt[(k + 1) * NXT + NX + lane] = v;
@@ -756,6 +1018,10 @@ struct K1 {
         for (int u = 0; u < NU; ++u)
           bu += c.bd[lane * NUP + u] * c.kff[k * NU + u];
         c.dxt[(k + 1) * NXT + lane] = v + bu + __ldg(c.e + k * NX + lane);
+      }
+      if constexpr (WIDE) {
+  #pragma unroll
+        for (int j = 0; j < NXT; ++j) kr[j] = kn[j];
       }
       __syncwarp();
     }
@@ -782,8 +1048,8 @@ struct K1 {
 
   // The kernel body: one scenario per block, `sm` its shared memory.
   static __device__ void run(float* sm, const Inputs& in, const Outputs& out,
-                             float* fact, int n_st, int max_iter, float eps_ipm,
-                             int scheme) {
+                             float* scratch, int n_st, int max_iter,
+                             float eps_ipm, int scheme) {
     const int b = blockIdx.x;
     const int lane = threadIdx.x;
     const int nr = n_st * NC;
@@ -800,7 +1066,15 @@ struct K1 {
     c.e = in.e + (size_t)b * n_st * NX;
     c.cpx = in.cpx + (size_t)b * n_st * NPC * NX;
     c.cpu = in.cpu + (size_t)b * n_st * NPC * NU;
-    c.fact = mehrotra ? fact + (size_t)b * n_st * FACT : nullptr;
+    if constexpr (WIDE) {     // slot, then (Mehrotra) factorization
+      c.stride = SLOT_LD + (mehrotra ? FACT_LD : 0);
+      c.slot = scratch + (size_t)b * n_st * c.stride;
+      c.fact = nullptr;
+    } else {
+      c.fact = mehrotra ? reinterpret_cast<fact_t*>(scratch)
+                              + (size_t)b * n_st * FACT
+                        : nullptr;
+    }
     c.a_sv = in.a_sv[b];
     c.n_st = n_st;
     c.nr = nr;
@@ -814,7 +1088,11 @@ struct K1 {
     c.r = take(nr);
     c.d = take(nr);
     c.cz = take(nr);
-    c.slot = take(n_st * SLOT);
+    if constexpr (WIDE) {
+      c.stage = take(SLOT_LD);
+    } else {
+      c.slot = take(n_st * SLOT);
+    }
     c.tp = take(TP_FLOATS);
     c.kff = take(n_st * NU);
     c.dx = take((n_st + 1) * NXT);
@@ -858,9 +1136,12 @@ struct K1 {
 
     int it = 0;
     while (it < max_iter) {
+      // WIDE: the row loops' lane formed afresh each iteration (the
+      // first pass's row addresses held across the loop spill at its dims)
+      const int ln = WIDE ? fresh_lane() : lane;
       // ---- w = lam / s_safe, and (Mehrotra) the measured complementarity
       float sl_part = 0.f;
-      for (int i = lane; i < nr; i += THREADS) {
+      for (int i = ln; i < nr; i += THREADS) {
         c.w[i] = c.lam[i] / fmaxf(c.s[i], 1e-10f);
         sl_part += c.s[i] * c.lam[i];
       }
@@ -879,12 +1160,12 @@ struct K1 {
         riccati_sweep<false>(c);
         const float2 a_aff = solve_rhs(c, true, 0, 0.f);   // ds_a, dlam_a
         float prod = 0.f;
-        for (int i = lane; i < nr; i += THREADS)
+        for (int i = ln; i < nr; i += THREADS)
           prod += (c.s[i] + a_aff.x * c.r[i]) * (c.lam[i] + a_aff.y * c.cz[i]);
         const float mu_aff = warp_sum(prod) / m_act;
         const float ratio = mu_aff / fmaxf(mu_meas, 1e-12f);
         const float sigma_m = fminf(fmaxf(ratio * ratio * ratio, 1e-4f), 1.f);
-        for (int i = lane; i < nr; i += THREADS)
+        for (int i = ln; i < nr; i += THREADS)
           c.r[i] = sigma_m * mu_meas - c.r[i] * c.cz[i];
         __syncwarp();
         alpha = solve_rhs(c, true, 2, 0.f);
@@ -895,20 +1176,20 @@ struct K1 {
 
       // ---- take the step unless any updated value is non-finite
       int ok = 1;
-      for (int i = lane; i < (n_st + 1) * NXT; i += THREADS)
+      for (int i = ln; i < (n_st + 1) * NXT; i += THREADS)
         ok &= finitef(c.dx[i] + alpha_p * (c.dxt[i] - c.dx[i]));
-      for (int i = lane; i < n_st * NU; i += THREADS)
+      for (int i = ln; i < n_st * NU; i += THREADS)
         ok &= finitef(c.du[i] + alpha_p * (c.kff[i] - c.du[i]));
-      for (int i = lane; i < nr; i += THREADS)
+      for (int i = ln; i < nr; i += THREADS)
         ok &= finitef(c.s[i] + alpha_p * c.r[i])
               & finitef(c.lam[i] + alpha_d * c.cz[i]);
       const bool finite = __all_sync(FULL, ok) != 0;
       if (finite) {
-        for (int i = lane; i < (n_st + 1) * NXT; i += THREADS)
+        for (int i = ln; i < (n_st + 1) * NXT; i += THREADS)
           c.dx[i] = c.dx[i] + alpha_p * (c.dxt[i] - c.dx[i]);
-        for (int i = lane; i < n_st * NU; i += THREADS)
+        for (int i = ln; i < n_st * NU; i += THREADS)
           c.du[i] = c.du[i] + alpha_p * (c.kff[i] - c.du[i]);
-        for (int i = lane; i < nr; i += THREADS) {
+        for (int i = ln; i < nr; i += THREADS) {
           c.s[i] = c.s[i] + alpha_p * c.r[i];
           c.lam[i] = c.lam[i] + alpha_d * c.cz[i];
         }
@@ -918,7 +1199,7 @@ struct K1 {
       // ---- convergence / divergence bookkeeping on the updated iterate
       row_products(c, c.dx, c.du, c.cz);
       float rmax = 0.f, sl = 0.f;
-      for (int i = lane; i < nr; i += THREADS) {
+      for (int i = ln; i < nr; i += THREADS) {
         rmax = nan_max(rmax, fabsf(c.cz[i] + c.s[i] - c.d[i]));
         sl += c.s[i] * c.lam[i];
       }
@@ -962,9 +1243,10 @@ struct K1 {
 
 
   // The carve-up of run, each region rounded to 16 bytes.
-  static size_t smem_floats(int n_st) {
+  static constexpr size_t smem_floats(int n_st) {
     const int regions[] = {n_st * NC, n_st * NC, n_st * NC, n_st * NC,
-                           n_st * NC, n_st * NC, n_st * SLOT, TP_FLOATS,
+                           n_st * NC, n_st * NC,
+                           WIDE ? SLOT_LD : n_st * SLOT, TP_FLOATS,
                            n_st * NU, (n_st + 1) * NXT, n_st * NU,
                            (n_st + 1) * NXT, TILE, NX * NUP, NX, NU, DOF, 1,
                            SLOT};
@@ -972,14 +1254,25 @@ struct K1 {
     for (int r : regions) n += pad4(r);
     return n;
   }
+  // scratch floats a (scenario, stage); none: no scratch
+  static constexpr int scratch_stride(bool mehrotra) {
+    return WIDE ? SLOT_LD + (mehrotra ? FACT_LD : 0)
+                       : (mehrotra ? FACT * (int)(sizeof(fact_t) / 4) : 0);
+  }
 };
+
+// Both systems hold 8 blocks an SM at the bench's N = 10.
+static_assert(K1<0>::smem_floats(10) * sizeof(float) <= SMEM_BUDGET,
+              "the Panda's layout exceeds the 8-block budget at N = 10");
+static_assert(K1<3>::smem_floats(10) * sizeof(float) <= SMEM_BUDGET,
+              "the Husky+Panda's layout exceeds the 8-block budget at N = 10");
 
 template <int BASE_DOF>
 __global__ void __launch_bounds__(THREADS)
-ipm_kernel(Inputs in, Outputs out, float* fact, int n_st, int max_iter,
+ipm_kernel(Inputs in, Outputs out, float* scratch, int n_st, int max_iter,
            float eps_ipm, int scheme) {
   extern __shared__ __align__(16) float sm[];
-  K1<BASE_DOF>::run(sm, in, out, fact, n_st, max_iter, eps_ipm, scheme);
+  K1<BASE_DOF>::run(sm, in, out, scratch, n_st, max_iter, eps_ipm, scheme);
 }
 
 // Opt the instantiation into `bytes` of dynamic shared memory, with the
@@ -997,14 +1290,17 @@ cudaError_t prepare(size_t bytes) {
 }
 
 template <int BASE_DOF>
-int solve(const Inputs& in, const Outputs& out, float* fact, int batch,
+int solve(const Inputs& in, const Outputs& out, float* scratch, int batch,
           int n_st, int max_iter, float eps_ipm, int scheme,
           cudaStream_t stream) {
+  if (K1<BASE_DOF>::scratch_stride(scheme == SCHEME_MEHROTRA) > 0
+      && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = K1<BASE_DOF>::smem_floats(n_st) * sizeof(float);
   cudaError_t err = prepare<BASE_DOF>(bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   ipm_kernel<BASE_DOF><<<batch, THREADS, bytes, stream>>>(
-      in, out, fact, n_st, max_iter, eps_ipm, scheme);
+      in, out, scratch, n_st, max_iter, eps_ipm, scheme);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1036,8 +1332,10 @@ int launch_config(int n_st, int* out) {
 }  // namespace
 
 // system: the base_dof of the system's instantiation (0 Panda, 3
-// Husky+Panda).  scheme: 0 adaptive, 1 Mehrotra (then `fact` is a (batch,
-// n_st, FACT) float scratch).  Returns the cudaError_t of the launch.
+// Husky+Panda).  scheme: 0 adaptive, 1 Mehrotra.  scratch: a (batch, n_st,
+// K1::scratch_stride) float scratch (solver/qp_ipm_kernel.py's
+// scratch_floats), or null where that is 0.  Returns the cudaError_t of the
+// launch.
 extern "C" int mpcc_ipm_solve(
     const float* hxx, const float* hux, const float* huu, const float* r2,
     const float* gx, const float* gu, const float* gxu, const float* e,
@@ -1045,11 +1343,9 @@ extern "C" int mpcc_ipm_solve(
     const float* tr, const float* d, const float* cpx, const float* cpu,
     const float* s0, const float* lam0,
     float* dx, float* du, float* lam, float* s, int* iters, int* solved,
-    float* mu, float* fact, int system, int batch, int n_st, int max_iter,
+    float* mu, float* scratch, int system, int batch, int n_st, int max_iter,
     float eps_ipm, int scheme, void* stream) {
   if (scheme != SCHEME_ADAPTIVE && scheme != SCHEME_MEHROTRA)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (scheme == SCHEME_MEHROTRA && fact == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (system != 0 && system != 3)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1059,10 +1355,10 @@ extern "C" int mpcc_ipm_solve(
   Outputs out{dx, du, lam, s, iters, solved, mu};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return system == 0
-             ? solve<0>(in, out, fact, batch, n_st, max_iter, eps_ipm, scheme,
-                        st)
-             : solve<3>(in, out, fact, batch, n_st, max_iter, eps_ipm, scheme,
-                        st);
+             ? solve<0>(in, out, scratch, batch, n_st, max_iter, eps_ipm,
+                        scheme, st)
+             : solve<3>(in, out, scratch, batch, n_st, max_iter, eps_ipm,
+                        scheme, st);
 }
 
 // The launch of the system's instantiation at horizon n_st: out = {dynamic

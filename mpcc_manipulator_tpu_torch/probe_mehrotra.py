@@ -17,17 +17,23 @@ in float64 by the plain version on the CPU, and in float32 by:
 * K1 rebuilt from a copy of ``csrc/`` with one change each: without FMA
   contraction (``--fmad=false``); with the Mehrotra gradient blocks built
   by the tile pass that the adaptive scheme uses; with IEEE ``1 / sqrtf``
-  in place of the ``rsqrtf`` Cholesky pivots; the first two together.
+  in place of the ``rsqrtf`` Cholesky pivots; the first two together;
+  with Mehrotra's saved factorization held in float64 (``-DMPCC_FACT_F64``:
+  r_bar factored again in float64 for it, and the vector sweeps'
+  triangular solves against it in float64); and with the vector sweeps'
+  whole recursion in float64 beside it (``-DMPCC_VSWEEP_F64``).
 
 For each, the QPs whose Newton count differs from float64's and the
 largest |d du|.  Then, on one QP where K1 splits and the plain solve does
 not (tick 4, lane 5), each solve stopped after 1, 2, ... iterations: its
 distance from float64's iterate, iteration by iteration.  The variant
-builds go to ``build/probe_mehrotra/``.
+builds go to ``build/probe_mehrotra/``; ``--variant NAME`` (repeatable)
+builds only those.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import shutil
@@ -43,6 +49,7 @@ from .ops import cuda_build
 from .params import SQPConfig
 from .problem import X0_HOME, build_problem
 from .solver import qp_ipm
+from .solver import qp_ipm_kernel
 from .solver import sqp as sqp_mod
 from .solver.qp_ipm_kernel import solve_qp_ipm_k, solve_qp_ipm_plain
 from .utils.linalg_small import cho_solve_small, cholesky_small
@@ -60,7 +67,11 @@ VARIANTS = {
     "no FMA contraction, tile pass": (
         ["--fmad=false"],
         [(_GRADIENT_PASS, "      stage_blocks(c, GQ_OFF, SLOT);\n")]),
+    "saved factorization in float64": (["-DMPCC_FACT_F64"], []),
+    "saved factorization and vector sweeps in float64": (
+        ["-DMPCC_FACT_F64", "-DMPCC_VSWEEP_F64"], []),
 }
+_F64_FLAG = "-DMPCC_FACT_F64"
 
 
 def _gram_backward(qp, hbar, gbar, hbar_term, gbar_term, with_vectors=True):
@@ -163,6 +174,10 @@ def _variant_dir(name, edits, src):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", action="append", choices=sorted(VARIANTS),
+                    help="build only this variant of K1 (repeatable)")
+    variants = ap.parse_args().variant or list(VARIANTS)
     if not torch.cuda.is_available():
         raise SystemExit("probe_mehrotra: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -203,11 +218,18 @@ def main() -> None:
         report("plain float32, card, P = q_bar - Y'Y", plain)
     finally:
         qp_ipm._riccati_backward = backward
+    fact_floats = qp_ipm_kernel.fact_floats
     try:
-        for name, (flags, edits) in VARIANTS.items():
+        for name in variants:
+            flags, edits = VARIANTS[name]
             _use_library(_variant_dir(name, edits, src0), flags0 + flags)
+            # a float64 factorization takes twice the floats of scratch
+            qp_ipm_kernel.fact_floats = (
+                (lambda system: 2 * fact_floats(system))
+                if _F64_FLAG in flags else fact_floats)
             report(f"K1, {name}", kernel)
     finally:
+        qp_ipm_kernel.fact_floats = fact_floats
         _use_library(src0, flags0)
 
     tick, lane = TRACE

@@ -32,6 +32,33 @@ def fact_floats(system: System = PANDA) -> int:
     return nu * nu + nu * nx + (nx + nu) + nu
 
 
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def slot_floats(system: System = PANDA) -> int:
+    """Floats of one stage's slot in the kernel's global scratch: the
+    P-independent stage blocks (the upper halves of Q_xx and R, S, the rate
+    diagonals, the gradients gq and gu), padded to 16 bytes.  The
+    Husky+Panda's slots live there (`WIDE` in `csrc/qp_ipm.cu`): 320
+    floats.  The Panda's live in shared memory: 0."""
+    if system.base_dof == 0:
+        return 0
+    nx, nu, dof = system.nx, system.nu, system.dof
+    return _pad4(nx * (nx + 1) // 2 + nu * nx + nu * (nu + 1) // 2 + dof
+                 + (nx + dof) + nu)
+
+
+def scratch_floats(system: System = PANDA, scheme: str = "adaptive") -> int:
+    """Floats per (scenario, stage) of the scratch the wrapper allocates for
+    K1 (0: none): the slot (:func:`slot_floats`), then under Mehrotra the
+    saved factorization (:func:`fact_floats`, padded to 16 bytes behind a
+    slot).  Panda 0 / 161, Husky+Panda 320 / 608 (adaptive / Mehrotra)."""
+    fact = fact_floats(system) if scheme == "mehrotra" else 0
+    slot = slot_floats(system)
+    return slot + _pad4(fact) if slot else fact
+
+
 _LAUNCH_FIELDS = ("shared_bytes", "threads", "blocks_per_sm", "registers",
                   "local_bytes", "sms")
 _INPUT_FIELDS = ("hxx", "hux", "huu", "r2", "gx", "gu", "gxu", "e", "bd",
@@ -111,15 +138,16 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     iters = torch.empty(b, dtype=torch.int32, device=dev)
     solved = torch.empty(b, dtype=torch.int32, device=dev)
     mu = torch.empty(b, **f32)
-    # Mehrotra's saved factorization, per scenario and stage (L2-resident)
-    fact = (torch.empty(b, n_st, fact_floats(system), **f32)
-            if scheme == "mehrotra" else None)
+    # the slots (Husky+Panda) and Mehrotra's saved factorization, per
+    # scenario and stage (L2-resident)
+    per_stage = scratch_floats(system, scheme)
+    scratch = torch.empty(b, n_st, per_stage, **f32) if per_stage else None
 
     ptrs = [getattr(qp, f).data_ptr() for f in _INPUT_FIELDS]
     ptrs += [d_cat.data_ptr(), qp.cpx.data_ptr(), qp.cpu.data_ptr(),
              warm[0].data_ptr(), warm[1].data_ptr()]
     ptrs += [t.data_ptr() for t in (dx, du, lam, s, iters, solved, mu)]
-    ptrs.append(None if fact is None else fact.data_ptr())
+    ptrs.append(None if scratch is None else scratch.data_ptr())
     lib = cuda_build.library()
     solve_qp_ipm_k.launches += 1
     err = lib.mpcc_ipm_solve(*ptrs, sid, b, n_st, int(max_iter),

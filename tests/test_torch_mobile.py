@@ -52,7 +52,8 @@ from mpcc_manipulator_tpu_torch.params import SQPConfig, load_params
 from mpcc_manipulator_tpu_torch.problem import X0_HOME_MOBILE, build_problem
 from mpcc_manipulator_tpu_torch.solver import sqp
 from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
-    solve_qp_ipm_k, solve_qp_ipm_plain)
+    fact_floats, scratch_floats, slot_floats, solve_qp_ipm_k,
+    solve_qp_ipm_plain)
 from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA as SYS
 from mpcc_manipulator_tpu_torch.system import PANDA, System
 
@@ -329,6 +330,32 @@ def test_mobile_wrappers_take_plain_version_on_cpu(stage_case):
     ref = solve_qp_ipm_plain(qpk, system=SYS)
     assert torch.equal(got.du, ref.du) and torch.equal(got.iters, ref.iters)
     assert counts() == before
+
+
+# K1's scratch per (scenario, stage): (fact_floats, slot_floats, adaptive,
+# Mehrotra) -- the Panda's slots live in shared memory, the Husky+Panda's
+# in the scratch (csrc/qp_ipm.cu, WIDE)
+K1_SCRATCH = {PANDA.name: (161, 0, 0, 161), SYS.name: (287, 320, 320, 608)}
+
+
+@pytest.mark.parametrize("system", [PANDA, SYS], ids=lambda s: s.name)
+def test_k1_scratch_sizes_follow_the_dims(system):
+    """The K1 wrapper's scratch sizes against the dims: Mehrotra's saved
+    factorization is L (nu x nu), s_bar's x-columns (nu x nx), P_{k+1} e_k
+    (nx + nu) and 1 / diag(L) (nu); a slot is the upper halves of Q_xx and
+    R, S (nu x nx), the dof rate diagonals and the gradients gq (nx + dof)
+    and gu (nu), padded to 4 floats; the factorization follows a slot at a
+    4-float boundary."""
+    nx, nu, dof = system.nx, system.nu, system.dof
+    pad4 = lambda n: -(-n // 4) * 4
+    fact = nu * nu + nu * nx + (nx + nu) + nu
+    slot = pad4(nx * (nx + 1) // 2 + nu * (nu + 1) // 2 + nu * nx + dof
+                + (nx + dof) + nu) if system.base_dof else 0
+    mehrotra = slot + pad4(fact) if slot else fact
+    got = (fact_floats(system), slot_floats(system),
+           scratch_floats(system, "adaptive"),
+           scratch_floats(system, "mehrotra"))
+    assert got == (fact, slot, slot, mehrotra) == K1_SCRATCH[system.name]
 
 
 ODD = System(name="odd", base_dof=2)
