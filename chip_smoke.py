@@ -19,10 +19,11 @@ Phases (the first failure exits non-zero and prints no result line):
    block: on the main path's track at the first tick's iterate and at a
    0.02-perturbed trial point, then in the three regions of the JAX kernel
    test (interior, endpoint and taper, obstacle near with the weight
-   scheduling firing); NaN iterates propagating as in the plain version;
+   scheduling firing), then at horizons N = 5 and N = 20; NaN iterates
+   propagating as in the plain version;
 6. K3 (line-search evaluation) against its plain version at 1024 lanes at
    0.02-perturbed iterates, one candidate and five candidates per lane, on
-   the main path's track and in the three regions;
+   the main path's track, in the three regions and at N = 5 and N = 20;
 7. K5 (the fused ADMM loop, one thread block cluster per scenario): its
    launch configuration, then against its plain version:
    the JAX kernel test's random QPs (n=40, m=70) at batch 256, tiny QPs
@@ -34,15 +35,17 @@ Phases (the first failure exits non-zero and prints no result line):
 8. the kernels' Husky+Panda instantiations (the 10-DOF mobile manipulator,
    BASELINE config 5): K1's launch configuration at N = 5, 10 and 20 for
    both systems (shared bytes, registers, local bytes, blocks an SM, waves
-   at the batches run; printed), K1-h's at N = 10 held to the budget (at
+   at the batches run; printed), K2's and K3's there too (held: the card's
+   report equal to `ops/assembly_kernel.launch_geometry`, no local memory,
+   at most 48 KB of shared memory), K1-h's at N = 10 held to the budget (at
    most 28,160 B of shared memory, 8 blocks an SM, no local memory), K1 in
    both schemes, cold and warm, against its plain version on the StageQPK
    of 4096 perturbed
    mobile home states (iterations within +-1, identical verdicts, steps
    within 1e-3), and a NaN lane; K2 and K3 at 4096 lanes on the mobile
    track (the first tick's iterate, 0.02-perturbed trial points, one and
-   five candidates, each cost term alone); K4 at (4096, 11, 10); each
-   timed at batch 4096 and 1024;
+   five candidates, each cost term alone; at 1024 lanes also at N = 5 and
+   N = 20); K4 at (4096, 11, 10); each timed at batch 4096 and 1024;
 9. the Husky+Panda RTI path (``mpc_step(system=HUSKY_PANDA)``, K1-K4):
    4096 and then 1024 scenarios x 20 ticks + the plant step; every lane ok
    every tick, finite states, s rising after the start transient, the mean
@@ -78,8 +81,11 @@ Phases (the first failure exits non-zero and prints no result line):
     in |d du|; and the Husky+Panda RTI loop tick by tick from the GPU run's
     inputs (20 ticks, q over all 10 joints).
 
-Then the command time and the card.  The line before last is the kernels'
-JSON record; the last line is
+Each kernel is timed three ways: its own device time (``torch.profiler``'s
+events of its symbol; ``ms`` and ``device_ms``), the wrapper's time (CUDA
+events around back-to-back calls; ``wrapper_ms``) and the wrapper's host
+microseconds per call (``host_us``).  Then the command time and the card.
+The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -186,16 +192,23 @@ def card_line() -> str:
 def cuda_time(fn, reps: int) -> float:
     """Mean milliseconds per call, CUDA events around ``reps`` calls after
     one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from mpcc_manipulator_tpu_torch.timing import cuda_ms
+    return cuda_ms(fn, reps)
+
+
+def kernel_times(fn, symbol: str, reps: int) -> dict:
+    """A wrapper's times: its kernel's own device ms (``ms`` and
+    ``device_ms``), the wrapper's ms (CUDA events around ``reps``
+    back-to-back calls) and its host us per call."""
+    from mpcc_manipulator_tpu_torch.timing import device_ms, host_us
+    dev_ms = device_ms(fn, symbol, reps)
+    return {"ms": dev_ms, "device_ms": dev_ms,
+            "wrapper_ms": cuda_time(fn, reps), "host_us": host_us(fn)}
+
+
+def times_text(t: dict) -> str:
+    return (f"device {t['device_ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} "
+            f"ms, host {t['host_us']:.1f} us/call")
 
 
 def check_close(name, got, ref, atol, rtol=0.0) -> float:
@@ -289,19 +302,19 @@ def phase_k4(device) -> dict:
     ref = kin_sweep_plain(qs)
     torch.cuda.synchronize()
     err, n_well, n_near, near = check_k4("K4", got, ref)
-    ms = cuda_time(lambda: kin_sweep(qs), 50)
+    t = kernel_times(lambda: kin_sweep(qs), "kin_kernel<", 50)
     plain_ms = cuda_time(lambda: kin_sweep_plain(qs), 20)
     print(f"K4 vs plain at {tuple(qs.shape)}: max|err| {err:.3e} on "
           f"{n_well} configurations; {n_near} with "
           f"m < {K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
-          f"{near[1]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{near[1]:.3e}; {times_text(t)}, plain {plain_ms:.4f} ms")
     # bytes: the configurations in, the six outputs out; operations: ~3
     # kFLOP per configuration (the 7-joint chain, 3x7 Jacobians, J J', a
     # 6x6 Cholesky and the 7 x 6x6 gradient solves)
     return {"name": "K4 kinematics sweep (kin_sweep)", "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_kinematics.py:228",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **t, "plain_ms": plain_ms,
             **bound(nbytes(qs, *got), 3e3 * qs[..., 0].numel())}
 
 
@@ -505,8 +518,9 @@ def phase_k1(problem, device) -> dict:
               f"({int(dirty.iters[K1_NAN_LANE])} iterations), the other "
               f"{BATCH - 1} lanes bit-identical")
 
-        ms = cuda_time(lambda: solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl,
-                                              scheme=scheme), 20)
+        t = kernel_times(lambda: solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl,
+                                                scheme=scheme),
+                         "ipm_kernel<", 20)
         plain_ms = cuda_time(lambda: solve_qp_ipm_plain(
             qpk, warm_s=ws, warm_lam=wl, scheme=scheme), 3)
         # bytes: every StageQPK block and the warm rows in, the step, duals,
@@ -517,16 +531,20 @@ def phase_k1(problem, device) -> dict:
                 warm.solved, warm.mu]
         b = bound(nbytes(*ins, ws, wl, *outs), k1_flops(scheme, warm.iters))
         print(f"K1 {scheme} warm solve at batch {BATCH} (mean "
-              f"{warm.iters.double().mean():.3f} iterations): kernel "
-              f"{ms:.4f} ms (PR 5: {K1_PR5_MS[scheme]} ms), plain "
-              f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"{warm.iters.double().mean():.3f} iterations): "
+              f"{times_text(t)} (before the per-system instantiation: "
+              f"{K1_PR5_MS[scheme]} ms wrapper), "
+              f"plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
         if scheme == "adaptive":
-            entry.update(ms=ms, plain_ms=plain_ms, **b,
+            entry.update(**t, plain_ms=plain_ms, **b,
                          registers=cfg["registers"],
                          blocks_per_sm=cfg["blocks_per_sm"])
         else:
-            entry.update(mehrotra_ms=ms, mehrotra_plain_ms=plain_ms,
+            entry.update(mehrotra_ms=t["ms"],
+                         mehrotra_wrapper_ms=t["wrapper_ms"],
+                         mehrotra_host_us=t["host_us"],
+                         mehrotra_plain_ms=plain_ms,
                          mehrotra_bound_ms=b["bound_ms"])
     entry["max_abs_err"] = err
     return entry
@@ -615,10 +633,41 @@ def k2_cases(problem, aproblem, device):
         yield region, *aproblem[:2], z, cu, rb
 
 
+def check_k2(label, got, ref) -> float:
+    """K2's blocks against the plain version's, each within K23_TOL x
+    max(1, max|block|); prints the worst block's error relative to its
+    scale."""
+    err, worst = 0.0, (0.0, "")
+    for f in dataclasses.fields(ref):
+        r, g = getattr(ref, f.name), getattr(got, f.name)
+        if g.shape != r.shape or not g.is_contiguous():
+            raise AssertionError(f"{label} {f.name}: {tuple(g.shape)}, "
+                                 f"expected contiguous {tuple(r.shape)}")
+        scale = max(1.0, float(r.abs().max()))
+        e = check_close(f"{label} {f.name}", g, r, K23_TOL * scale)
+        err = max(err, e)
+        worst = max(worst, (e / scale, f.name))
+    print(f"{label} vs plain, {got.e.shape[0]} lanes: every block within "
+          f"{K23_TOL} x max(1, max|block|); worst {worst[1]} {worst[0]:.3e} "
+          f"of its scale")
+    return err
+
+
+def horizon_cases(problem, device, system, batch):
+    """``(label, system at N, z, trial z, candidates, current u,
+    RobotData)`` at N = 5 and N = 20 (ROADMAP item 13): the main path's
+    inputs at that horizon, which the plain version takes as they are."""
+    for n in (5, 20):
+        sy = dataclasses.replace(system, horizon=n)
+        yield (f"{system.name} N = {n}", sy,
+               *main_path_inputs(problem, device, sy, batch))
+
+
 def phase_k2(problem, aproblem, device) -> dict:
     from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
     from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
         build_qp_stages_k_kernel, build_qp_stages_k_plain)
+    from mpcc_manipulator_tpu_torch.system import PANDA
     err = 0.0
     for region, track, params, z, cu, rb in k2_cases(problem, aproblem,
                                                      device):
@@ -626,25 +675,13 @@ def phase_k2(problem, aproblem, device) -> dict:
         got = build_qp_stages_k_kernel(track, z, rb, params, cu, TS)
         ref = build_qp_stages_k_plain(track, z, rb, params, cu, TS)
         torch.cuda.synchronize()
-        worst = (0.0, "")
-        for f in dataclasses.fields(ref):
-            r, g = getattr(ref, f.name), getattr(got, f.name)
-            if g.shape != r.shape or not g.is_contiguous():
-                raise AssertionError(f"K2 {f.name}: {tuple(g.shape)}, "
-                                     f"expected contiguous {tuple(r.shape)}")
-            scale = max(1.0, float(r.abs().max()))
-            e = check_close(f"K2 {region} {f.name}", g, r, K23_TOL * scale)
-            err = max(err, e)
-            worst = max(worst, (e / scale, f.name))
+        err = max(err, check_k2(f"K2 {region}", got, ref))
         ratio = torch.minimum(rb.sel_dist / (m.tol_selcol * 2.0),
                               rb.manipul / (m.tol_sing * 2.0))
         env_h = (0.01 * (rb.env_dist - 1.2 * rb.obs_radius[..., None])
                  - 0.01 * m.tol_envcol)
-        print(f"K2 vs plain, {region}, {BATCH} lanes: every block within "
-              f"{K23_TOL} x max(1, max|block|); worst {worst[1]} "
-              f"{worst[0]:.3e} of its scale; "
-              f"min scheduling ratio {float(ratio.min()):.3f}, min env h "
-              f"{float(env_h.min()):.4f}")
+        print(f"  {region}: min scheduling ratio {float(ratio.min()):.3f}, "
+              f"min env h {float(env_h.min()):.4f}")
         if region == "obstacle_scheduling" and not (
                 float(ratio.min()) < 1.0 and float(env_h.min()) < 0.0):
             raise AssertionError("K2: the obstacle region does not fire the "
@@ -679,12 +716,20 @@ def phase_k2(problem, aproblem, device) -> dict:
           "carry it")
 
     track, params = problem[:2]
+    for label, sy, z, _, _, cu, rb in horizon_cases(problem, device, PANDA,
+                                                     BATCH):
+        err = max(err, check_k2(
+            f"K2 {label}",
+            build_qp_stages_k_kernel(track, z, rb, params, cu, TS, system=sy),
+            build_qp_stages_k_plain(track, z, rb, params, cu, TS,
+                                    system=sy)))
     z, _, _, cu, rb = main_path_inputs(problem, device)
-    ms = cuda_time(lambda: build_qp_stages_k_kernel(track, z, rb, params, cu,
-                                                    TS), 50)
+    t = kernel_times(lambda: build_qp_stages_k_kernel(track, z, rb, params,
+                                                      cu, TS),
+                     "assembly_kernel<", 50)
     plain_ms = cuda_time(lambda: build_qp_stages_k_plain(track, z, rb, params,
                                                          cu, TS), 10)
-    print(f"K2 assembly at batch {BATCH} (main path): kernel {ms:.4f} ms, "
+    print(f"K2 assembly at batch {BATCH} (main path): {times_text(t)}, "
           f"plain {plain_ms:.4f} ms")
     # bytes: the iterate, current input, the RobotData fields K2 reads and
     # its table in, the blocks it writes out; operations: ~3 kFLOP per
@@ -697,7 +742,7 @@ def phase_k2(problem, aproblem, device) -> dict:
             "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:290",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **t, "plain_ms": plain_ms,
             **bound(nbytes(z, cu, *robot, table, *(getattr(got, f) for f
                                                     in ak._K2_OUT)),
                     3e3 * BATCH * KNOTS)}
@@ -718,6 +763,7 @@ def check_k3(label, got, ref) -> float:
 def phase_k3(problem, aproblem, device) -> dict:
     from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
         eval_point_kernel, eval_point_plain)
+    from mpcc_manipulator_tpu_torch.system import PANDA
     # the main path: trial points and the candidate axis (CANDIDATES
     # iterates per lane against the lane's one RobotData) on its own track
     track, params = problem[:2]
@@ -765,16 +811,25 @@ def phase_k3(problem, aproblem, device) -> dict:
                                  "NaN")
     torch.cuda.synchronize()
     track, params = problem[:2]
+    for label, sy, _, zt, zc, cu, rb in horizon_cases(problem, device, PANDA,
+                                                       BATCH):
+        for what, zz in (("trial", zt), (f"x{CANDIDATES}", zc)):
+            err = max(err, check_k3(
+                f"{label} {what}",
+                eval_point_kernel(track, zz, rb, params, cu, TS, sy),
+                eval_point_plain(track, zz, rb, params, cu, TS, sy)))
     main = (rb_main, params, cu_main, TS)
-    ms = cuda_time(lambda: eval_point_kernel(track, zt_main, *main), 50)
+    t = kernel_times(lambda: eval_point_kernel(track, zt_main, *main),
+                     "eval_kernel<", 50)
     plain_ms = cuda_time(lambda: eval_point_plain(track, zt_main, *main), 10)
-    ms_c = cuda_time(lambda: eval_point_kernel(track, zc_main, *main), 50)
+    t_c = kernel_times(lambda: eval_point_kernel(track, zc_main, *main),
+                       "eval_kernel<", 50)
     plain_ms_c = cuda_time(lambda: eval_point_plain(track, zc_main, *main), 5)
     print(f"K3 vs plain, main path + 3 regions, {BATCH} lanes: max|err| "
           f"{err:.3e} (rtol = atol = {K23_TOL}), max violation "
           f"{vio_max:.3f}; NaN lanes propagate; batch {BATCH} (main path): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; x{CANDIDATES} "
-          f"candidates: kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms")
+          f"{times_text(t)}, plain {plain_ms:.4f} ms; x{CANDIDATES} "
+          f"candidates: {times_text(t_c)}, plain {plain_ms_c:.4f} ms")
     # bytes: the trial points, current input, the RobotData fields K3
     # reads and the table in, (obj, vio) out; operations: ~1.5 kFLOP per
     # (lane, knot) (one stage cost and its constraint rows)
@@ -784,7 +839,9 @@ def phase_k3(problem, aproblem, device) -> dict:
             "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/assembly.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_assembly.py:756",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **t, "plain_ms": plain_ms,
+            "candidates_device_ms": t_c["device_ms"],
+            "candidates_wrapper_ms": t_c["wrapper_ms"],
             **bound(nbytes(zt_main, cu_main, *robot,
                            ak.pack_tables(track, params, TS))
                     + 8 * BATCH, 1.5e3 * BATCH * KNOTS)}
@@ -1013,7 +1070,8 @@ def phase_k5(problem, device) -> dict:
 
     # time one launch at the RTI budget on the main path's cold QPs, at
     # the cluster size fused_admm picks and at the other one that holds it
-    ms = cuda_time(lambda: fused_admm(*cold_args, max_iter=budget), 20)
+    t = kernel_times(lambda: fused_admm(*cold_args, max_iter=budget),
+                     "admm_kernel", 20)
     alt_ms = cuda_time(lambda: fused_admm_cluster(
         K5_ALT_CLUSTER, *cold_args, max_iter=budget), 20)
     plain_ms = cuda_time(lambda: fused_admm_plain(*cold_args,
@@ -1022,14 +1080,14 @@ def phase_k5(problem, device) -> dict:
     b = bound(nbytes(*cold_args, x, z, y) + 4 * BATCH,
               k5_flops(cold_args, it))
     print(f"K5 at batch {BATCH}, main path cold, max_iter {budget} (mean "
-          f"{it.double().mean():.2f} iterations): kernel {ms:.4f} ms "
-          f"(cluster {K5_ALT_CLUSTER}: {alt_ms:.4f} ms), plain "
+          f"{it.double().mean():.2f} iterations): {times_text(t)} "
+          f"(cluster {K5_ALT_CLUSTER}: wrapper {alt_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
     return {"name": "K5 fused ADMM loop (fused_admm)", "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/admm.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_admm.py:39",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            "max_abs_err": err, **t, "plain_ms": plain_ms, **b}
 
 
 # ------------------------------------------------------------ closed loops
@@ -1442,26 +1500,28 @@ def mobile_system():
     return HUSKY_PANDA
 
 
-def both_batches(label, fn, reps, plain_fn, plain_reps) -> dict:
-    """``fn(batch)`` and ``plain_fn(batch)`` timed at each of
-    ``MOBILE_BATCHES``: {batch: (kernel ms, plain ms)}."""
+def both_batches(label, fn, reps, plain_fn, plain_reps, symbol) -> dict:
+    """``fn(batch)`` (the wrapper of the kernel named ``symbol``) and
+    ``plain_fn(batch)`` timed at each of ``MOBILE_BATCHES``: {batch:
+    :func:`kernel_times` with ``plain_ms``}."""
     out = {}
     for b in MOBILE_BATCHES:
-        out[b] = (cuda_time(lambda: fn(b), reps),
-                  cuda_time(lambda: plain_fn(b), plain_reps))
-        print(f"{label} at batch {b}: kernel {out[b][0]:.4f} ms, plain "
-              f"{out[b][1]:.4f} ms")
+        t = kernel_times(lambda: fn(b), symbol, reps)
+        t["plain_ms"] = cuda_time(lambda: plain_fn(b), plain_reps)
+        out[b] = t
+        print(f"{label} at batch {b}: {times_text(t)}, plain "
+              f"{t['plain_ms']:.4f} ms")
     return out
 
 
 def mobile_entry(name, source, replaces, err, times, bounds) -> dict:
-    """A kernel record at the first of ``MOBILE_BATCHES`` (``ms``,
-    ``plain_ms``, the bound) with the second's beside it."""
+    """A kernel record at the first of ``MOBILE_BATCHES`` (the times, the
+    bound) with the second's beside it."""
     b0, b1 = MOBILE_BATCHES
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "batch": b0,
-            "ms": times[b0][0], "plain_ms": times[b0][1], **bounds[b0],
-            f"ms_{b1}": times[b1][0], f"plain_ms_{b1}": times[b1][1],
+            **times[b0], **bounds[b0],
+            **{f"{k}_{b1}": v for k, v in times[b1].items()},
             f"bound_ms_{b1}": bounds[b1]["bound_ms"]}
 
 
@@ -1490,7 +1550,8 @@ def phase_k4_mobile(device) -> dict:
           f"{near[1]:.3e}")
     part = {b: qs[:b].contiguous() for b in MOBILE_BATCHES}
     times = both_batches("K4-m", lambda b: kin_sweep(part[b], sy), 50,
-                         lambda b: kin_sweep_plain(part[b], sy), 10)
+                         lambda b: kin_sweep_plain(part[b], sy), 10,
+                         "kin_kernel<")
     # bytes: the configurations in, the six outputs out; operations: ~3.3
     # kFLOP per configuration (the Panda's ~3 k and the base composition)
     bounds = {b: bound(nbytes(part[b], *kin_sweep(part[b], sy)),
@@ -1520,6 +1581,39 @@ def print_k1_launches() -> None:
                   f"registers, {cfg['local_bytes']} B local; waves {waves}")
 
 
+def print_k23_launches() -> None:
+    """K2's and K3's launch (one and five candidates) at N = 5, 10 and 20
+    for both systems, at the batches this script runs: the card's report
+    (`mpcc_assembly_launch_config`) held equal to the Python mirror
+    (`launch_geometry`), no local memory (stack or spill), shared memory
+    within 48 KB and at least one block an SM for every SM at the Panda's
+    batch."""
+    from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    for sy, batch in ((PANDA, BATCH), (mobile_system(), MOBILE_BATCHES[0])):
+        for n in K1_HORIZONS:
+            for kernel, cand in ((2, 1), (3, 1), (3, CANDIDATES)):
+                cfg = ak.launch_config(kernel, sy, n, cand, batch)
+                mirror = ak.launch_geometry(kernel, sy, n, cand, batch)
+                name = f"K{kernel}" + (f" x{cand}" if cand > 1 else "")
+                print(f"{name} launch, {sy.name}, N = {n}, batch {batch}: "
+                      f"{cfg['scenarios_per_block']} scenarios ("
+                      f"{cfg['rows_per_block']} rows) a block, "
+                      f"{cfg['threads']} threads, {cfg['shared_bytes']} B "
+                      f"shared, {cfg['blocks']} blocks, "
+                      f"{cfg['blocks_per_sm']} blocks an SM, "
+                      f"{cfg['registers']} registers, {cfg['local_bytes']} "
+                      f"B local")
+                if any(cfg[k] != v for k, v in mirror.items()):
+                    raise AssertionError(f"{name} launch at N = {n}: the card "
+                                         f"reports {cfg}, the mirror "
+                                         f"{mirror}")
+                if cfg["local_bytes"] or cfg["shared_bytes"] > 48 * 1024 \
+                        or cfg["blocks_per_sm"] < 1 or (
+                            sy is PANDA and cfg["blocks"] < cfg["sms"]):
+                    raise AssertionError(f"{name} launch at N = {n}: {cfg}")
+
+
 def phase_k1_mobile(mproblem, device) -> dict:
     """K1's Husky+Panda instantiation in both schemes, cold and warm,
     against its plain version on the StageQPK of 4096 perturbed mobile home
@@ -1531,6 +1625,7 @@ def phase_k1_mobile(mproblem, device) -> dict:
     sy = mobile_system()
     nb = MOBILE_BATCHES[0]
     print_k1_launches()
+    print_k23_launches()
     cfg = launch_config(KNOTS - 1, sy)
     at_once = cfg["blocks_per_sm"] * cfg["sms"]
     waves = {b: -(-b // at_once) for b in MOBILE_BATCHES} if at_once else {}
@@ -1588,10 +1683,10 @@ def phase_k1_mobile(mproblem, device) -> dict:
                                              warm_lam=qb[b][2], system=sy,
                                              scheme=scheme)
         times[scheme] = both_batches(f"K1-h {scheme} warm solve", solve, 20,
-                                     plain, 2)
+                                     plain, 2, "ipm_kernel<")
         print(f"K1-h {scheme} warm solve before its redesign (batch "
               f"{' / '.join(map(str, MOBILE_BATCHES))}): "
-              f"{' / '.join(map(str, K1H_BEFORE_MS[scheme]))} ms")
+              f"{' / '.join(map(str, K1H_BEFORE_MS[scheme]))} ms (wrapper)")
         bounds[scheme] = {}
         for b in MOBILE_BATCHES:
             sol = solve(b)
@@ -1614,8 +1709,9 @@ def phase_k1_mobile(mproblem, device) -> dict:
     entry.update(registers=cfg["registers"], local_bytes=cfg["local_bytes"],
                  shared_bytes=cfg["shared_bytes"],
                  blocks_per_sm=cfg["blocks_per_sm"], waves=waves,
-                 mehrotra_ms=times["mehrotra"][nb][0],
-                 mehrotra_plain_ms=times["mehrotra"][nb][1],
+                 mehrotra_ms=times["mehrotra"][nb]["ms"],
+                 mehrotra_wrapper_ms=times["mehrotra"][nb]["wrapper_ms"],
+                 mehrotra_plain_ms=times["mehrotra"][nb]["plain_ms"],
                  mehrotra_bound_ms=bounds["mehrotra"][nb]["bound_ms"])
     return entry
 
@@ -1639,19 +1735,7 @@ def phase_k23_mobile(mproblem, device) -> list:
                                           system=sy)
         ref = ak.build_qp_stages_k_plain(track, zz, rb, p, cu, TS, system=sy)
         torch.cuda.synchronize()
-        worst = (0.0, "")
-        for f in dataclasses.fields(ref):
-            r, g = getattr(ref, f.name), getattr(got, f.name)
-            if g.shape != r.shape or not g.is_contiguous():
-                raise AssertionError(f"K2-h {f.name}: {tuple(g.shape)}, "
-                                     f"expected contiguous {tuple(r.shape)}")
-            scale = max(1.0, float(r.abs().max()))
-            e = check_close(f"K2-h {label} {f.name}", g, r, K23_TOL * scale)
-            err2 = max(err2, e)
-            worst = max(worst, (e / scale, f.name))
-        print(f"K2-h vs plain, {label}, {nb} lanes: every block within "
-              f"{K23_TOL} x max(1, max|block|); worst {worst[1]} "
-              f"{worst[0]:.3e} of its scale")
+        err2 = max(err2, check_k2(f"K2-h {label}", got, ref))
     err3 = 0.0
     cases = [("trial", params, zt), (f"x{CANDIDATES} candidates", params, zc)
              ] + [(f"trial, {w} alone", p_w, zt) for w, p_w in singles]
@@ -1660,6 +1744,20 @@ def phase_k23_mobile(mproblem, device) -> list:
             f"Husky {label}",
             ak.eval_point_kernel(track, zz, rb, p, cu, TS, sy),
             ak.eval_point_plain(track, zz, rb, p, cu, TS, sy)))
+    # N = 5 and N = 20 at batch 1024
+    for label, syn, zn, ztn, zcn, cun, rbn in horizon_cases(
+            mproblem, device, sy, MOBILE_BATCHES[1]):
+        err2 = max(err2, check_k2(
+            f"K2-h {label}",
+            ak.build_qp_stages_k_kernel(track, zn, rbn, params, cun, TS,
+                                        system=syn),
+            ak.build_qp_stages_k_plain(track, zn, rbn, params, cun, TS,
+                                       system=syn)))
+        for what, zz in (("trial", ztn), (f"x{CANDIDATES}", zcn)):
+            err3 = max(err3, check_k3(
+                f"Husky {label} {what}",
+                ak.eval_point_kernel(track, zz, rbn, params, cun, TS, syn),
+                ak.eval_point_plain(track, zz, rbn, params, cun, TS, syn)))
     sub = {b: (z[:b].contiguous(), zt[:b].contiguous(), cu[:b].contiguous(),
                type(rb)(**{f.name: getattr(rb, f.name)[:b]
                            for f in dataclasses.fields(rb)}))
@@ -1671,13 +1769,13 @@ def phase_k23_mobile(mproblem, device) -> list:
                                               system=sy), 50,
         lambda b: ak.build_qp_stages_k_plain(track, sub[b][0], sub[b][3],
                                              params, sub[b][2], TS,
-                                             system=sy), 5)
+                                             system=sy), 5, "assembly_kernel<")
     t3 = both_batches(
         "K3-h evaluation",
         lambda b: ak.eval_point_kernel(track, sub[b][1], sub[b][3], params,
                                        sub[b][2], TS, sy), 50,
         lambda b: ak.eval_point_plain(track, sub[b][1], sub[b][3], params,
-                                      sub[b][2], TS, sy), 5)
+                                      sub[b][2], TS, sy), 5, "eval_kernel<")
     table = ak.pack_tables(track, params, TS, sy)
     b2, b3 = {}, {}
     for b in MOBILE_BATCHES:

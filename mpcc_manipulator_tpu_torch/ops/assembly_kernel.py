@@ -15,12 +15,25 @@ The kernels read the track, the parameters and the dynamics from one packed
 float32 table (:func:`pack_tables`), built once per ``(track, params, ts)``
 and cached on the device.  The cache key holds every tensor of the track
 and the parameters by identity and version counter, so a field replaced by
-a new tensor or edited in place builds a new table.
+a new tensor or edited in place builds a new table.  The cache entry also
+holds what depends on the key alone: the check of the table against the
+length the kernels read and of the shared blocks' device, and, per batch
+size, the batch-expanded scenario-independent StageQPK blocks and the zero
+``hux``.  Every call at one batch returns those same tensors; no consumer
+of a StageQPK writes into them (`solver/sqp.py`, `solver/qp_ipm_kernel.py`
+and `ocp/qp_stages.py::qpk_to_qps` only read them).
+
+:func:`launch_geometry` mirrors, in Python, how the C entries launch each
+kernel (scenarios a block, threads, shared bytes, blocks);
+:func:`launch_config` asks the card (the same, with registers, local bytes
+and the blocks an SM holds).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -123,17 +136,63 @@ def _shared_blocks(params: MPCCParams, ts, system: System):
 _CACHE: dict = {}
 
 
-def _stamp(obj, leaves: list):
-    """Hashable state of a tree of dataclasses, each tensor as (identity,
-    version counter); the tensors are appended to ``leaves``, which a cache
-    entry keeps alive so that their identities stay unique."""
+@functools.cache
+def _field_names(cls):
+    """A dataclass type's field names; None for any other type."""
+    if not dataclasses.is_dataclass(cls):
+        return None
+    return tuple(f.name for f in dataclasses.fields(cls))
+
+
+def _stamp(obj, key: list, leaves: list) -> None:
+    """Append the state of a tree of dataclasses to ``key``: each dataclass
+    node as its type (which fixes its fields), each tensor as (identity,
+    version counter; -1 for an inference tensor, which has none), any
+    other value as itself.  The tensors are appended to ``leaves``, which
+    a cache entry keeps alive so that their identities stay unique."""
     if isinstance(obj, torch.Tensor):
         leaves.append(obj)
-        return id(obj), (-1 if obj.is_inference() else obj._version)
-    if dataclasses.is_dataclass(obj):
-        return tuple(_stamp(getattr(obj, f.name), leaves)
-                     for f in dataclasses.fields(obj))
-    return obj
+        try:
+            version = obj._version
+        except RuntimeError:
+            version = -1
+        key += (id(obj), version)
+        return
+    names = _field_names(type(obj))
+    if names is None:
+        key.append(obj)
+        return
+    key.append(type(obj))
+    for name in names:
+        _stamp(getattr(obj, name), key, leaves)
+
+
+@dataclasses.dataclass
+class _Entry:
+    """What one (track, parameter state, ts, system) key determines."""
+
+    leaves: list         # the key's tensors, kept alive
+    table: torch.Tensor  # pack_tables
+    shared: dict         # _shared_blocks, unexpanded
+    checked: set = dataclasses.field(default_factory=set)  # (sid, device)
+    per_batch: dict = dataclasses.field(default_factory=dict)
+
+
+def _entry(track: TrackSpline, params: MPCCParams, ts,
+           system: System) -> _Entry:
+    key, leaves = [float(ts), system], []
+    _stamp(track, key, leaves)
+    _stamp(params, key, leaves)
+    key = tuple(key)
+    hit = _CACHE.get(key)
+    if hit is None:
+        hit = _Entry(leaves, pack_tables(track, params, ts, system),
+                     _shared_blocks(params, ts, system))
+        if not any(t.is_inference() for t in leaves):
+            if len(_CACHE) >= 8:
+                _CACHE.clear()
+            _CACHE[key] = hit
+    return hit
 
 
 def tables(track: TrackSpline, params: MPCCParams, ts,
@@ -141,33 +200,41 @@ def tables(track: TrackSpline, params: MPCCParams, ts,
     """(packed table, shared blocks) for this track and parameter state,
     cached while every tensor of both is the same object at the same
     version (an inference tensor has no version counter: never cached)."""
-    leaves: list = []
-    key = (_stamp(track, leaves), _stamp(params, leaves), float(ts),
-           system)
-    hit = _CACHE.get(key)
-    if hit is None:
-        hit = (leaves, pack_tables(track, params, ts, system),
-               _shared_blocks(params, ts, system))
-        if not any(t.is_inference() for t in leaves):
-            if len(_CACHE) >= 8:
-                _CACHE.clear()
-            _CACHE[key] = hit
-    return hit[1], hit[2]
+    hit = _entry(track, params, ts, system)
+    return hit.table, hit.shared
 
 
 def _cached(track: TrackSpline, params: MPCCParams, ts, system: System,
-            sid: int, dev):
-    """:func:`tables`, checked against the length the system's kernel
-    instantiation reads and the device."""
-    tbl, shared = tables(track, params, ts, system)
-    want = cuda_build.library().mpcc_assembly_table_len(
-        sid, track.sx.a.shape[0])
-    if tbl.numel() != want:
-        raise AssertionError(f"assembly table: {tbl.numel()} floats, the "
-                             f"kernels read {want}")
-    for name, t in [("track", tbl), *shared.items()]:
-        _check_cuda(f"{name} table", t, tuple(t.shape), dev)
-    return tbl, shared
+            sid: int, dev) -> _Entry:
+    """:func:`tables`' entry, checked once against the length the system's
+    kernel instantiation reads and the device."""
+    hit = _entry(track, params, ts, system)
+    if (sid, dev) not in hit.checked:
+        want = cuda_build.library().mpcc_assembly_table_len(
+            sid, track.sx.a.shape[0])
+        if hit.table.numel() != want:
+            raise AssertionError(f"assembly table: {hit.table.numel()} "
+                                 f"floats, the kernels read {want}")
+        for name, t in [("track", hit.table), *hit.shared.items()]:
+            _check_cuda(f"{name} table", t, tuple(t.shape), dev)
+        hit.checked.add((sid, dev))
+    return hit
+
+
+def batch_blocks(hit: _Entry, b: int, system: System) -> dict:
+    """The entry's shared blocks expanded to ``b`` scenarios, and the zero
+    ``hux``: made once per batch size (the two latest kept)."""
+    out = hit.per_batch.get(b)
+    if out is None:
+        tx = hit.shared["tx"]
+        out = {k: v.expand((b,) + v.shape).contiguous()
+               for k, v in hit.shared.items()}
+        out["hux"] = torch.zeros(b, system.horizon, system.nu, system.nx,
+                                 dtype=tx.dtype, device=tx.device)
+        if len(hit.per_batch) >= 2:
+            hit.per_batch.pop(next(iter(hit.per_batch)))
+        hit.per_batch[b] = out
+    return out
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
@@ -230,7 +297,7 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
     _check_cuda("z", z, (b, system.n_var), dev)
     _check_cuda("current_u", current_u, (b, nu), dev)
     robot = _robot_inputs(rb, b, n_h + 1, dev, _K2_ROBOT, system)
-    tables, shared = _cached(track, params, ts, system, sid, dev)
+    hit = _cached(track, params, ts, system, sid, dev)
     kw = dict(dtype=torch.float32, device=dev)
     shapes = dict(hxx=(n_h + 1, nx, nx), huu=(n_h, nu, nu), gx=(n_h + 1, nx),
                   gu=(n_h, nu), gxu=(n_h, dof), e=(n_h, nx), d_xu=(n_h, nx),
@@ -242,15 +309,13 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
     build_qp_stages_k_kernel.launches += 1
     err = lib.mpcc_assembly(
         z.data_ptr(), current_u.data_ptr(),
-        *[t.data_ptr() for t in robot], tables.data_ptr(),
+        *[t.data_ptr() for t in robot], hit.table.data_ptr(),
         *[outs[f].data_ptr() for f in _K2_OUT],
         sid, b, n_h, track.sx.a.shape[0], float(ts),
         -1.0 if exact_heading_jac else 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K2 assembly kernel")
-    per_b = lambda t: t.expand((b,) + t.shape).contiguous()
-    return StageQPK(hux=torch.zeros(b, n_h, nu, nx, **kw),
-                    **{k: per_b(v) for k, v in shared.items()}, **outs)
+    return StageQPK(**batch_blocks(hit, b, system), **outs)
 
 
 build_qp_stages_k_kernel.launches = 0
@@ -277,14 +342,14 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     _check_cuda("current_u", current_u, (b, system.nu), dev)
     robot = _robot_inputs(rb, b, system.horizon + 1, dev, _K3_ROBOT,
                           system)
-    tables, _ = _cached(track, params, ts, system, sid, dev)
+    table = _cached(track, params, ts, system, sid, dev).table
     obj = torch.empty(z.shape[:-1], dtype=torch.float32, device=dev)
     vio = torch.empty_like(obj)
     lib = cuda_build.library()
     eval_point_kernel.launches += 1
     err = lib.mpcc_eval_point(
         z.data_ptr(), current_u.data_ptr(),
-        *[t.data_ptr() for t in robot], tables.data_ptr(),
+        *[t.data_ptr() for t in robot], table.data_ptr(),
         obj.data_ptr(), vio.data_ptr(), sid, b, n_cand, system.horizon,
         track.sx.a.shape[0], float(ts),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -293,3 +358,88 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
 
 
 eval_point_kernel.launches = 0
+
+
+# How the C entries launch K2 and K3 (`csrc/assembly.cu`): a block holds at
+# most MAX_SCENARIOS scenarios in at most SMEM_LIMIT bytes of shared memory;
+# K2 runs K2_THREADS threads a block, K3 one thread a (candidate row, knot),
+# aiming at K3_ROW_THREADS and at most K3_MAX_THREADS.
+SMEM_LIMIT = 48 * 1024
+K2_THREADS = 256
+MAX_SCENARIOS = 4
+K3_ROW_THREADS = 128
+K3_MAX_THREADS = 256
+_GEOMETRY = ("scenarios_per_block", "rows_per_block", "threads",
+             "shared_bytes", "blocks")
+_LAUNCH = _GEOMETRY + ("blocks_per_sm", "registers", "local_bytes", "sms")
+
+
+def _smem_floats(kernel: int, system: System, n_h: int, rows: int,
+                 ns: int) -> int:
+    """Shared floats of one block of ``rows`` rows from ``ns`` scenarios
+    (``K2Layout`` / ``K3Layout`` in `csrc/assembly.cu`)."""
+    nx, nu, dof = system.nx, system.nu, system.dof
+    npc, nl = system.npc, system.num_links
+    nk, nvar = n_h + 1, nx * (n_h + 1) + nu * n_h
+    head = len(SC_KEYS) + 3 * nx + 3 * nu + 2 * dof + nx * nx + nx * nu
+    head = (head + 3) // 4 * 4
+    if kernel == 2:
+        rec = 4 * ((3 * nx + 1) | 1)
+        return ((head + ns * (nvar + nu) + 3) // 4 * 4
+                + ns * (nk * rec + 2 * n_h * npc)
+                + max(ns * nk * (7 * dof + 14 + nl) + ns,
+                      ns * n_h * npc * dof))
+    return head + rows * nvar + ns * (nu + nk * (14 + nl) + 1) + 2 * rows * nk
+
+
+def launch_geometry(kernel: int, system: System = PANDA, n_h: int = None,
+                    n_cand: int = 1, batch: int = 1) -> dict:
+    """K2's (``kernel`` 2) or K3's (3) launch at horizon ``n_h`` (the
+    system's by default), ``n_cand`` candidates a scenario (K3) and
+    ``batch`` scenarios, as the C entries compute it: scenarios a block
+    (K3: the scenarios its rows span, at most), rows a block (K2: the
+    scenarios), threads a block, shared bytes a block, blocks.  Raises
+    ``ValueError`` where no block fits."""
+    n_h = system.horizon if n_h is None else n_h
+    nk = n_h + 1
+    fits = lambda rows, ns: 4 * _smem_floats(kernel, system, n_h, rows,
+                                             ns) <= SMEM_LIMIT
+    if kernel == 2:
+        ns = next((s for s in range(MAX_SCENARIOS, 0, -1) if fits(s, s)), 0)
+        rows, threads = ns, K2_THREADS
+    elif kernel == 3 and n_cand >= 1:
+        if n_cand * nk <= K3_ROW_THREADS:
+            top = min(MAX_SCENARIOS, K3_ROW_THREADS // (n_cand * nk))
+            ns = next((s for s in range(top, 0, -1)
+                       if fits(s * n_cand, s)), 0)
+            rows = ns * n_cand
+        else:
+            ns, rows = 2, max(1, K3_ROW_THREADS // nk)
+            rows = rows if fits(rows, ns) else 0
+        threads = -(-rows * nk // 32) * 32
+        if threads > K3_MAX_THREADS:
+            rows = 0
+    else:
+        raise ValueError(f"launch_geometry: kernel {kernel}, candidates "
+                         f"{n_cand}")
+    if n_h < 1 or rows < 1:
+        raise ValueError(f"K{kernel} at N = {n_h} with {n_cand} candidates: "
+                         f"no block fits {SMEM_LIMIT} B of shared memory")
+    units = batch * (n_cand if kernel == 3 else 1)
+    return dict(scenarios_per_block=ns, rows_per_block=rows, threads=threads,
+                shared_bytes=4 * _smem_floats(kernel, system, n_h, rows, ns),
+                blocks=-(-units // rows))
+
+
+def launch_config(kernel: int, system: System = PANDA, n_h: int = None,
+                  n_cand: int = 1, batch: int = 1) -> dict:
+    """:func:`launch_geometry` as the card reports it
+    (`mpcc_assembly_launch_config`), with the blocks an SM holds at once,
+    the kernel's registers and local-memory (stack and spill) bytes a
+    thread, and the card's SM count."""
+    n_h = system.horizon if n_h is None else n_h
+    out = (ctypes.c_int * len(_LAUNCH))()
+    cuda_build.check(cuda_build.library().mpcc_assembly_launch_config(
+        kernel, cuda_build.system_id(system, f"K{kernel}"), n_h, n_cand,
+        batch, out), f"K{kernel} launch config")
+    return dict(zip(_LAUNCH, out))

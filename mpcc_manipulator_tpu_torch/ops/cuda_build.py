@@ -104,33 +104,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# Every C entry's (argument types, result type)
+_ENTRIES = {
+    "mpcc_kin_sweep": ([_P, _P, _I, _I] + [_P] * 7, _I),
+    "mpcc_ipm_solve": ([_P] * 18 + [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
+                       _I),
+    "mpcc_ipm_launch_config": ([_I, _I, _P], _I),
+    "mpcc_assembly": ([_P] * 29 + [_I, _I, _I, _I, _F, _F, _P], _I),
+    "mpcc_eval_point": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
+    "mpcc_assembly_launch_config": ([_I] * 5 + [_P], _I),
+    "mpcc_admm_solve": ([_P] * 17 + [_I] * 5 + [_F] * 4 + [_P], _I),
+    "mpcc_admm_solve_cluster": ([_P] * 17 + [_I] * 5 + [_F] * 4 + [_I, _P],
+                                _I),
+    "mpcc_admm_launch_config": ([_I, _I, _I, _P], _I),
+    "mpcc_assembly_table_len": ([_I, _I], _I),
+    "mpcc_error_string": ([_I], ctypes.c_char_p),
+}
+
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call).  An entry the
+    library lacks (one built from another tree's sources, by the
+    comparison tools) stays unbound."""
     lib = ctypes.CDLL(build()[0])
-    lib.mpcc_kin_sweep.argtypes = [_P, _P, _I, _I] + [_P] * 7
-    lib.mpcc_kin_sweep.restype = _I
-    lib.mpcc_ipm_solve.argtypes = ([_P] * 18 + [_P] * 8
-                                   + [_I, _I, _I, _I, _F, _I, _P])
-    lib.mpcc_ipm_solve.restype = _I
-    lib.mpcc_ipm_launch_config.argtypes = [_I, _I, _P]
-    lib.mpcc_ipm_launch_config.restype = _I
-    lib.mpcc_assembly.argtypes = [_P] * 29 + [_I, _I, _I, _I, _F, _F, _P]
-    lib.mpcc_assembly.restype = _I
-    lib.mpcc_eval_point.argtypes = [_P] * 14 + [_I] * 5 + [_F, _P]
-    lib.mpcc_eval_point.restype = _I
-    lib.mpcc_admm_solve.argtypes = [_P] * 17 + [_I] * 5 + [_F] * 4 + [_P]
-    lib.mpcc_admm_solve.restype = _I
-    lib.mpcc_admm_solve_cluster.argtypes = ([_P] * 17 + [_I] * 5 + [_F] * 4
-                                            + [_I, _P])
-    lib.mpcc_admm_solve_cluster.restype = _I
-    lib.mpcc_admm_launch_config.argtypes = [_I, _I, _I, _P]
-    lib.mpcc_admm_launch_config.restype = _I
-    lib.mpcc_assembly_table_len.argtypes = [_I, _I]
-    lib.mpcc_assembly_table_len.restype = _I
-    lib.mpcc_error_string.argtypes = [_I]
-    lib.mpcc_error_string.restype = ctypes.c_char_p
+    for name, (args, res) in _ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
     return lib
 
 

@@ -223,3 +223,117 @@ def test_wrappers_refuse_other_devices():
         ak.build_qp_stages_k_kernel(None, meta, None, None, None, TS)
     with pytest.raises(ValueError, match="unsupported device"):
         ak.eval_point_kernel(None, meta, None, None, None, TS)
+
+
+# ---------------------------------------------------------------- the launch
+# geometry and the wrapper's per-batch cache (no card needed)
+
+from mpcc_manipulator_tpu_torch.mpc import _cold_start  # noqa: E402
+from mpcc_manipulator_tpu_torch.ocp import qp_stages as tqs  # noqa: E402
+from mpcc_manipulator_tpu_torch.problem import (  # noqa: E402
+    X0_HOME, X0_HOME_MOBILE, build_problem)
+from mpcc_manipulator_tpu_torch.system import (  # noqa: E402
+    HUSKY_PANDA, PANDA)
+
+SYSTEMS = {"panda": PANDA, "husky_panda": HUSKY_PANDA}
+
+
+@pytest.mark.parametrize("n_h", [5, 10, 20])
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_launch_geometry_fits_the_budget(system, n_h):
+    """K2 and K3 (one and five candidates) hold whole scenarios a block in
+    at most 48 KB of shared memory, and the Panda's batch 1024 gives every
+    one of the H100's 132 SMs a block."""
+    sy = SYSTEMS[system]
+    for kernel, cand in ((2, 1), (3, 1), (3, 5)):
+        g = ak.launch_geometry(kernel, sy, n_h, cand, 1024)
+        assert g["shared_bytes"] <= 48 * 1024, (kernel, cand, g)
+        assert g["rows_per_block"] == g["scenarios_per_block"] * cand, g
+        assert g["threads"] >= (g["rows_per_block"] * (n_h + 1)
+                                if kernel == 3 else 1), g
+        assert g["blocks"] == -(-1024 // g["scenarios_per_block"]), g
+        if sy is PANDA:
+            assert g["blocks"] >= 132, (kernel, cand, g)
+
+
+def test_launch_geometry_splits_many_candidates():
+    """A scenario whose candidates need more than a block's 128 threads is
+    split over blocks of whole candidate rows; shapes no block fits
+    raise."""
+    g = ak.launch_geometry(3, PANDA, 10, 13, 7)
+    assert g["rows_per_block"] == 11 and g["blocks"] == -(-7 * 13 // 11)
+    assert g["threads"] == 128 and g["shared_bytes"] <= 48 * 1024
+    with pytest.raises(ValueError, match="no block fits"):
+        ak.launch_geometry(2, HUSKY_PANDA, 60)
+
+
+def _stage_qp(system, b, params=None):
+    """The plain assembly at ``b`` perturbed home states, float64 (at
+    ``params``, the problem's by default)."""
+    track, own, sel, env = build_problem(torch.float64, "cpu", system=system)
+    params = own if params is None else params
+    home = X0_HOME if system is PANDA else X0_HOME_MOBILE
+    rng = np.random.default_rng(3)
+    x0 = torch.tensor(home[None] + 0.01 * rng.standard_normal(
+        (b, home.size)))
+    z = _cold_start(x0, system)
+    xs, _ = qp_data.split_z(z, system)
+    rb = compute_robot_data(xs[..., :system.dof].contiguous(),
+                            torch.full((b, 3), 3.0, dtype=torch.float64),
+                            torch.zeros(b, dtype=torch.float64), sel, env,
+                            system)
+    cu = torch.zeros(b, system.nu, dtype=torch.float64)
+    return track, params, tqs.build_qp_stages_k(track, z, rb, params, cu, TS,
+                                                system=system)
+
+
+_BATCH_FIELDS = ("a_sv", "bd", "tx", "tu", "t_rate", "r2", "hux")
+
+
+@pytest.mark.parametrize("b", [2, 5])
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_batch_blocks_equal_the_plain_assembly(system, b):
+    """The cached, batch-expanded shared blocks and the zero hux are the
+    plain assembly's, at each batch size, in float64."""
+    sy = SYSTEMS[system]
+    track, params, ref = _stage_qp(sy, b)
+    got = ak.batch_blocks(ak._entry(track, params, TS, sy), b, sy)
+    assert sorted(got) == sorted(_BATCH_FIELDS)
+    for f in _BATCH_FIELDS:
+        r = getattr(ref, f)
+        assert got[f].dtype == r.dtype and got[f].is_contiguous(), f
+        torch.testing.assert_close(got[f], r, rtol=0.0, atol=1e-15)
+
+
+@pytest.mark.parametrize("field", ["r_ddq", "t_u"])
+def test_batch_blocks_follow_in_place_edits(field):
+    """An in-place edit of r_ddq or t_u builds the batch blocks anew, equal
+    to the plain assembly's at the edited parameters."""
+    sy = PANDA
+    track, params, _ = _stage_qp(sy, 3)
+    params = copy.deepcopy(params)
+    before = ak.batch_blocks(ak._entry(track, params, TS, sy), 3, sy)
+    if field == "r_ddq":
+        params.cost.r_ddq.mul_(3.0)
+        moved = ("r2",)
+    else:
+        params.normalization.t_u.mul_(1.5)
+        moved = ("tu", "bd", "t_rate", "r2")
+    after = ak.batch_blocks(ak._entry(track, params, TS, sy), 3, sy)
+    _, _, ref = _stage_qp(sy, 3, params)
+    for f in _BATCH_FIELDS:
+        torch.testing.assert_close(after[f], getattr(ref, f), rtol=0.0,
+                                   atol=1e-15)
+    for f in moved:
+        assert not torch.equal(after[f], before[f]), f
+
+
+def test_batch_blocks_are_reused_at_one_batch():
+    """Two calls at one batch size return the same tensors; another batch
+    size gets its own."""
+    track, params, _ = _stage_qp(PANDA, 2)
+    first = ak.batch_blocks(ak._entry(track, params, TS, PANDA), 4, PANDA)
+    again = ak.batch_blocks(ak._entry(track, params, TS, PANDA), 4, PANDA)
+    other = ak.batch_blocks(ak._entry(track, params, TS, PANDA), 6, PANDA)
+    assert all(again[f] is first[f] for f in _BATCH_FIELDS)
+    assert all(other[f].shape[0] == 6 for f in _BATCH_FIELDS)
