@@ -7,7 +7,9 @@ Phases (the first failure exits non-zero and prints no result line):
 1. the card's name and power limit (``nvidia-smi``); no CUDA device -> fail;
 2. build the CUDA kernels from ``mpcc_manipulator_tpu_torch/csrc`` (one
    nvcc per source, all at once);
-3. K4 (kinematics sweep) against its plain PyTorch version at (1024, 11, 7);
+3. K4 (kinematics sweep) against its plain PyTorch version at (1024, 11, 7),
+   and a NaN in three configurations' q: NaN in their outputs, every other
+   configuration bit-identical;
 4. K1 (interior-point QP solve, one warp per scenario): its launch
    configuration, one kernel for both centering schemes (held: 8 blocks an
    SM, no local memory, one wave at batch 1024), then against its plain
@@ -45,7 +47,11 @@ Phases (the first failure exits non-zero and prints no result line):
    within 1e-3), and a NaN lane; K2 and K3 at 4096 lanes on the mobile
    track (the first tick's iterate, 0.02-perturbed trial points, one and
    five candidates, each cost term alone; at 1024 lanes also at N = 5 and
-   N = 20); K4 at (4096, 11, 10); each timed at batch 4096 and 1024;
+   N = 20); K4 at (4096, 11, 10), with the NaN check, and K4's launch for
+   both systems at the batches run (held: the card's report equal to
+   `ops/kinematics_kernel.launch_geometry`, no local memory, at most 48 KB
+   of shared memory, at least one block an SM at batch 1024); each timed
+   at batch 4096 and 1024;
 9. the Husky+Panda RTI path (``mpc_step(system=HUSKY_PANDA)``, K1-K4):
    4096 and then 1024 scenarios x 20 ticks + the plant step; every lane ok
    every tick, finite states, s rising after the start transient, the mean
@@ -302,20 +308,108 @@ def phase_k4(device) -> dict:
     ref = kin_sweep_plain(qs)
     torch.cuda.synchronize()
     err, n_well, n_near, near = check_k4("K4", got, ref)
+    check_k4_nan("K4", qs)
     t = kernel_times(lambda: kin_sweep(qs), "kin_kernel<", 50)
     plain_ms = cuda_time(lambda: kin_sweep_plain(qs), 20)
     print(f"K4 vs plain at {tuple(qs.shape)}: max|err| {err:.3e} on "
           f"{n_well} configurations; {n_near} with "
           f"m < {K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
           f"{near[1]:.3e}; {times_text(t)}, plain {plain_ms:.4f} ms")
-    # bytes: the configurations in, the six outputs out; operations: ~3
-    # kFLOP per configuration (the 7-joint chain, 3x7 Jacobians, J J', a
-    # 6x6 Cholesky and the 7 x 6x6 gradient solves)
+    # bytes: the configurations in, the six outputs out; operations:
+    # k4_flops a configuration
     return {"name": "K4 kinematics sweep (kin_sweep)", "route": "cuda",
             "source": "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",
             "replaces": "mpcc_manipulator_tpu/ops/pallas_kinematics.py:228",
             "max_abs_err": err, **t, "plain_ms": plain_ms,
-            **bound(nbytes(qs, *got), 3e3 * qs[..., 0].numel())}
+            **bound(nbytes(qs, *got), k4_flops(7) * qs[..., 0].numel())}
+
+
+def k4_flops(dof: int) -> int:
+    """K4's float32 operations for one configuration, counted from the
+    loops of `csrc/kinematics.cu` (a multiply-add counts 2; a division,
+    square root, sine or cosine 1): the arm's chain and gradient, and for
+    dof > 7 the planar base's composition."""
+    arm = 7
+    trail = sum((5 - k) ** 2 for k in range(6))  # trailing updates, 6x6
+    fk = arm * (2 + 3 * 5 + 9 * 5 + 3 + 3 * 6)   # sin/cos, p_off, R_off, Rz
+    ee = 3 * 6 + 9 * 5 + 3 * arm + 9 * arm       # p_e, R_e, lever arms, J
+    gram = 36 * 2 * arm                          # A = J J', every entry
+    det = 6 + 3 * trail + 1                      # pivots, updates, sqrt
+    chol = 8 + 1 + 7 + 6 + 21 + 2 * trail        # scale, shift, pivots, L
+    solves = arm * 2 * (2 * 15 + 6)              # L y = J_j, L' x_j = y
+    pairs_lt, pairs_ge = arm * (arm - 1) // 2, arm * (arm + 1) // 2
+    grad = pairs_lt * (4 * 9 + 3 + 11) + pairs_ge * (9 + 5) + arm * arm \
+        + arm                                    # terms, sums, m dm_i
+    base = 0 if dof == arm else 8 + 3 * 6 + 1 + 2 * arm * 6
+    return fk + ee + gram + det + chol + solves + grad + base
+
+
+def check_k4_nan(label, qs, system=None) -> None:
+    """A NaN in one configuration's q (arm joint 3) at a few places -- the
+    first configuration of a block, one inside a block, the last (of a
+    partial block) -- gives NaN in that configuration's p and R and in the
+    arm columns of its jv and dm, and leaves every other configuration's
+    outputs bit-identical to the run without it: the block stages and
+    stores its configurations' outputs together.  (m is sqrt(max(det, 0))
+    with fmaxf, so it comes out 0 there, as from the kernel K4 replaced.)"""
+    from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    sy = system or PANDA
+    ref = kin_sweep(qs, sy)
+    flat = qs.reshape(-1, sy.dof).clone()
+    where = [0, 64 * 5 + 17, flat.shape[0] - 1]
+    flat[where, sy.base_dof + 3] = float("nan")
+    got = kin_sweep(flat.reshape(qs.shape), sy)
+    torch.cuda.synchronize()
+    bad = torch.zeros(flat.shape[0], dtype=torch.bool, device=qs.device)
+    bad[where] = True
+    names = ["p_ee", "r_ee", "jv", "jw", "manipul", "d_manipul"]
+    for name, g, r in zip(names, got, ref):
+        g = g.reshape(flat.shape[0], -1)
+        r = r.reshape(flat.shape[0], -1)
+        if not torch.equal(g[~bad], r[~bad]):
+            raise AssertionError(f"{label} NaN check: {name} of a "
+                                 "configuration without NaN changed")
+        # the base columns are constants (jv) or zero (dm)
+        arm = g[bad].reshape(len(where), -1, g.shape[1] // 3
+                             if name == "jv" else g.shape[1])
+        if name in ("jv", "d_manipul"):
+            arm = arm[..., sy.base_dof:]
+        if name not in ("jw", "manipul") \
+                and not bool(torch.isnan(arm).all()):
+            raise AssertionError(f"{label} NaN check: {name} of a NaN "
+                                 "configuration is not all NaN")
+    print(f"{label} NaN check: NaN in {len(where)} configurations' q "
+          f"(flat {where}) stays in them; every other configuration "
+          "bit-identical")
+
+
+def print_k4_launches() -> None:
+    """K4's launch for both systems at the batches this script runs: the
+    card's report (`mpcc_kin_launch_config`) held equal to the Python
+    mirror (`launch_geometry`), no local memory (stack or spill), at most
+    48 KB of shared memory and at least one block for every SM at batch
+    1024."""
+    from mpcc_manipulator_tpu_torch.ops import kinematics_kernel as kk
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    for sy, batches in ((PANDA, (BATCH,)), (mobile_system(), MOBILE_BATCHES)):
+        for batch in batches:
+            n = batch * KNOTS
+            cfg = kk.launch_config(sy, n)
+            mirror = kk.launch_geometry(sy, n)
+            print(f"K4 launch, {sy.name}, batch {batch}: {cfg['threads']} "
+                  f"threads, {cfg['configs_per_block']} configurations a "
+                  f"block, {cfg['blocks']} blocks, {cfg['blocks_per_sm']} "
+                  f"blocks an SM, {cfg['registers']} registers, "
+                  f"{cfg['local_bytes']} B local (stack and spills), "
+                  f"{cfg['shared_bytes']} B shared")
+            if any(cfg[k] != v for k, v in mirror.items()):
+                raise AssertionError(f"K4 launch, {sy.name}: the card "
+                                     f"reports {cfg}, the mirror {mirror}")
+            if cfg["local_bytes"] or cfg["shared_bytes"] > 48 * 1024 \
+                    or cfg["blocks_per_sm"] < 1 \
+                    or (batch == BATCH and cfg["blocks"] < cfg["sms"]):
+                raise AssertionError(f"K4 launch, {sy.name}: {cfg}")
 
 
 def main_path_inputs(problem, device, system=None, batch=BATCH):
@@ -1541,6 +1635,8 @@ def phase_k4_mobile(device) -> dict:
     ref = kin_sweep_plain(qs, sy)
     torch.cuda.synchronize()
     err, n_well, n_near, near = check_k4("K4-m", got, ref)
+    check_k4_nan("K4-m", qs, sy)
+    print_k4_launches()
     if not bool((got[5][..., :sy.base_dof] == 0).all()):
         raise AssertionError("K4-m: non-zero manipulability gradient on a "
                              "base column")
@@ -1552,10 +1648,10 @@ def phase_k4_mobile(device) -> dict:
     times = both_batches("K4-m", lambda b: kin_sweep(part[b], sy), 50,
                          lambda b: kin_sweep_plain(part[b], sy), 10,
                          "kin_kernel<")
-    # bytes: the configurations in, the six outputs out; operations: ~3.3
-    # kFLOP per configuration (the Panda's ~3 k and the base composition)
+    # bytes: the configurations in, the six outputs out; operations:
+    # k4_flops a configuration
     bounds = {b: bound(nbytes(part[b], *kin_sweep(part[b], sy)),
-                       3.3e3 * b * KNOTS) for b in MOBILE_BATCHES}
+                       k4_flops(sy.dof) * b * KNOTS) for b in MOBILE_BATCHES}
     return mobile_entry(
         "K4-m kinematics sweep, Husky+Panda (kin_sweep, system=HUSKY_PANDA)",
         "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",

@@ -35,8 +35,10 @@ from .problem import X0_HOME, X0_HOME_MOBILE, build_problem
 from .solver.qp_ipm_kernel import (launch_config, solve_qp_ipm_k,
                                    solve_qp_ipm_plain)
 from .system import HUSKY_PANDA, PANDA
+from .timing import cuda_ms
 
 TS = 0.01
+SYMBOLS = ("ipm_kernel",)
 FIELDS = ("dx_tilde", "du", "lam", "s_rows", "lam_rows", "iters", "solved",
           "mu")
 
@@ -62,36 +64,6 @@ def stage_qps(system, batch: int, dev):
                                        system=system)
 
 
-def use_sources(src_dir: str) -> str:
-    """Load the library built from ``src_dir``; returns ptxas's K1 lines
-    when it was built now."""
-    cuda_build._CSRC = src_dir
-    cuda_build.library.cache_clear()
-    _, log = cuda_build.build()
-    cuda_build.library()
-    lines, keep = [], False
-    for line in log.splitlines():
-        if "Compiling entry" in line:
-            keep = "ipm_kernel" in line
-        if keep and ("Compiling entry" in line or "Used" in line
-                     or "spill" in line):
-            lines.append(line.split("ptxas info    :")[-1].strip())
-    return "\n".join(lines)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", required=True,
@@ -106,7 +78,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     trees = {"base": args.base, "this": cuda_build._CSRC}
     for name, src in trees.items():
-        print(f"{name} ({src}) ptxas:\n{use_sources(src)}")
+        print(f"{name} ({src}) ptxas:\n"
+              f"{cuda_build.use_sources(src, SYMBOLS)}")
         for sy in (PANDA, HUSKY_PANDA):
             print(f"  {name} {sy.name} launch at N = 10: "
                   f"{launch_config(10, sy)}")
@@ -122,7 +95,7 @@ def main() -> None:
             wl = torch.clamp(cold_ref.lam_rows, 0.1, 100.0)
             out = {}
             for name, src in trees.items():
-                use_sources(src)
+                cuda_build.use_sources(src)
                 out[name] = (
                     solve_qp_ipm_k(qpk, system=sy, scheme=scheme),
                     solve_qp_ipm_k(qpk, warm_s=ws, warm_lam=wl, system=sy,
@@ -147,7 +120,7 @@ def main() -> None:
                 pw, pl = ws[:batch].contiguous(), wl[:batch].contiguous()
                 times = []
                 for name in ("base", "this", "this", "base"):
-                    use_sources(trees[name])
+                    cuda_build.use_sources(trees[name])
                     times.append((name, cuda_ms(lambda: solve_qp_ipm_k(
                         part, warm_s=pw, warm_lam=pl, system=sy,
                         scheme=scheme), args.reps)))

@@ -1,21 +1,26 @@
-"""K2 and K3 built from two source trees, compared on one GPU.
+"""K2, K3 and K4 built from two source trees, compared on one GPU.
 
     python -m mpcc_manipulator_tpu_torch.compare_k23 --base DIR
 
 ``DIR`` holds another tree's kernel sources (the ``csrc/*.cu`` of, for
 example, the parent commit, unpacked with ``git archive`` into a git-ignored
-directory); its ``mpcc_assembly`` and ``mpcc_eval_point`` must take the same
-C arguments as this tree's.  Both trees build into ``build/torch_kernels/``
-(the library name carries a hash of the sources).  On the first tick's
+directory); its ``mpcc_assembly``, ``mpcc_eval_point`` and
+``mpcc_kin_sweep`` must take the same C arguments as this tree's.  Both
+trees build into ``build/torch_kernels/`` (the library name carries a hash
+of the sources).  On the first tick's
 iterate at the perturbed home states (the Panda at batch 1024, the
 Husky+Panda at 4096 and 1024), with 0.02 N(0,1) trial points and five such
 candidates a scenario:
 
-* each build's ptxas report on ``assembly_kernel`` and ``eval_kernel``;
+* each build's ptxas report on ``assembly_kernel``, ``eval_kernel`` and
+  ``kin_kernel``, and this tree's K4 launch (``launch_config``);
 * K2's fifteen blocks, base against this tree, block by block: max |d| over
   max(1, max |block|), at the iterate and at the trial point;
 * K3's objective and violation at the trial points and the candidates: max
   |d| over max(1, |value|);
+* K4's six outputs on the first tick's knots (``k4_inputs``) and on a
+  spread draw about home: max |d| over max(1, max |output|), and which are
+  bit-identical;
 * each kernel's device time (``torch.profiler``), in turns: base, this
   tree, this tree, base;
 * with ``--host-base ROOT`` (the root of a whole other tree, for example
@@ -41,12 +46,14 @@ import torch
 
 from .ops import assembly_kernel as ak
 from .ops import cuda_build
+from .ops import kinematics_kernel as kk
 from .system import HUSKY_PANDA, PANDA
 from .timing import device_ms, host_us
 
 TS = 0.01
 CANDIDATES = 5
-SYMBOLS = ("assembly_kernel", "eval_kernel")
+SYMBOLS = ("assembly_kernel", "eval_kernel", "kin_kernel")
+K4_OUT = ("p_ee", "r_ee", "jv", "jw", "manipul", "d_manipul")
 
 
 def inputs(system, batch: int, dev, pkg: str = __package__):
@@ -80,6 +87,29 @@ def inputs(system, batch: int, dev, pkg: str = __package__):
     return track, params, z, zt, zc, cu, rb
 
 
+def k4_inputs(system, batch: int, dev, pkg: str = __package__) -> dict:
+    """K4's configurations (B, 11, dof), float32: ``"main path"``, the
+    first tick's knots (the cold-start horizon at ``batch`` home states +
+    0.01 N(0,1), seed 0, as :func:`inputs` makes them); ``"spread"``, home +
+    0.3 N(0,1) on every joint (seed 1, ``chip_smoke.py``'s draw)."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    mpc, problem = mod("mpc"), mod("problem")
+    track = problem.build_problem(torch.float32, dev, system=system)[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    home = (problem.X0_HOME if system.base_dof == 0
+            else problem.X0_HOME_MOBILE)
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(home[None] + 0.01 * rng.standard_normal(
+        (batch, home.size)), **f32)
+    z = mpc._unwrap_s(mpc._cold_start(x0, system), track.length, system)
+    xs, _ = mod("ocp.qp_data").split_z(z, system)
+    rng = np.random.default_rng(1)
+    spread = home[:system.dof] + 0.3 * rng.standard_normal(
+        (batch, xs.shape[1], system.dof))
+    return {"main path": xs[..., :system.dof].contiguous(),
+            "spread": torch.tensor(spread, **f32)}
+
+
 def load_tree(root: str, alias: str = "base_tree"):
     """The port's package of another whole tree (at ``root``), imported
     under ``alias`` beside this one (its modules import each other
@@ -95,16 +125,19 @@ def load_tree(root: str, alias: str = "base_tree"):
 
 
 def wrapper_calls(pkg: str, system_name: str, batch: int, dev) -> dict:
-    """K2 and K3 through package ``pkg``'s wrappers on :func:`inputs`'
-    draws (made with that package's modules)."""
+    """K2, K3 and K4 through package ``pkg``'s wrappers on :func:`inputs`'
+    and :func:`k4_inputs`' draws (made with that package's modules)."""
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")
     sy = mod("system").SYSTEMS[system_name]
     ak_ = mod("ops.assembly_kernel")
+    kk_ = mod("ops.kinematics_kernel")
     track, params, z, zt, _, cu, rb = inputs(sy, batch, dev, pkg)
+    q = k4_inputs(sy, batch, dev, pkg)["main path"]
     return {"K2": lambda: ak_.build_qp_stages_k_kernel(
                 track, z, rb, params, cu, TS, system=sy),
             "K3": lambda: ak_.eval_point_kernel(track, zt, rb, params, cu,
-                                                TS, sy)}
+                                                TS, sy),
+            "K4": lambda: kk_.kin_sweep(q, sy)}
 
 
 def host_times(base_root: str, dev, rounds: int = 5) -> None:
@@ -115,7 +148,7 @@ def host_times(base_root: str, dev, rounds: int = 5) -> None:
     for name, batch in ((PANDA.name, 1024), (HUSKY_PANDA.name, 4096)):
         calls = {t: wrapper_calls(pkg, name, batch, dev)
                  for t, pkg in trees.items()}
-        for kernel in ("K2", "K3"):
+        for kernel in ("K2", "K3", "K4"):
             runs = {"base": [], "this": []}
             for _ in range(rounds):
                 for t in ("base", "this", "this", "base"):
@@ -136,33 +169,18 @@ def first(case, b: int):
                         for f in dataclasses.fields(rb)}))
 
 
-def use_sources(src_dir: str) -> str:
-    """Load the library built from ``src_dir``; returns ptxas's lines on K2
-    and K3 when it was built now."""
-    cuda_build._CSRC = src_dir
-    cuda_build.library.cache_clear()
-    _, log = cuda_build.build()
-    cuda_build.library()
-    lines, keep = [], False
-    for line in log.splitlines():
-        if "Compiling entry" in line:
-            keep = any(s in line for s in SYMBOLS)
-        if keep and ("Compiling entry" in line or "Used" in line
-                     or "spill" in line):
-            lines.append(line.split("ptxas info    :")[-1].strip())
-    return "\n".join(lines)
-
-
-def run(case, system) -> dict:
+def run(case, system, qs: dict) -> dict:
     """K2 at the iterate and the trial point, K3 at the trial points and
-    the candidates."""
+    the candidates, K4 on each of ``qs``."""
     track, params, z, zt, zc, cu, rb = case
     k2 = lambda zz: ak.build_qp_stages_k_kernel(track, zz, rb, params, cu,
                                                 TS, system=system)
     k3 = lambda zz: ak.eval_point_kernel(track, zz, rb, params, cu, TS,
                                          system)
     out = {"K2 iterate": k2(z), "K2 trial": k2(zt), "K3 trial": k3(zt),
-           f"K3 x{CANDIDATES} candidates": k3(zc)}
+           f"K3 x{CANDIDATES} candidates": k3(zc),
+           **{f"K4 {what}": kk.kin_sweep(q, system)
+              for what, q in qs.items()}}
     torch.cuda.synchronize()
     return out
 
@@ -180,6 +198,8 @@ def compare(label: str, base: dict, this: dict) -> None:
         if what.startswith("K2"):
             rows = {f.name: gap(getattr(a, f.name), getattr(b, f.name))
                     for f in dataclasses.fields(a)}
+        elif what.startswith("K4"):
+            rows = {n: gap(x, y) for n, x, y in zip(K4_OUT, a, b)}
         else:
             rows = {"obj": gap(a[0], b[0]), "vio": gap(a[1], b[1])}
         worst = max(rows, key=lambda k: rows[k][1])
@@ -208,39 +228,51 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     trees = {"base": args.base, "this": cuda_build._CSRC}
     for name, src in trees.items():
-        print(f"{name} ({src}) ptxas:\n{use_sources(src)}")
+        print(f"{name} ({src}) ptxas:\n"
+              f"{cuda_build.use_sources(src, SYMBOLS)}")
+    for sy, batch in ((PANDA, 1024), (HUSKY_PANDA, 4096),
+                      (HUSKY_PANDA, 1024)):
+        print(f"this K4 launch, {sy.name}, batch {batch}: "
+              f"{kk.launch_config(sy, batch * (sy.horizon + 1))}")
 
     full = {PANDA.name: inputs(PANDA, 1024, dev),
             HUSKY_PANDA.name: inputs(HUSKY_PANDA, 4096, dev)}
-    shapes = [(PANDA, 1024, full[PANDA.name]),
-              (HUSKY_PANDA, 4096, full[HUSKY_PANDA.name]),
-              (HUSKY_PANDA, 1024, first(full[HUSKY_PANDA.name], 1024))]
-    for sy, batch, case in shapes[:2]:
+    kq = {PANDA.name: k4_inputs(PANDA, 1024, dev),
+          HUSKY_PANDA.name: k4_inputs(HUSKY_PANDA, 4096, dev)}
+    shapes = [(PANDA, 1024, full[PANDA.name], kq[PANDA.name]),
+              (HUSKY_PANDA, 4096, full[HUSKY_PANDA.name],
+               kq[HUSKY_PANDA.name]),
+              (HUSKY_PANDA, 1024, first(full[HUSKY_PANDA.name], 1024),
+               {k: q[:1024].contiguous()
+                for k, q in kq[HUSKY_PANDA.name].items()})]
+    for sy, batch, case, qs in shapes[:2]:
         out = {}
         for name, src in trees.items():
-            use_sources(src)
-            out[name] = run(case, sy)
+            cuda_build.use_sources(src)
+            out[name] = run(case, sy, qs)
         compare(f"{sy.name} at {batch}", out["base"], out["this"])
 
-    for sy, batch, case in shapes:
+    for sy, batch, case, qs in shapes:
         track, params, z, zt, zc, cu, rb = case
+        q = qs["main path"]
         calls = {
             "K2": (lambda: ak.build_qp_stages_k_kernel(
                 track, z, rb, params, cu, TS, system=sy), "assembly_kernel<"),
             "K3": (lambda: ak.eval_point_kernel(
                 track, zt, rb, params, cu, TS, sy), "eval_kernel<"),
             f"K3 x{CANDIDATES}": (lambda: ak.eval_point_kernel(
-                track, zc, rb, params, cu, TS, sy), "eval_kernel<")}
+                track, zc, rb, params, cu, TS, sy), "eval_kernel<"),
+            "K4": (lambda: kk.kin_sweep(q, sy), "kin_kernel<")}
         for what, (fn, symbol) in calls.items():
             times = []
             for name in ("base", "this", "this", "base"):
-                use_sources(trees[name])
+                cuda_build.use_sources(trees[name])
                 times.append((name, device_ms(fn, symbol, args.reps)))
             print(f"{sy.name} {what} at batch {batch}, device ms: "
                   + ", ".join(f"{n} {t:.4f}" for n, t in times))
 
     if args.host_base:
-        use_sources(trees["this"])
+        cuda_build.use_sources(trees["this"])
         host_times(args.host_base, dev)
 
 

@@ -107,6 +107,7 @@ _F = ctypes.c_float
 # Every C entry's (argument types, result type)
 _ENTRIES = {
     "mpcc_kin_sweep": ([_P, _P, _I, _I] + [_P] * 7, _I),
+    "mpcc_kin_launch_config": ([_I, _I, _P], _I),
     "mpcc_ipm_solve": ([_P] * 18 + [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
                        _I),
     "mpcc_ipm_launch_config": ([_I, _I, _P], _I),
@@ -133,6 +134,33 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
     return lib
+
+
+def ptxas_lines(log: str, symbols) -> str:
+    """ptxas's entry, register and spill lines, from a build log, on the
+    kernels whose names hold any of ``symbols``."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            keep = any(s in line for s in symbols)
+        if keep and ("Compiling entry" in line or "Used" in line
+                     or "spill" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return "\n".join(lines)
+
+
+def use_sources(src_dir: str, symbols=()) -> str:
+    """Build (if needed) and load the library from the kernel sources in
+    ``src_dir`` in place of this checkout's: another tree's ``csrc/``, or a
+    probe's edited copy (the comparison and probe tools; the wrappers call
+    whichever library is loaded).  Returns ptxas's lines on the kernels
+    named by ``symbols`` when the library was built now."""
+    global _CSRC
+    _CSRC = src_dir
+    library.cache_clear()
+    _, log = build()
+    library()
+    return ptxas_lines(log, symbols)
 
 
 def check(err: int, what: str) -> None:

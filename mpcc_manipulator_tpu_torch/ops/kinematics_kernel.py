@@ -14,7 +14,9 @@ version, :func:`kin_sweep_plain` (`models/kinematics.py` and
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import torch
 
@@ -46,16 +48,79 @@ def kin_sweep_plain(qs: torch.Tensor, system: System = PANDA):
 
 
 @functools.cache
-def _constants(device: str) -> torch.Tensor:
+def _constants(device: torch.device) -> torch.Tensor:
     return torch.tensor(kin.kinematics_constants(), dtype=torch.float32,
                         device=device)
+
+
+# The kernel's launch, as `csrc/kinematics.cu` fixes it: one thread a
+# configuration, K4_THREADS threads a block, the block's static shared
+# memory (floats) the constants and its share of the six outputs.
+K4_THREADS = 64
+NCONST = 96
+_LAUNCH = ("threads", "configs_per_block", "blocks", "shared_bytes",
+           "blocks_per_sm", "registers", "local_bytes", "sms")
+
+
+def out_widths(dof: int) -> tuple:
+    """Floats a configuration of each output: p, R, jv, jw, m, dm."""
+    return (3, 9, 3 * dof, 3 * dof, 1, dof)
+
+
+def launch_geometry(system: System, n: int) -> dict:
+    """K4's launch at ``n`` configurations, as the C entry computes it:
+    threads a block, configurations a block (one a thread), blocks, static
+    shared bytes a block."""
+    floats = NCONST + K4_THREADS * sum(out_widths(system.dof))
+    return dict(threads=K4_THREADS, configs_per_block=K4_THREADS,
+                blocks=-(-n // K4_THREADS), shared_bytes=4 * floats)
+
+
+def launch_config(system: System, n: int) -> dict:
+    """:func:`launch_geometry` as the card reports it
+    (`mpcc_kin_launch_config`), with the blocks an SM holds at once, the
+    kernel's registers and local-memory (stack and spill) bytes a thread,
+    and the card's SM count."""
+    out = (ctypes.c_int * len(_LAUNCH))()
+    cuda_build.check(cuda_build.library().mpcc_kin_launch_config(
+        cuda_build.system_id(system, "K4"), n, out), "K4 launch config")
+    return dict(zip(_LAUNCH, out))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(b: int, k: int, dof: int) -> tuple:
+    """(total floats, ((shape, stride, offset) of each output)): the six
+    outputs back to back in one buffer, each starting on a 16-byte
+    boundary (the kernel's 16-byte stores)."""
+    views, off = [], 0
+    for shape, width in zip(((b, k, 3), (b, k, 3, 3), (b, k, 3, dof),
+                             (b, k, 3, dof), (b, k), (b, k, dof)),
+                            out_widths(dof)):
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        views.append((shape, stride, off))
+        off += -(-b * k * width // 4) * 4
+    return off, tuple(views)
+
+
+def alloc_outputs(b: int, k: int, dof: int, device) -> tuple:
+    """K4's six outputs for (b, k) configurations: contiguous, disjoint
+    float32 views of one ``torch.empty`` (p, R, jv, jw, m, dm)."""
+    total, views = _layout(b, k, dof)
+    buf = torch.empty(total, dtype=torch.float32, device=device)
+    return tuple(buf.as_strided(shape, stride, off)
+                 for shape, stride, off in views)
+
+
+@functools.cache
+def _system_id(system: System) -> int:
+    return cuda_build.system_id(system, "K4")
 
 
 def kin_sweep(qs: torch.Tensor, system: System = PANDA):
     """K4 on CUDA (qs (B, K, dof) float32, contiguous); plain on CPU."""
     if qs.device.type == "cpu":
         return kin_sweep_plain(qs, system)
-    sid = cuda_build.system_id(system, "K4")
+    sid = _system_id(system)
     if qs.device.type != "cuda":
         raise ValueError(f"kin_sweep: unsupported device {qs.device}")
     if qs.dtype != torch.float32 or qs.dim() != 3 \
@@ -64,23 +129,16 @@ def kin_sweep(qs: torch.Tensor, system: System = PANDA):
                          f"float32 (B, K, {system.dof}) tensor, got "
                          f"{qs.dtype} {tuple(qs.shape)}")
     b, k, dof = qs.shape
-    kw = dict(dtype=torch.float32, device=qs.device)
-    p_ee = torch.empty(b, k, 3, **kw)
-    r_ee = torch.empty(b, k, 3, 3, **kw)
-    jv = torch.empty(b, k, 3, dof, **kw)
-    jw = torch.empty(b, k, 3, dof, **kw)
-    m = torch.empty(b, k, **kw)
-    dm = torch.empty(b, k, dof, **kw)
-    consts = _constants(str(qs.device))
+    outs = alloc_outputs(b, k, dof, qs.device)
+    base = outs[0].data_ptr()
     lib = cuda_build.library()
     kin_sweep.launches += 1
     err = lib.mpcc_kin_sweep(
-        qs.data_ptr(), consts.data_ptr(), b * k, sid,
-        p_ee.data_ptr(), r_ee.data_ptr(), jv.data_ptr(), jw.data_ptr(),
-        m.data_ptr(), dm.data_ptr(),
+        qs.data_ptr(), _constants(qs.device).data_ptr(), b * k, sid,
+        *(base + 4 * off for _, _, off in _layout(b, k, dof)[1]),
         torch.cuda.current_stream(qs.device).cuda_stream)
     cuda_build.check(err, "K4 kinematics kernel")
-    return p_ee, r_ee, jv, jw, m, dm
+    return outs
 
 
 kin_sweep.launches = 0

@@ -135,14 +135,14 @@ def variants(dev, reps: int) -> None:
         trees[f"{s} x {t}"] = _copy(f"s{s}_t{t}", _shape_edits(s, t))
     names = list(trees)
     for name in names:
-        ck.use_sources(trees[name])
+        cuda_build.use_sources(trees[name])
     for sy, batch, case in _cases(dev):
         fn = _k2(case, sy)
-        ck.use_sources(SRC)
+        cuda_build.use_sources(SRC)
         ref = fn()
         times = []
         for name in names + names[:1]:
-            ck.use_sources(trees[name])
+            cuda_build.use_sources(trees[name])
             out = fn()
             torch.cuda.synchronize()
             if not all(torch.equal(getattr(out, f), getattr(ref, f))
@@ -155,7 +155,7 @@ def variants(dev, reps: int) -> None:
 
 
 def phases(dev) -> None:
-    ck.use_sources(_copy("phases", _PHASE_EDITS, _READ_CLOCKS))
+    cuda_build.use_sources(_copy("phases", _PHASE_EDITS, _READ_CLOCKS))
     lib = cuda_build.library()
     lib.mpcc_probe_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.mpcc_probe_clocks.restype = ctypes.c_int

@@ -2,7 +2,8 @@
 kinematics kernel and the XLA reference, and the RobotData A/B.
 
 The CUDA kernel itself is compared with this plain version on the card by
-``chip_smoke.py`` (there is no CUDA compiler on the CPU test machines).
+``chip_smoke.py`` (there is no CUDA compiler on the CPU test machines);
+here its launch mirror and its output allocation are checked.
 
 Tolerances:
 * float32 vs `kin_sweep(interpret=True)`: the JAX kernel test's contract
@@ -24,9 +25,10 @@ from mpcc_manipulator_tpu.ocp.robot_data import \
 from mpcc_manipulator_tpu.ops import pallas_kinematics as pkin
 from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
 from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
-from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import (kin_sweep,
-                                                              kin_sweep_plain)
-from mpcc_manipulator_tpu_torch.problem import X0_HOME
+from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import (
+    alloc_outputs, kin_sweep, kin_sweep_plain, launch_geometry)
+from mpcc_manipulator_tpu_torch.problem import X0_HOME, X0_HOME_MOBILE
+from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA, PANDA
 
 torch.set_num_threads(1)
 
@@ -100,3 +102,63 @@ def test_robot_data_matches_jax(obs):
         assert g.shape == r.shape, f
         scale = max(1.0, float(np.abs(r).max()))
         assert float(np.abs(g - r).max()) <= 1e-9 * scale, f
+
+
+# ---- the CUDA kernel's launch and output layout, checked on the CPU (the
+# kernel itself runs only on the card)
+
+SYSTEMS = [PANDA, HUSKY_PANDA]
+
+
+@pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
+def test_launch_geometry_whole_configurations_within_budget(system):
+    """Each block holds whole configurations (one a thread, whole warps),
+    stays within 48 KB of static shared memory, covers every configuration
+    exactly, and the Panda's batch 1024 (11 knots) launches at least one
+    block per SM of an H100 (132) for either system."""
+    for batch in (1024, 4096):
+        n = batch * 11
+        g = launch_geometry(system, n)
+        assert g["threads"] % 32 == 0
+        assert g["configs_per_block"] == g["threads"]
+        assert g["shared_bytes"] <= 48 * 1024
+        assert (g["blocks"] - 1) * g["configs_per_block"] < n \
+            <= g["blocks"] * g["configs_per_block"]
+    assert launch_geometry(system, 1024 * 11)["blocks"] >= 132
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
+def test_alloc_outputs_views(system, batch):
+    """One allocation, six contiguous, disjoint float32 views with K4's
+    shapes, each starting on a 16-byte boundary."""
+    k, dof = 11, system.dof
+    outs = alloc_outputs(batch, k, dof, "cpu")
+    shapes = [(batch, k, 3), (batch, k, 3, 3), (batch, k, 3, dof),
+              (batch, k, 3, dof), (batch, k), (batch, k, dof)]
+    assert [tuple(t.shape) for t in outs] == shapes
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in outs)
+    base = outs[0].untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in outs)
+    spans = sorted((t.storage_offset(), t.storage_offset() + t.numel())
+                   for t in outs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(t.storage_offset() % 4 == 0 for t in outs)
+    for i, t in enumerate(outs):            # writing one leaves the others
+        t.fill_(float(i))
+    assert all(bool((t == float(i)).all()) for i, t in enumerate(outs))
+
+
+@pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
+def test_wrapper_is_plain_version_on_cpu_f32(system):
+    """kin_sweep on a CPU float32 (B, K, dof) tensor is kin_sweep_plain,
+    bit for bit, at both systems' dims."""
+    rng = np.random.default_rng(7)
+    home = X0_HOME_MOBILE if system.base_dof else X0_HOME
+    qs = torch.tensor(home[:system.dof]
+                      + 0.3 * rng.standard_normal((4, 11, system.dof)),
+                      dtype=torch.float32)
+    before = kin_sweep.launches
+    for g, r in zip(kin_sweep(qs, system), kin_sweep_plain(qs, system)):
+        assert g.dtype == torch.float32 and torch.equal(g, r)
+    assert kin_sweep.launches == before
