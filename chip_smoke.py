@@ -86,6 +86,26 @@ Phases (the first failure exits non-zero and prints no result line):
     further from it than twice the plain solve, in split Newton counts and
     in |d du|; and the Husky+Panda RTI loop tick by tick from the GPU run's
     inputs (20 ticks, q over all 10 joints).
+15. every path at N = 5 and N = 20 (both systems, batch 1024): K1 against
+    its plain version in both schemes, cold and warm, at K1's tolerances
+    (its warm adaptive solve timed), then 10 RTI ticks of ``mpc_step`` at
+    that N (K1-K4 once a tick), 8 lanes tick by tick in float64 on the CPU;
+16. the plain RobotData route (``kin_backend="xla"``) on the card in
+    float64 with ``mani_grad`` fd and ad against K4 on the main path's
+    first-tick knots at K4's contract, then 10 RTI ticks with
+    ``kin_backend="xla", mani_grad="fd"`` (K1-K3 once a tick, K4 never);
+17. ``sim.closed_loop_scan`` at batch 1024, 10 ticks (K1-K4 once a tick),
+    bit-identical to the same ticks through ``mpc_step``; its ticks/s;
+18. the reference surface ``api.MPCC`` at batch 1, the verify recipe (30
+    ticks from home on the repo's track): in JAX's default configuration
+    (the converged dense ADMM path with the plain loop, the plain
+    kinematics with the finite-difference gradient, float64: no kernel),
+    and in float32 with ``sqp_cfg = SQPConfig()`` (K1-K4 once a tick);
+    every tick ok, s strictly increasing, each tick held against
+    ``MPCC(device="cpu")`` in float64 from the card's state, input and
+    carry (the envelope; the largest gap printed); the tick's median and
+    p99 against Ts; then 10 ticks with ``runMPC(profile=True)``, the phase
+    split printed.
 
 Each kernel is timed three ways: its own device time (``torch.profiler``'s
 events of its symbol; ``ms`` and ``device_ms``), the wrapper's time (CUDA
@@ -164,6 +184,8 @@ MOBILE_IPM_TOL = 1e-3
 # 8 blocks an SM (28,160 B of shared memory a block) and no local memory
 K1_BLOCKS_PER_SM = 8
 K1_SMEM_BUDGET = 28160
+# K1's stop test: mu below EPS_IPM (and the row residual below 2e-4)
+K1_EPS_IPM = 1e-5
 # K1's launch is printed at these horizons (ROADMAP item 13)
 K1_HORIZONS = (5, 10, 20)
 # the K1-h warm solves' times before its redesign for its dims, at batch
@@ -183,6 +205,18 @@ K5_RES = (1e-3, 1e-2)
 K5_CLUSTERS = {"random": (0, 4), "tiny": (0, 2, 4, 8), "ragged": (0, 2, 4, 8),
                "mpcc_sized": (0, 8)}
 K5_ALT_CLUSTER = 8     # the other cluster size that holds the MPCC size
+# the reference surface (api.MPCC) at batch 1: the verify recipe's ticks,
+# then ticks with runMPC(profile=True)
+API_TICKS = 30
+API_PROFILE_TICKS = 10
+# every path at these horizons besides N = 10 (ROADMAP item 13): K1 against
+# its plain version and RTI ticks, both systems
+HORIZONS = (5, 20)
+HORIZON_BATCH = 1024
+HORIZON_TICKS = 10
+# the plain kinematics route's RTI loop, and closed_loop_scan's ticks
+PLAIN_KIN_TICKS = 10
+SCAN_TICKS = 10
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -1982,6 +2016,425 @@ def phase_cpu_check_mobile(inputs, states_gpu, iters_gpu):
                   states_gpu[:, :CHECK_LANES], dof=sy.dof)
 
 
+# ------------------------------------------------------------ the surfaces
+
+
+def verify_recipe(gpu, cpu, ticks: int, label: str, card: str,
+                  want: dict) -> dict:
+    """``ticks`` ticks of the verify recipe (home state, the repo's track,
+    the RK4 plant in float64 on the host) through ``gpu.runMPC`` on the
+    card, the counts set to 0 just before and read just after; every tick
+    ok and s strictly increasing, the launches ``want``.  Then each tick
+    again on ``cpu`` (`MPCC(device="cpu")`, float64) from the card's state,
+    input and carry of that tick, the plant states held to the envelope.
+    Returns the card's tick times (ms) and the last state, input and
+    carry."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry
+    plant = lambda x, u: sim_time_step(
+        torch.tensor(x, dtype=torch.float64)[None],
+        torch.tensor(u, dtype=torch.float64)[None], TS)[0].numpy()
+    snapshot = lambda c: MPCCarry(**{
+        f.name: getattr(c, f.name).cpu() for f in dataclasses.fields(c)})
+    x, u = home(), np.zeros(8)
+    inputs, states, ticks_ms, oks, iters = [], [], [], [], []
+    reset_counts()
+    for _ in range(ticks):
+        inputs.append((x, u, snapshot(gpu._carry)))
+        ok, x_upd, u, _, ct = gpu.runMPC(x, u)
+        x = plant(x_upd, u)
+        oks.append(ok)
+        states.append(x)
+        ticks_ms.append(ct["total"] * 1e3)
+        iters.append((ct["sqp_iters"], ct["qp_iters"]))
+    launches = read_counts()
+    s = np.array([st[7] for st in states])
+    if not all(oks) or not np.isfinite(states).all():
+        raise AssertionError(f"{label}: not ok at ticks "
+                             f"{[t for t, o in enumerate(oks) if not o]}")
+    if not (np.diff(s) > 0).all():
+        raise AssertionError(f"{label}: s not strictly increasing: {s}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    f64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
+    ref = []
+    for x_in, u_in, carry in inputs:
+        cpu._carry = MPCCarry(**{f.name: f64(getattr(carry, f.name))
+                                 for f in dataclasses.fields(carry)})
+        ok, x_upd, u_out, _, _ = cpu.runMPC(x_in, u_in)
+        if not ok:
+            raise AssertionError(f"{label}: the CPU float64 tick not ok")
+        ref.append(plant(x_upd, u_out))
+    gaps = envelope_gaps(f"{label}, tick by tick",
+                         torch.tensor(np.stack(ref))[:, None],
+                         torch.tensor(np.stack(states))[:, None])
+    med, p99 = (float(np.median(ticks_ms[1:])),
+                float(np.percentile(ticks_ms[1:], 99)))
+    print(f"{label}, batch 1 x {ticks} ticks on {card}: all ok; s "
+          f"{s[0]:.5f} -> {s[-1]:.5f}, strictly increasing; tick median "
+          f"{med:.3f} ms, p99 {p99:.3f} ms (of {len(ticks_ms) - 1} ticks; "
+          f"first {ticks_ms[0]:.1f} ms) against Ts = {TS * 1e3:.0f} ms; "
+          f"(SQP, QP) iterations a tick {iters}; launches {launches}")
+    return dict(median_ms=med, p99_ms=p99, launches=launches, gaps=gaps,
+                state=x, input=u)
+
+
+def profiled_ticks(mpc, x, u, ticks: int, label: str, want: dict) -> dict:
+    """``ticks`` more ticks with ``runMPC(profile=True)``: every tick ok,
+    every phase time positive; the mean phase split printed."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.solver.sqp_debug import ComputeTime
+    phases = [f.name for f in dataclasses.fields(ComputeTime)]
+    sums = {}
+    reset_counts()
+    for _ in range(ticks):
+        ok, x_upd, u, _, ct = mpc.runMPC(x, u, profile=True)
+        if not ok or not all(ct[k] > 0 for k in phases):
+            raise AssertionError(f"{label} profiled: ok {ok}, times {ct}")
+        for k in phases:
+            sums[k] = sums.get(k, 0.0) + ct[k] * 1e3 / ticks
+        x = sim_time_step(torch.tensor(x_upd)[None], torch.tensor(u)[None],
+                          TS)[0].numpy()
+    launches = read_counts()
+    if launches != want:
+        raise AssertionError(f"{label} profiled: launches {launches}, "
+                             f"expected {want}")
+    print(f"{label}, runMPC(profile=True), mean of {ticks} ticks (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sums.items())
+          + f"; launches {launches}")
+    return sums
+
+
+def phase_api(card) -> dict:
+    """(a) ``MPCC()`` on the card in JAX's default configuration (the
+    converged dense ADMM path with the plain loop, the plain kinematics with
+    the finite-difference gradient, float64; no kernel on this path), and
+    (b) ``MPCC(dtype=float32)`` with ``sqp_cfg = SQPConfig()`` (the bench
+    configuration at batch 1: K1-K4 once a tick); each held tick by tick
+    against ``MPCC(device="cpu")`` in float64 in its configuration, then
+    profiled."""
+    from mpcc_manipulator_tpu_torch.api import MPCC
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    none = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    out = {}
+    for name, dtype, cfg in (("reference", torch.float64, None),
+                             ("bench", torch.float32, SQPConfig())):
+        gpu, cpu = MPCC(dtype=dtype), MPCC(device="cpu")
+        if cfg is not None:
+            gpu.sqp_cfg = cpu.sqp_cfg = cfg
+        gpu.setTrack(home())
+        cpu.setTrack(home())
+        label = f"api.MPCC ({name} configuration, {str(dtype)[6:]})"
+        per_tick = none if cfg is None else dict(none, K1=1, K2=1, K3=1, K4=1)
+        want = lambda n: {k: v * n for k, v in per_tick.items()}
+        run = verify_recipe(gpu, cpu, API_TICKS, label, card, want(API_TICKS))
+        run["phases"] = profiled_ticks(gpu, run["state"], run["input"],
+                                       API_PROFILE_TICKS, label,
+                                       want(API_PROFILE_TICKS))
+        out[name] = run
+    return out
+
+
+def cpu_tick_by_tick(label, inputs, states_gpu, iters_gpu, cfg, system):
+    """A loop's ``CHECK_LANES`` lanes tick by tick from the card's inputs
+    (state, input, carry) through the plain path in float64 on the CPU,
+    every lane-tick held to the envelope."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import MPCCarry, mpc_step
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    problem64 = build_problem(torch.float64, "cpu", system=system)
+    f64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
+    obs = torch.tensor([[3.0, 3.0, 3.0]] * CHECK_LANES, dtype=torch.float64)
+    rad = torch.zeros(CHECK_LANES, dtype=torch.float64)
+    states, iters = [], []
+    for x, u, carry in inputs:
+        carry64 = MPCCarry(**{f.name: f64(getattr(carry, f.name))
+                              for f in dataclasses.fields(MPCCarry)})
+        _, out = mpc_step(*problem64, carry64, f64(x), f64(u), obs, rad,
+                          ts=TS, cfg=cfg, system=system)
+        if not bool(out.ok.all()):
+            raise AssertionError(f"CPU float64 check ({label}): a lane was "
+                                 "not ok")
+        states.append(sim_time_step(out.x0_updated, out.u0, TS))
+        iters.append(out.qp_iters)
+    split_at = (torch.stack(iters)
+                != iters_gpu[:, :CHECK_LANES]).nonzero().tolist()
+    print(f"  {label} tick by tick, (tick, lane) whose Newton iterations "
+          f"differ from float64: {split_at or 'none'}")
+    return envelope_gaps(f"{label}, tick by tick", torch.stack(states),
+                         states_gpu[:, :CHECK_LANES], dof=system.dof)
+
+
+def ipm_f64_gaps(label, qpk, warm, sol, ref, system, scheme) -> dict:
+    """K1's solution ``sol`` and the plain float32 solve's ``ref`` on the
+    card, each against the plain solve in float64 on the CPU on the same
+    QPs and warm start (ROADMAP section 3, F1): the QPs whose Newton count
+    differs from float64's and the largest |d du|, each; and the lane where
+    the kernel and the plain solve differ most.  Printed and returned."""
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
+        solve_qp_ipm_plain)
+    f64 = lambda t: t.cpu().to(torch.float64)
+    ref64 = solve_qp_ipm_plain(
+        type(qpk)(**{f.name: f64(getattr(qpk, f.name))
+                     for f in dataclasses.fields(qpk)}),
+        system=system, scheme=scheme, **{k: f64(v) for k, v in warm.items()})
+    out = {name: (int((got.iters.cpu() != ref64.iters).sum()),
+                  float((f64(got.du) - ref64.du).abs().max()))
+           for name, got in (("kernel", sol), ("plain", ref))}
+    lane = int((sol.du - ref.du).abs().flatten(1).amax(1).argmax())
+    dist = lambda a, b: float((f64(a.du[lane]) - f64(b.du[lane])).abs().max())
+    print(f"  {label} against float64 on the CPU: Newton counts differ on "
+          f"{out['kernel'][0]} (kernel) and {out['plain'][0]} (plain "
+          f"float32) of {ref64.iters.numel()} QPs, max |d du| "
+          f"{out['kernel'][1]:.3e} and {out['plain'][1]:.3e}; lane {lane} "
+          f"(kernel and plain furthest apart): iterations "
+          f"{int(sol.iters[lane])} / {int(ref.iters[lane])} / "
+          f"{int(ref64.iters[lane])} (kernel / plain / float64), |d du| "
+          f"kernel-plain {dist(sol, ref):.3e}, kernel-float64 "
+          f"{dist(sol, ref64):.3e}, plain-float64 {dist(ref, ref64):.3e}")
+    return out
+
+
+def compare_ipm_split(label, qpk, warm, sol, ref, system, scheme, step_tol,
+                      duals) -> int:
+    """K1's solution against its plain version's at another horizon: the
+    contract of :func:`compare_ipm` (iteration counts within +-1, identical
+    verdicts, steps within ``step_tol``, the duals as there) on every lane
+    where the two end on the same Newton count.  Where they end one
+    iteration apart, the stop test (mu < 1e-5, residual < 2e-4) flipped
+    under float32 rounding (ROADMAP section 3, F1): there the solve that
+    stopped first must have met the test (mu < 1e-5), and the kernel's
+    iterate is held to the float64 solve stopped after the kernel's own
+    count of iterations: within ``step_tol``, or, as F1 holds K1 on the
+    near-flat QPs, no further from it than ``MEHROTRA_SPLIT_RATIO`` times
+    the plain float32 solve stopped there; the lane is printed.  Returns the
+    number of such lanes."""
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
+        solve_qp_ipm_plain)
+    d_it = int((sol.iters - ref.iters).abs().max())
+    if d_it > 1 or not bool((sol.solved == ref.solved).all()):
+        raise AssertionError(f"K1 {label}: iteration counts differ by {d_it}"
+                             f" or verdicts differ")
+    same = sol.iters == ref.iters
+    pick = lambda r, m: type(r)(**{f.name: getattr(r, f.name)[m]
+                                   for f in dataclasses.fields(r)})
+    compare_ipm(f"{label}, {int(same.sum())} lanes on the plain solve's "
+                f"count", pick(sol, same), pick(ref, same), step_tol, duals)
+    lanes = (~same).nonzero()[:, 0].tolist()
+    f64 = lambda t: t.cpu().to(torch.float64)
+    for lane in lanes:
+        early = sol if int(sol.iters[lane]) < int(ref.iters[lane]) else ref
+        if not float(early.mu[lane]) < K1_EPS_IPM:
+            raise AssertionError(f"K1 {label} lane {lane}: the solve that "
+                                 f"stopped first did not meet the stop test "
+                                 f"(mu {float(early.mu[lane]):.4e})")
+        one = torch.tensor([lane], device=sol.du.device)
+        k = int(sol.iters[lane])
+        lane_qp = type(qpk)(**{f.name: getattr(qpk, f.name)[one]
+                               for f in dataclasses.fields(qpk)})
+        lane_warm = {key: v[one] for key, v in warm.items()}
+        ref64 = solve_qp_ipm_plain(
+            type(qpk)(**{f.name: f64(getattr(lane_qp, f.name))
+                         for f in dataclasses.fields(qpk)}),
+            max_iter=k, system=system, scheme=scheme,
+            **{key: f64(v) for key, v in lane_warm.items()})
+        plain_k = solve_qp_ipm_plain(lane_qp, max_iter=k, system=system,
+                                     scheme=scheme, **lane_warm)
+        gap = lambda a: max(float((f64(a.du) - ref64.du).abs().max()),
+                            float((f64(a.dx_tilde)
+                                   - ref64.dx_tilde).abs().max()))
+        e_kernel, e_plain = gap(pick(sol, one)), gap(plain_k)
+        print(f"  K1 {label}, lane {lane}: {k} Newton iterations (the plain "
+              f"float32 solve {int(ref.iters[lane])}); mu at the stop "
+              f"{float(sol.mu[lane]):.4e} (float64 after as many "
+              f"{float(ref64.mu[0]):.4e}, the test's bound {K1_EPS_IPM}); "
+              f"|d du, d dx| to that float64 iterate: kernel {e_kernel:.3e}, "
+              f"the plain float32 solve stopped there {e_plain:.3e}")
+        if not e_kernel <= max(step_tol, MEHROTRA_SPLIT_RATIO * e_plain):
+            raise AssertionError(
+                f"K1 {label} lane {lane}: {e_kernel:.3e} from the float64 "
+                f"iterate, above {step_tol} and {MEHROTRA_SPLIT_RATIO}x the "
+                f"plain float32 solve's {e_plain:.3e}")
+    return len(lanes)
+
+
+def phase_horizons(problem, mproblem, device, card) -> dict:
+    """(c) K1 at N = 5 and N = 20 for both systems against its plain
+    version, both schemes, cold and warm, at K1's tolerances (the Panda's:
+    steps 5e-4, duals 0.5; the Husky+Panda's: steps 1e-3), its warm
+    adaptive solve timed; then ``HORIZON_TICKS`` RTI ticks of
+    ``mpc_step`` at that N (K1-K4 once a tick), 8 lanes tick by tick in
+    float64 on the CPU.  Returns {system name: {N: K1 device ms}}."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
+        launch_config, solve_qp_ipm_k, solve_qp_ipm_plain)
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    out, splits = {}, 0
+    for base, prob, tol, duals in ((PANDA, problem, 5e-4, True),
+                                   (mobile_system(), mproblem,
+                                    MOBILE_IPM_TOL, False)):
+        out[base.name] = {}
+        for n in HORIZONS:
+            sy = dataclasses.replace(base, horizon=n)
+            label = f"{base.name}, N = {n}"
+            cfg = launch_config(n, sy)
+            print(f"K1 launch, {label}: {cfg}")
+            qpk = stage_qp_batch(prob, device, sy, HORIZON_BATCH)
+            for scheme in ("adaptive", "mehrotra"):
+                ref = solve_qp_ipm_plain(qpk, system=sy, scheme=scheme)
+                sol = solve_qp_ipm_k(qpk, system=sy, scheme=scheme)
+                torch.cuda.synchronize()
+                ipm_f64_gaps(f"K1 {label} {scheme} cold", qpk, {}, sol, ref,
+                             sy, scheme)
+                splits += compare_ipm_split(f"{label} {scheme} cold", qpk, {},
+                                            sol, ref, sy, scheme, tol, duals)
+                warm = dict(warm_s=torch.clamp(ref.s_rows, 0.1, 100.0),
+                            warm_lam=torch.clamp(ref.lam_rows, 0.1, 100.0))
+                ref = solve_qp_ipm_plain(qpk, system=sy, scheme=scheme,
+                                         **warm)
+                sol = solve_qp_ipm_k(qpk, system=sy, scheme=scheme, **warm)
+                torch.cuda.synchronize()
+                ipm_f64_gaps(f"K1 {label} {scheme} warm", qpk, warm, sol, ref,
+                             sy, scheme)
+                splits += compare_ipm_split(f"{label} {scheme} warm", qpk,
+                                            warm, sol, ref, sy, scheme, tol,
+                                            duals)
+                if scheme == "adaptive":
+                    t = kernel_times(lambda: solve_qp_ipm_k(
+                        qpk, system=sy, **warm), "ipm_kernel<", 20)
+                    out[base.name][n] = t["ms"]
+                    print(f"K1 warm adaptive solve, {label}, batch "
+                          f"{HORIZON_BATCH} (mean "
+                          f"{sol.iters.double().mean():.3f} iterations): "
+                          f"{times_text(t)}")
+            x0 = perturbed_states(HORIZON_BATCH, torch.float32, device, sy)
+            reset_counts()
+            times, oks, states, iters, _, inputs = closed_loop(
+                prob, x0, HORIZON_TICKS, SQPConfig(), record=CHECK_LANES,
+                system=sy)
+            launches = read_counts()
+            check_ok(f"RTI, {label}", oks, states)
+            want = dict(K1=HORIZON_TICKS, K2=HORIZON_TICKS, K3=HORIZON_TICKS,
+                        K4=HORIZON_TICKS, K5=0)
+            if launches != want:
+                raise AssertionError(f"RTI, {label}: launches {launches}, "
+                                     f"expected {want}")
+            s = states[:, :, sy.s_idx]
+            print(f"RTI (K1-K4), {label}, {HORIZON_BATCH} x {HORIZON_TICKS} "
+                  f"ticks on {card}: all ok; median tick "
+                  f"{statistics.median(times[1:]) * 1e3:.3f} ms; mean IPM "
+                  f"iters {iters.float().mean():.2f}, max "
+                  f"{int(iters.max())}; s {float(s[0].mean()):.5f} -> "
+                  f"{float(s[-1].mean()):.5f}; launches {launches}")
+            cpu_tick_by_tick(f"RTI, {label}", inputs, states, iters,
+                             SQPConfig(), sy)
+    print(f"K1 at N = {HORIZONS}: {splits} lanes of "
+          f"{16 * HORIZON_BATCH} solves ended one Newton iteration apart "
+          f"from the plain float32 solve (held to float64 at their count)")
+    return out
+
+
+def phase_plain_robot_data(problem, device, card) -> None:
+    """(d) The plain RobotData route (``kin_backend="xla"``) on the card
+    with ``mani_grad`` fd and ad, in float64, against the K4 route at the
+    main path's first-tick knots of 1024 scenarios, at K4's contract; then
+    ``PLAIN_KIN_TICKS`` RTI ticks with ``kin_backend="xla"``,
+    ``mani_grad="fd"`` (K1-K3 once a tick, K4 never)."""
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    _, _, sel64, env64 = build_problem(torch.float64, device)
+    _, _, _, _, rb = main_path_inputs(problem, device, batch=BATCH)
+    qs = rb.q
+    k4 = (rb.ee_pos, rb.ee_rot, rb.jv, rb.jw, rb.manipul, rb.d_manipul)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], dtype=torch.float64,
+                       device=device).expand(BATCH, 3)
+    rad = torch.zeros(BATCH, dtype=torch.float64, device=device)
+    for grad in ("fd", "ad"):
+        plain = lambda: compute_robot_data(
+            qs.double(), obs, rad, sel64, env64, mani_grad=grad,
+            kin_backend="xla")
+        rb64 = plain()
+        ref = tuple(t.float() for t in (
+            rb64.ee_pos, rb64.ee_rot, rb64.jv, rb64.jw, rb64.manipul,
+            rb64.d_manipul))
+        err, n_well, n_near, near = check_k4(f"K4 against the plain route "
+                                             f"({grad})", k4, ref)
+        print(f"plain RobotData route (mani_grad={grad}, float64) on "
+              f"{card} at {tuple(qs.shape)} against K4: max|err| {err:.3e} "
+              f"on {n_well} configurations; {n_near} with m < "
+              f"{K4_SINGULAR_BELOW}: max|err| m {near[0]:.3e}, dm "
+              f"{near[1]:.3e}; {cuda_time(plain, 5):.4f} ms a call")
+    x0 = perturbed_states(BATCH, torch.float32, device)
+    reset_counts()
+    times, oks, states, iters, _, _ = closed_loop(
+        problem, x0, PLAIN_KIN_TICKS,
+        SQPConfig(kin_backend="xla", mani_grad="fd"))
+    launches = read_counts()
+    check_ok("RTI, plain kinematics (fd)", oks, states)
+    want = dict(K1=PLAIN_KIN_TICKS, K2=PLAIN_KIN_TICKS, K3=PLAIN_KIN_TICKS,
+                K4=0, K5=0)
+    if launches != want:
+        raise AssertionError(f"RTI, plain kinematics (fd): launches "
+                             f"{launches}, expected {want}")
+    s = states[:, :, 7]
+    print(f"RTI (K1-K3, plain kinematics, mani_grad=fd) {BATCH} x "
+          f"{PLAIN_KIN_TICKS} ticks on {card}: all ok; median tick "
+          f"{statistics.median(times[1:]) * 1e3:.3f} ms; s "
+          f"{float(s[0].mean()):.5f} -> {float(s[-1].mean()):.5f}; "
+          f"launches {launches}")
+
+
+def phase_scan(problem, device, card) -> dict:
+    """(e) ``sim.closed_loop_scan`` at batch 1024 (the counts set to 0 just
+    before and read just after: K1-K4 once a tick), its states and inputs
+    equal, bit for bit, to the same ticks driven through ``mpc_step`` and
+    the plant step."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.sim import closed_loop_scan
+    track, params, sel_nn, env_nn = problem
+    x0 = perturbed_states(BATCH, torch.float32, device)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], device=device).expand(BATCH, 3)
+    rad = torch.zeros(BATCH, device=device)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, us, _, oks, fin = closed_loop_scan(
+        track, params, sel_nn, env_nn, x0, obs, rad, n_steps=SCAN_TICKS,
+        ts=TS, cfg=SQPConfig())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict(K1=SCAN_TICKS, K2=SCAN_TICKS, K3=SCAN_TICKS, K4=SCAN_TICKS,
+                K5=0)
+    if launches != want or not bool(oks.all()):
+        raise AssertionError(f"closed_loop_scan: launches {launches} "
+                             f"(expected {want}), all ok {bool(oks.all())}")
+    carry = init_carry(BATCH, torch.float32, device)
+    x, u = x0, torch.zeros(BATCH, 8, device=device)
+    ref_x, ref_u = [], []
+    for _ in range(SCAN_TICKS):
+        carry, out = mpc_step(track, params, sel_nn, env_nn, carry, x, u,
+                              obs, rad, ts=TS, cfg=SQPConfig())
+        u = out.u0
+        x = sim_time_step(out.x0_updated, u, TS)
+        ref_x.append(x)
+        ref_u.append(u)
+    same = (torch.equal(xs, torch.stack(ref_x, 1))
+            and torch.equal(us, torch.stack(ref_u, 1)))
+    if not same or bool(fin.any()):
+        raise AssertionError(
+            f"closed_loop_scan: states equal to mpc_step's {same}, lanes "
+            f"finished {int(fin[:, -1].sum())}")
+    print(f"closed_loop_scan (RTI, K1-K4) {BATCH} x {SCAN_TICKS} ticks on "
+          f"{card}: all ok, states and inputs bit-identical to mpc_step's "
+          f"ticks; {SCAN_TICKS / secs:.2f} ticks/s, "
+          f"{BATCH * SCAN_TICKS / secs:.1f} solves/s; launches {launches}")
+    return dict(ticks_per_s=SCAN_TICKS / secs, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2036,6 +2489,12 @@ def main() -> int:
     phase_cpu_check_admm(inputs_admm, states_admm)
     phase_cpu_check_mobile(mobile["inputs"], mobile["states"],
                            mobile["iters"])
+    horizon_ms = phase_horizons(problem, mproblem, device, card)
+    kernels[0]["horizon_device_ms"] = horizon_ms["panda"]
+    mkernels[0]["horizon_device_ms"] = horizon_ms["husky_panda"]
+    phase_plain_robot_data(problem, device, card)
+    phase_scan(problem, device, card)
+    phase_api(card)
 
     print(f"command time {time.perf_counter() - t_start:.1f} s")
     print(card)

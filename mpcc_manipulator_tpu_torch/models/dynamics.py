@@ -51,6 +51,11 @@ def rk4_step(x: torch.Tensor, u: torch.Tensor, ts) -> torch.Tensor:
     return x + ts * (k1 / 6.0 + k2 / 3.0 + k3 / 3.0 + k4 / 6.0)
 
 
+def euler_step(x: torch.Tensor, u: torch.Tensor, ts) -> torch.Tensor:
+    """Forward-Euler step."""
+    return x + ts * dynamics_f(x, u)
+
+
 def sim_time_step(x: torch.Tensor, u: torch.Tensor, ts: float,
                   fine_step: float = FINE_TIME_STEP) -> torch.Tensor:
     """Plant integration: repeated RK4 at 1 ms substeps."""

@@ -7,9 +7,11 @@ flange->hand->TCP transform gives the end-effector frame.  The constant
 tables below are also the data the K4 CUDA kernel reads
 (:func:`kinematics_constants`), so they are written down once.
 
-The manipulability gradient is the analytic closed form (a dJ/dq
-cross-product tensor and one damped 6x6 Cholesky solve), the only variant
-the port's main path runs.
+The manipulability gradient comes in the JAX package's three variants:
+the analytic closed form (a dJ/dq cross-product tensor and one damped 6x6
+Cholesky solve; the K4 route and the bench configuration), the reference's
+central finite difference and the exact autodiff gradient (the plain
+RobotData route, ``kin_backend="xla"``).
 """
 
 from __future__ import annotations
@@ -91,6 +93,11 @@ def ee_position(q: torch.Tensor) -> torch.Tensor:
     return fk_chain(q)[0]
 
 
+def ee_orientation(q: torch.Tensor) -> torch.Tensor:
+    """End-effector rotation matrix, world frame."""
+    return fk_chain(q)[1]
+
+
 def ee_jacobian(q: torch.Tensor) -> torch.Tensor:
     """(..., 6, 7) point Jacobian ``[Jv; Jw]`` of the TCP."""
     p_ee, _, origins, axes = fk_chain(q)
@@ -112,6 +119,30 @@ def _det_psd6(a: torch.Tensor) -> torch.Tensor:
             m = (m[..., 1:, 1:]
                  - col[..., :, None] * col[..., None, :] / safe[..., None, None])
     return torch.clamp(det, min=0.0)
+
+
+def manipulability(q: torch.Tensor) -> torch.Tensor:
+    """Yoshikawa manipulability ``sqrt(det(J J'))`` of the 6x7 TCP
+    Jacobian, q (..., 7) -> (...)."""
+    j = ee_jacobian(q)
+    return torch.sqrt(_det_psd6(j @ j.transpose(-1, -2)))
+
+
+def manipulability_gradient_fd(q: torch.Tensor,
+                               delta: float = 1e-4) -> torch.Tensor:
+    """Central finite-difference gradient of :func:`manipulability` (the
+    reference's ``dManipulability``, delta 1e-4): the 14 shifted
+    configurations of each q (..., 7) go through one batched FK sweep."""
+    eye = torch.eye(PANDA_DOF, dtype=q.dtype, device=q.device) * delta
+    m = manipulability(torch.cat([q[..., None, :] + eye,
+                                  q[..., None, :] - eye], dim=-2))
+    return (m[..., :PANDA_DOF] - m[..., PANDA_DOF:]) / (2.0 * delta)
+
+
+def manipulability_gradient_ad(q: torch.Tensor) -> torch.Tensor:
+    """Exact gradient of :func:`manipulability` by autodiff, q (..., 7)."""
+    grad = torch.func.vmap(torch.func.grad(manipulability))
+    return grad(q.reshape(-1, PANDA_DOF)).reshape(q.shape)
 
 
 def _cholesky6(a: torch.Tensor) -> torch.Tensor:

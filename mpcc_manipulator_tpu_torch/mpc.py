@@ -112,44 +112,51 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
              u0: torch.Tensor, obs_pos: torch.Tensor,
              obs_radius: torch.Tensor, ts: float = 0.01,
              cfg: SQPConfig = SQPConfig(), exact_heading_jac: bool = False,
-             system: System = PANDA) -> tuple[MPCCarry, MPCOutput]:
-    """One MPC tick for every scenario; returns the new carry and output."""
+             system: System = PANDA, timer=None
+             ) -> tuple[MPCCarry, MPCOutput]:
+    """One MPC tick for every scenario; returns the new carry and output.
+    ``timer`` (a `solver.sqp_debug.PhaseTimer`) times the tick's phases:
+    set_env (steps 1-4) and the SQP loop's (`solver/sqp.py::solve_ocp`)."""
     sqp_mod.check_supported(cfg, system)
+    phase = timer.phase if timer is not None else sqp_mod.no_phase
     dof = system.dof
     q = x0[:, :dof]
     dq = u0[:, :dof]
 
-    # --- 1. projection + vs re-derivation
-    last_s = x0[:, system.s_idx]
-    if system.base_dof == 0:
-        p_ee, _, origins, axes = kin.fk_chain(q)
-        jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)  # (B,7,3)
-    else:
-        p_ee = kinm.ee_position(q)
-        jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)          # (B,10,3)
-    s_proj = als.project_on_spline(track, last_s, p_ee,
-                                   params.model.max_dist_proj)
-    vs = ((dq[:, :, None] * jv).sum(1)
-          * als.track_derivative(track, s_proj)).sum(-1)
-    x0_new = x0.clone()
-    x0_new[:, system.s_idx] = s_proj
-    x0_new[:, system.vs_idx] = vs
+    with phase("set_env"):
+        # --- 1. projection + vs re-derivation
+        last_s = x0[:, system.s_idx]
+        if system.base_dof == 0:
+            p_ee, _, origins, axes = kin.fk_chain(q)
+            jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)
+        else:
+            p_ee = kinm.ee_position(q)
+            jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)      # (B,10,3)
+        s_proj = als.project_on_spline(track, last_s, p_ee,
+                                       params.model.max_dist_proj)
+        vs = ((dq[:, :, None] * jv).sum(1)
+              * als.track_derivative(track, s_proj)).sum(-1)
+        x0_new = x0.clone()
+        x0_new[:, system.s_idx] = s_proj
+        x0_new[:, system.vs_idx] = vs
 
-    # --- 2. warm-start invalidation on a projection jump
-    jumped = torch.abs(last_s - s_proj) > params.model.max_dist_proj
-    valid = carry.valid_guess & ~jumped
-    n_failed = carry.num_guess_failed + jumped.to(torch.int32)
+        # --- 2. warm-start invalidation on a projection jump
+        jumped = torch.abs(last_s - s_proj) > params.model.max_dist_proj
+        valid = carry.valid_guess & ~jumped
+        n_failed = carry.num_guess_failed + jumped.to(torch.int32)
 
-    # --- 3. warm start selection
-    z_warm = _unwrap_s(_shift_warm_start(carry.z_guess, x0_new, ts, system),
-                       track.length, system)
-    z_cold = _unwrap_s(_cold_start(x0_new, system), track.length, system)
-    z0 = torch.where(valid[:, None], z_warm, z_cold)
+        # --- 3. warm start selection
+        z_warm = _unwrap_s(_shift_warm_start(carry.z_guess, x0_new, ts,
+                                             system), track.length, system)
+        z_cold = _unwrap_s(_cold_start(x0_new, system), track.length, system)
+        z0 = torch.where(valid[:, None], z_warm, z_cold)
 
-    # --- 4. per-tick RobotData (frozen linearization cache)
-    xs0, _ = qp_data.split_z(z0, system)
-    rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos, obs_radius,
-                            sel_nn, env_nn, system)
+        # --- 4. per-tick RobotData (frozen linearization cache)
+        xs0, _ = qp_data.split_z(z0, system)
+        rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos,
+                                obs_radius, sel_nn, env_nn, system,
+                                mani_grad=cfg.mani_grad,
+                                kin_backend=cfg.kin_backend)
 
     # --- 5. SQP (QP and IPM warm state carried across ticks; zeros / ones
     # on a cold start)
@@ -162,7 +169,7 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
         ipm_s0=torch.where(v3, carry.ipm_s, torch.ones_like(carry.ipm_s)),
         ipm_lam0=torch.where(v3, carry.ipm_lam,
                              torch.ones_like(carry.ipm_lam)),
-        system=system)
+        system=system, timer=timer)
 
     # --- 6. status machine
     solved = res.success

@@ -3,9 +3,17 @@
 
 Computed once per tick at the warm-start guess and frozen for the whole SQP
 iteration (reference semantics).  The kinematic half (FK, point Jacobian,
-manipulability and its analytic gradient) comes from the K4 sweep
-(`ops/kinematics_kernel.py`: the CUDA kernel for CUDA tensors, its plain
-version on the CPU); the NN half is batched ``torch`` matmuls.
+manipulability and its gradient) takes one of two routes, as in JAX
+(``kin_backend``):
+
+* ``"pallas"``: the K4 sweep (`ops/kinematics_kernel.py`: the CUDA kernel
+  for CUDA tensors, its plain version on the CPU), analytic gradient only;
+* ``"xla"``: plain PyTorch on any device, with the gradient ``mani_grad``
+  names (``"fd"``, ``"ad"`` or ``"analytic"``; JAX `_single_knot`).  The
+  mobile system takes the arm's autodiff gradient whatever ``mani_grad``
+  says (JAX `_single_knot_mobile`).
+
+The NN half is batched ``torch`` matmuls on either route.
 
 For the mobile system (JAX `_nn_knot`, ``base_dof != 0``):
 
@@ -25,8 +33,9 @@ import dataclasses
 import torch
 
 from ..models import collision_nn as cnn
+from ..models import kinematics as kin
 from ..models import kinematics_mobile as kinm
-from ..ops.kinematics_kernel import kin_sweep
+from ..ops.kinematics_kernel import kin_sweep, kin_sweep_plain
 from ..system import PANDA, System
 
 
@@ -91,14 +100,67 @@ def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
             d_env.reshape(b, k, n_links, dof).contiguous())
 
 
+MANI_GRADS = ("fd", "ad", "analytic")
+KIN_BACKENDS = ("pallas", "xla")
+
+
+def check_kin_route(mani_grad: str, kin_backend: str,
+                    system: System = PANDA) -> None:
+    """The JAX package's ``ValueError`` where it raises one: K4 computes
+    the analytic gradient only, so the fixed base's fd and ad gradients
+    take the plain route."""
+    if kin_backend == "pallas" and system.base_dof == 0 \
+            and mani_grad != "analytic":
+        raise ValueError(
+            "kin_backend='pallas' implements the analytic manipulability"
+            " gradient only; set mani_grad='analytic' (or kin_backend="
+            "'xla' for the fd/ad variants)")
+
+
+def _kin_half_plain(qs: torch.Tensor, mani_grad: str, system: System):
+    """The plain kinematic half over configurations qs (..., dof): ``(p_ee,
+    r_ee, jv, jw, manipul, d_manipul)``, K4's outputs (with the analytic
+    gradient on the fixed base, K4's plain version)."""
+    if system.base_dof != 0:
+        q_arm = qs[..., system.arm_slice]
+        j = kinm.ee_jacobian(qs)
+        d_arm = kin.manipulability_gradient_ad(q_arm)
+        return (kinm.ee_position(qs), kinm.ee_orientation(qs), j[..., :3, :],
+                j[..., 3:, :], kin.manipulability(q_arm),
+                torch.cat([d_arm.new_zeros(d_arm.shape[:-1]
+                                           + (system.base_dof,)), d_arm],
+                          dim=-1))
+    if mani_grad == "analytic":
+        return kin_sweep_plain(qs, system)
+    p_ee, r_ee, origins, axes = kin.fk_chain(qs)
+    jv = torch.linalg.cross(axes, p_ee[..., None, :] - origins)
+    d_mani = (kin.manipulability_gradient_fd(qs) if mani_grad == "fd"
+              else kin.manipulability_gradient_ad(qs))
+    return (p_ee, r_ee, jv.transpose(-1, -2), axes.transpose(-1, -2),
+            kin.manipulability(qs), d_mani)
+
+
 def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
                        obs_radius: torch.Tensor, sel_nn: cnn.CollisionMLP,
-                       env_nn: cnn.CollisionMLP,
-                       system: System = PANDA) -> RobotData:
+                       env_nn: cnn.CollisionMLP, system: System = PANDA,
+                       mani_grad: str = "analytic",
+                       kin_backend: str = "pallas") -> RobotData:
     """The full cache for joint configurations ``qs`` (B, K, dof), one
-    obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,))."""
+    obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,)); the
+    kinematic half by the ``kin_backend`` route with the ``mani_grad``
+    gradient."""
+    if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
+        raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
+                         f"{kin_backend!r}: the port runs {MANI_GRADS} / "
+                         f"{KIN_BACKENDS}")
+    check_kin_route(mani_grad, kin_backend, system)
     b, k, _ = qs.shape
-    p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system)
+    if kin_backend == "pallas":
+        p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system)
+    else:
+        # contiguous, as K2 and K3 read them
+        p_ee, r_ee, jv, jw, mani, d_mani = (
+            t.contiguous() for t in _kin_half_plain(qs, mani_grad, system))
     sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn, system)
     return RobotData(
         q=qs, ee_pos=p_ee, ee_rot=r_ee, jv=jv, jw=jw,

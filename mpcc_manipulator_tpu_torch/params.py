@@ -132,14 +132,18 @@ class SQPConfig:
     The defaults are the JAX bench's configuration: real-time iteration
     (one warm-started SQP iteration per tick), the structured interior-point
     QP through the K1 kernel route with adaptive centering, the K4
-    kinematics route with the analytic manipulability gradient, and the K2
-    assembly / K3 line-search route (``qp_assembly="pallas"``; ``"xla"``
-    selects the plain assembly and evaluation).  The converged mode is
-    ``rti=False`` with ``max_iter`` up to 20 (the bench's ``MPCC_RTI=0``).
+    kinematics route (``kin_backend="pallas"``) with the analytic
+    manipulability gradient, and the K2 assembly / K3 line-search route
+    (``qp_assembly="pallas"``; ``"xla"`` selects the plain assembly and
+    evaluation).  ``kin_backend="xla"`` is the plain kinematics route, with
+    ``mani_grad`` ``"fd"`` (the reference's central difference), ``"ad"``
+    (autodiff) or ``"analytic"``.  The converged mode is ``rti=False`` with
+    ``max_iter`` up to 20 (the bench's ``MPCC_RTI=0``).
     ``qp_solver="admm"`` (with ``qp_assembly="xla"``) selects the dense
     ADMM path: ``qp_backend="pallas"`` runs the K5 route (its plain version
-    for CPU tensors), ``"xla"`` the plain float64-capable loop on CPU
-    tensors only; ``use_BFGS`` is an option of this path.
+    for CPU tensors), ``"xla"`` the plain loop in the caller's dtype on any
+    device; ``use_BFGS`` is an option of this path.  The JAX package's own
+    default, which its ``api.MPCC`` runs, is :func:`reference_sqp_config`.
     """
 
     max_iter: int = 1
@@ -164,6 +168,22 @@ class SQPConfig:
     ipm_interpret: bool | None = None
     qp_assembly: str = "pallas"
     kin_backend: str = "pallas"
+
+
+# The JAX `SQPConfig()` where it differs from the bench configuration: the
+# converged dense ADMM path with the plain loop, the plain kinematics with
+# the finite-difference gradient, a cold interior point.
+_REFERENCE_STRUCTURE = dict(rti=False, qp_solver="admm", qp_backend="xla",
+                            qp_assembly="xla", kin_backend="xla",
+                            mani_grad="fd", ipm_warm_start=False)
+
+
+def reference_sqp_config(loaded: SQPConfig) -> SQPConfig:
+    """The JAX package's default `SQPConfig`, which its ``api.MPCC`` runs,
+    with the sqp.json keys (``max_iter``, ``line_search_max_iter``,
+    ``do_SOC``, ``use_BFGS``) of ``loaded``, :func:`load_params`'s
+    config."""
+    return dataclasses.replace(loaded, **_REFERENCE_STRUCTURE)
 
 
 _X_KEYS = ["q1", "q2", "q3", "q4", "q5", "q6", "q7", "s", "vs"]

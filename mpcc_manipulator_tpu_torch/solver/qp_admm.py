@@ -12,8 +12,9 @@ of the reference's time limit: running out of iterations is not a failure.
 Two routes run the iteration chunks (``backend``):
 
 * ``"xla"``: the plain chunk loop in the input dtype, each lane frozen once
-  it is done (lane for lane the JAX ``vmap(while_loop)``); the float64
-  conformance route.  CPU tensors only.
+  it is done (lane for lane the JAX ``vmap(while_loop)``), on any device;
+  the float64 conformance route, and the route of the JAX package's
+  ``api.MPCC`` default.
 * ``"pallas"``: K5 (`ops/admm_kernel.fused_admm`), one launch for phase 1
   and one for phase 2, in float32, with the kernel's own entry test; the
   residuals are then recomputed in the caller's dtype to decide ``done``.
@@ -51,17 +52,13 @@ class QPSolution:
     dual_res: torch.Tensor   # (B,)
 
 
-def check_route(backend: str, device) -> None:
-    """Raise unless ``backend`` runs on ``device``: ``"xla"`` (the plain
-    loop) on the CPU only, ``"pallas"`` (K5, or its plain version for CPU
-    tensors) anywhere."""
+def check_route(backend: str) -> None:
+    """Raise unless ``backend`` is one the port runs: ``"xla"`` (the plain
+    loop) or ``"pallas"`` (K5, or its plain version for CPU tensors), on
+    any device."""
     if backend not in BACKENDS:
         raise ValueError(f"qp_backend {backend!r}: the port runs "
                          f"{BACKENDS} (no interpret mode exists)")
-    if backend == "xla" and torch.device(device).type != "cpu":
-        raise ValueError("qp_backend='xla' (the plain ADMM loop) runs on "
-                         "CPU tensors only; on the GPU use "
-                         "qp_backend='pallas' (the K5 kernel)")
 
 
 def _tT(m: torch.Tensor) -> torch.Tensor:
@@ -156,7 +153,7 @@ def solve_qp(p, q, a, l, u, max_iter: int = 400, check_every: int = 25,
     The default is the cold start (x = z = y = 0).  ``x_warm``/``y_warm``
     (unscaled, (B, n) / (B, m)) warm-start the splitting.
     """
-    check_route(backend, p.device)
+    check_route(backend)
     dtype = p.dtype
     b, m, n = a.shape
 

@@ -12,7 +12,7 @@ Two bodies, routed by ``cfg.qp_solver``:
 * ``"admm"``: the dense QP (``build_qp``) -> optional damped BFGS update of
   the Lagrangian Hessian -> NaN / positive-definiteness guard (jittered
   Cholesky) -> ADMM QP solve (K5 for ``qp_backend="pallas"``, the plain
-  loop for ``"xla"`` on the CPU), warm-started from the last QP's primal
+  loop for ``"xla"``), warm-started from the last QP's primal
   and dual -> optional second-order correction (a cold re-solve) -> filter
   or l1-merit line search on the plain evaluation -> step and dual update;
 
@@ -28,13 +28,15 @@ horizon is the zero-velocity guess (all knots at x0, inputs zero).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
 from ..ocp import qp_data
 from ..ocp import qp_stages as qps
-from ..ocp.robot_data import RobotData
+from ..ocp.robot_data import (KIN_BACKENDS, MANI_GRADS, RobotData,
+                              check_kin_route)
 from ..ops import assembly_kernel as ak
 from ..ops.admm_kernel import mv
 from ..params import MPCCParams, SQPConfig
@@ -69,6 +71,11 @@ class SQPResult:
     ipm_lam: torch.Tensor           # (B, N+1, nc_stage) IPM duals
 
 
+def no_phase(name: str):
+    """The phase context of an untimed tick: nothing."""
+    return contextlib.nullcontext()
+
+
 def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
     """Raise the JAX package's ``ValueError`` for an inconsistent
     configuration, and ``NotImplementedError`` for every configuration the
@@ -82,6 +89,7 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
         raise ValueError(
             "qp_assembly='pallas' requires qp_solver='riccati_pallas' "
             "(the kernel assembly emits the kernel-direct StageQPK blocks)")
+    check_kin_route(cfg.mani_grad, cfg.kin_backend, system)
     if cfg.use_BFGS and cfg.qp_solver.startswith("riccati"):
         raise ValueError(
             "use_BFGS requires the dense ADMM backend (qp_solver='admm'): "
@@ -92,20 +100,21 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
             cfg.qp_assembly not in ("pallas", "xla"),
         "ipm_scheme other than 'adaptive' or 'mehrotra'":
             cfg.ipm_scheme not in SCHEMES,
-        "qp_backend other than 'pallas' (K5) or 'xla' (plain, CPU)":
+        "qp_backend other than 'pallas' (K5) or 'xla' (the plain loop)":
             cfg.qp_backend not in qp_admm.BACKENDS,
         "line_search other than 'filter' or 'merit'":
             cfg.line_search not in ("filter", "merit"),
         "fleet_mode (the port's loops are per-lane masked already; "
         "ROADMAP 'not to port')": cfg.fleet_mode,
         "nn_bf16 (ROADMAP 'not to port')": cfg.nn_bf16,
-        "mani_grad other than 'analytic' (ROADMAP item 11)":
-            cfg.mani_grad != "analytic",
+        "mani_grad other than 'fd', 'ad' or 'analytic'":
+            cfg.mani_grad not in MANI_GRADS,
         "qp_solver other than the K1 route 'riccati_pallas' (the plain "
         "version runs for CPU tensors) or 'admm'":
             cfg.qp_solver not in ("riccati_pallas", "admm"),
         "kin_backend other than the K4 route 'pallas' (the plain version "
-        "runs for CPU tensors)": cfg.kin_backend != "pallas",
+        "runs for CPU tensors) or the plain route 'xla'":
+            cfg.kin_backend not in KIN_BACKENDS,
         "ipm_interpret (no interpret mode exists in the port)":
             cfg.ipm_interpret is not None,
         "max_iter < 1": cfg.max_iter < 1,
@@ -224,16 +233,19 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
               qp_y0: torch.Tensor | None = None,
               ipm_s0: torch.Tensor | None = None,
               ipm_lam0: torch.Tensor | None = None,
-              system: System = PANDA) -> SQPResult:
+              system: System = PANDA, timer=None) -> SQPResult:
     """Run the SQP loop from the warm-start iterates ``z0`` (B, n_var).
 
     ``qp_x0``/``qp_y0``: (B, n_var) / (B, n_constr) warm start of the first
     ADMM solve (zeros = cold).  ``ipm_s0``/``ipm_lam0``: packed
     (B, N+1, nc_stage) interior-point iterates, consumed when
     ``cfg.ipm_warm_start`` is set (ones = cold).  Each path passes the
-    other's warm state through unchanged.
+    other's warm state through unchanged.  ``timer`` (a
+    `sqp_debug.PhaseTimer`) times the phases set_qp (assembly), solve_qp
+    (the QP solves) and get_alpha (the line search) of every iteration.
     """
     check_supported(cfg, system)
+    phase = timer.phase if timer is not None else no_phase
     dtype, dev = z0.dtype, z0.device
     bsz = z0.shape[0]
     n_var, n_constr = system.n_var, system.n_constr
@@ -310,20 +322,23 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
 
     def riccati_iteration(st: _LoopState) -> _LoopState:
         z = st.z
-        rep = assemble(track, z, rb, params, current_u, ts,
-                       exact_heading_jac, system)
-        has_nan = (nanany(rep.hxx) | nanany(rep.gx) | nanany(rep.cpx)
-                   | nanany(rep.d_p) | nanany(rep.d_xu) | nanany(rep.d_xl))
-        sol = solve(rep, clip(st.ipm_s), clip(st.ipm_lam))
-        qp_used = sol.iters
-        if cfg.do_SOC:
-            # re-solve against the corrected offsets, warm-started from the
-            # first solve; the step is the second solve's
-            rep_soc = _soc_corrected_rep(rep, sol, z, track.length, params,
-                                         system)
-            sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
-                        clip(sol.lam_rows.to(dtype)))
-            qp_used = qp_used + sol.iters
+        with phase("set_qp"):
+            rep = assemble(track, z, rb, params, current_u, ts,
+                           exact_heading_jac, system)
+            has_nan = (nanany(rep.hxx) | nanany(rep.gx) | nanany(rep.cpx)
+                       | nanany(rep.d_p) | nanany(rep.d_xu)
+                       | nanany(rep.d_xl))
+        with phase("solve_qp"):
+            sol = solve(rep, clip(st.ipm_s), clip(st.ipm_lam))
+            qp_used = sol.iters
+            if cfg.do_SOC:
+                # re-solve against the corrected offsets, warm-started from
+                # the first solve; the step is the second solve's
+                rep_soc = _soc_corrected_rep(rep, sol, z, track.length,
+                                             params, system)
+                sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
+                            clip(sol.lam_rows.to(dtype)))
+                qp_used = qp_used + sol.iters
         ipm_s, ipm_lam = st.ipm_s, st.ipm_lam
         if cfg.ipm_warm_start:
             # carry the iterates forward; frozen on a NaN and on a diverged
@@ -344,7 +359,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
             q_dot, quad = _stage_model_terms(rep, sol, system)
             return obj0, vio0, q_dot.to(dtype), quad.to(dtype)
 
-        alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
+        with phase("get_alpha"):
+            alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
         prim_norm = alpha * torch.abs(step).amax(-1)
         converged = (prim_norm < sqp.eps_prim) | cfg.rti
         return dataclasses.replace(
@@ -359,38 +375,42 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
 
     def admm_iteration(st: _LoopState) -> _LoopState:
         z = st.z
-        p_mat, qvec, a_mat, lvec, uvec, obj, constr = qp_data.build_qp(
-            track, z, rb, params, current_u, ts, exact_heading_jac, system)
-        hess, grad_l = p_mat, st.grad_l
-        if cfg.use_BFGS:
-            grad_l = qvec + mv(a_mat.transpose(-1, -2), st.lam)
-            hess = torch.where(
-                (st.it == 0)[:, None, None], p_mat,
-                _bfgs_update(st.hess, st.step_prev, grad_l - st.grad_l))
-        guard_fail, guard_status = _hessian_guard(hess)
+        with phase("set_qp"):
+            p_mat, qvec, a_mat, lvec, uvec, obj, constr = qp_data.build_qp(
+                track, z, rb, params, current_u, ts, exact_heading_jac,
+                system)
+            hess, grad_l = p_mat, st.grad_l
+            if cfg.use_BFGS:
+                grad_l = qvec + mv(a_mat.transpose(-1, -2), st.lam)
+                hess = torch.where(
+                    (st.it == 0)[:, None, None], p_mat,
+                    _bfgs_update(st.hess, st.step_prev, grad_l - st.grad_l))
+            guard_fail, guard_status = _hessian_guard(hess)
 
-        # QP solve, warm-started from the last QP's primal and dual
-        warm = (dict(x_warm=st.qp_x, y_warm=st.qp_y) if cfg.qp_warm_start
-                else {})
-        qp_sol = solve_dense(hess, qvec, a_mat, lvec - constr, uvec - constr,
-                             **warm)
-        step, y_qp = qp_sol.x, qp_sol.y
-        if cfg.do_SOC:
-            # second-order correction: constraints re-evaluated at z + dz,
-            # d = c(z + dz) - A dz, and a cold re-solve
-            c_soc, l_soc, u_soc = qp_data.constraint_values(
-                track, z + qp_data.denormalize_step(step, params, system),
-                rb, params, current_u, ts, system)
-            d = c_soc - mv(a_mat, step)
-            qp_sol2 = solve_dense(hess, qvec, a_mat, l_soc - d, u_soc - d)
-            step, y_qp = qp_sol2.x, qp_sol2.y
+        with phase("solve_qp"):
+            # QP solve, warm-started from the last QP's primal and dual
+            warm = (dict(x_warm=st.qp_x, y_warm=st.qp_y)
+                    if cfg.qp_warm_start else {})
+            qp_sol = solve_dense(hess, qvec, a_mat, lvec - constr,
+                                 uvec - constr, **warm)
+            step, y_qp = qp_sol.x, qp_sol.y
+            if cfg.do_SOC:
+                # second-order correction: constraints re-evaluated at
+                # z + dz, d = c(z + dz) - A dz, and a cold re-solve
+                c_soc, l_soc, u_soc = qp_data.constraint_values(
+                    track, z + qp_data.denormalize_step(step, params, system),
+                    rb, params, current_u, ts, system)
+                d = c_soc - mv(a_mat, step)
+                qp_sol2 = solve_dense(hess, qvec, a_mat, l_soc - d, u_soc - d)
+                step, y_qp = qp_sol2.x, qp_sol2.y
         dz = qp_data.denormalize_step(step, params, system)
 
         def merit_terms():
             return (obj, qp_data.constraint_norm(constr, lvec, uvec),
                     (qvec * step).sum(-1), (step * mv(hess, step)).sum(-1))
 
-        alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
+        with phase("get_alpha"):
+            alpha, f_obj, f_vio, f_cnt = line_search(z, dz, st, merit_terms)
         prim_norm = alpha * torch.abs(step).amax(-1)
         converged = (prim_norm < sqp.eps_prim) | cfg.rti
         a_col = alpha[:, None]

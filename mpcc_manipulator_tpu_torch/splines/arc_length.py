@@ -10,11 +10,13 @@ reference's early-exit and give-back-the-guess semantics, per lane.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
 
 from ..config import N_SPLINE
+from ..utils import so3
 from .cubic import (CubicSplineCoeffs, HostCubicSpline, spline_derivative,
                     spline_second_derivative, spline_value)
 from .rotation import (RotSplineCoeffs, _np_log_rot_vec, rot_spline_derivative,
@@ -108,6 +110,18 @@ def gen_6d_spline(x, y, z, rotations, dtype=torch.float64,
         s_knots=t(s_reg),
         length=t(float(s_reg[-1])),
     )
+
+
+def load_track_waypoints(file: str):
+    """Raw track waypoints ``(x, y, z, rotations (n, 3, 3))`` from a
+    reference-format JSON file (keys X/Y/Z/quat_X..quat_W), as float64
+    numpy."""
+    with open(file, "r") as f:
+        js = json.load(f)
+    x, y, z = (np.asarray(js[k], dtype=np.float64) for k in "XYZ")
+    quat = np.stack([js[f"quat_{k}"] for k in "XYZW"], axis=1)
+    quat = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    return x, y, z, so3.quat_to_rot(torch.tensor(quat)).numpy()
 
 
 def shift_track_to(x, y, z, position):

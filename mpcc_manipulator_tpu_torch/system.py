@@ -7,7 +7,10 @@
   joints + arm (state ``[x_b, y_b, th_b, q(7), s, vs]``, input
   ``[dx_b, dy_b, dth_b, dq(7), dVs]``).
 
-``horizon`` stays a field, but only N=10 is exercised.
+``horizon`` is the MPC horizon N, a field like the others:
+``dataclasses.replace(PANDA, horizon=20)`` runs the whole tick at N = 20
+(the kernels take N at run time).  The dense ADMM QP (``ocp/qp_data.py::
+build_qp``) stays at the Panda at N = 10, as in JAX.
 """
 
 from __future__ import annotations

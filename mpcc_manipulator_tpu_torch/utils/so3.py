@@ -1,8 +1,9 @@
 """SO(3) primitives, batched over leading dims (`mpcc_manipulator_tpu/utils/so3.py`).
 
-hat/vee, Log (three branches), Exp (Rodrigues), and both right-Jacobian
-inverse variants: the exact one and the reference implementation's sign
-variant (the default, ``exact_heading_jac=False``).  Branches are
+hat/vee, Log (three branches), Exp (Rodrigues), both right-Jacobian
+inverse variants (the exact one and the reference implementation's sign
+variant, the default, ``exact_heading_jac=False``), and the quaternion
+conversions.  Branches are
 ``torch.where`` selections with NaN-safe arguments, as in the JAX version.
 """
 
@@ -120,3 +121,35 @@ def right_jacobian_inverse_ref(phi: torch.Tensor) -> torch.Tensor:
     has ``-``), kept for trajectory conformance with the C++ engine."""
     return _jr_inv_with_coef(phi, +1.0)
 
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (x, y, z, w) (..., 4), normalized first -> rotation
+    matrices (..., 3, 3)."""
+    x, y, z, w = (q / torch.linalg.vector_norm(q, dim=-1,
+                                               keepdim=True)).unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def rot_to_quat(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (x, y, z, w) with
+    w >= 0: each component's magnitude from the diagonal, the signs of x,
+    y, z from the off-diagonal differences."""
+    m00, m11, m22 = r[..., 0, 0], r[..., 1, 1], r[..., 2, 2]
+    half_sqrt = lambda v: torch.sqrt(torch.clamp(v, min=0.0)) / 2.0
+    qw = half_sqrt(1.0 + m00 + m11 + m22)
+    qx = torch.copysign(half_sqrt(1.0 + m00 - m11 - m22),
+                        r[..., 2, 1] - r[..., 1, 2])
+    qy = torch.copysign(half_sqrt(1.0 - m00 + m11 - m22),
+                        r[..., 0, 2] - r[..., 2, 0])
+    qz = torch.copysign(half_sqrt(1.0 - m00 - m11 + m22),
+                        r[..., 1, 0] - r[..., 0, 1])
+    q = torch.stack([qx, qy, qz, qw], dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -147,9 +147,8 @@ def test_rti_passes_oracle_conformance_gate():
 
 
 @pytest.mark.parametrize("change", [
-    dict(fleet_mode=True), dict(nn_bf16=True),
-    dict(mani_grad="fd"), dict(qp_solver="riccati"),
-    dict(kin_backend="xla"), dict(ipm_interpret=True)],
+    dict(fleet_mode=True), dict(nn_bf16=True), dict(qp_solver="riccati"),
+    dict(ipm_interpret=True)],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_off_slice_settings_raise(change):
     """A setting the port does not run yet raises; none is ignored.  (The
@@ -166,12 +165,14 @@ def test_off_slice_settings_raise(change):
 @pytest.mark.parametrize("change", [
     dict(qp_assembly="pallas"), dict(do_SOC=True), dict(line_search="merit"),
     dict(rti=False), dict(qp_solver="admm"),
-    dict(qp_solver="admm", use_BFGS=True), dict(ipm_scheme="mehrotra")],
+    dict(qp_solver="admm", use_BFGS=True), dict(ipm_scheme="mehrotra"),
+    dict(mani_grad="fd", kin_backend="xla"), dict(kin_backend="xla")],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_slice_settings_are_supported(change):
     """The kernel assembly route, SOC, the merit line search, the converged
-    mode, the dense ADMM path with BFGS, and Mehrotra's centering run in the
-    port (the kernel route is the default)."""
+    mode, the dense ADMM path with BFGS, Mehrotra's centering, and the plain
+    kinematics route with the finite-difference manipulability gradient run
+    in the port (the kernel routes are the default)."""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
@@ -222,8 +223,10 @@ def test_build_problem_matches_jax(problem):
 
 def _entry_points():
     """(name, call(device-kwargs)) for each entry point that places
-    tensors; the convert functions read CPU objects built by the port."""
+    tensors; the convert functions read CPU objects built by the port; a
+    compat class gives the tensors its inputs become."""
     import types
+    from mpcc_manipulator_tpu_torch import api, compat
     from mpcc_manipulator_tpu_torch import mpc as pmpc
     from mpcc_manipulator_tpu_torch import params as pparams
     from mpcc_manipulator_tpu_torch import problem as pproblem
@@ -264,7 +267,27 @@ def _entry_points():
             pmpc.init_carry(2, dt, "cpu"), dt, **d),
         "convert.stage_qpk": lambda **d: convert.stage_qpk(
             _cpu_stage_qpk(cpu()), dt, **d),
+        "api.MPCC": lambda **d: api.MPCC(**d),
+        "api.MPCC.setTrack": lambda **d: _with_track(api.MPCC(**d)),
+        "compat.RobotModel": lambda **d: compat.RobotModel(**d)._q(
+            X0_HOME[:7]),
+        "compat.SelfCollisionNN": lambda **d: _loaded(
+            compat.SelfCollisionNN(**d), 7),
+        "compat.EnvCollisionNN": lambda **d: _loaded(
+            compat.EnvCollisionNN(**d), 10),
+        "compat.Integrator": lambda **d: compat.Integrator(**d)._xu(
+            X0_HOME, np.zeros(8)),
     }
+
+
+def _with_track(mpc):
+    mpc.setTrack(X0_HOME)
+    return mpc
+
+
+def _loaded(net, n_in):
+    net.setNeuralNetwork(n_in, None, None, True)
+    return net._net
 
 
 def _cpu_stage_qpk(problem):
@@ -288,7 +311,9 @@ ENTRY_POINTS = ["build_problem", "build_problem[husky_panda]", "load_params",
                 "gen_6d_spline", "CubicSplineCoeffs.from_fit",
                 "RotSplineCoeffs.from_knots", "convert.mlp",
                 "convert.mpcc_params", "convert.track", "convert.carry",
-                "convert.stage_qpk"]
+                "convert.stage_qpk", "api.MPCC", "api.MPCC.setTrack",
+                "compat.RobotModel", "compat.SelfCollisionNN",
+                "compat.EnvCollisionNN", "compat.Integrator"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -307,6 +332,9 @@ def test_entry_points_default_to_the_card(name):
         elif hasattr(obj, "__dataclass_fields__"):
             for f in obj.__dataclass_fields__:
                 yield from tensors(getattr(obj, f))
+        elif type(obj).__module__.startswith("mpcc_manipulator_tpu_torch"):
+            for v in vars(obj).values():
+                yield from tensors(v)
 
     call = _entry_points()[name]
     on_cpu = list(tensors(call(device="cpu")))

@@ -306,12 +306,12 @@ def test_nan_lane_stays_unconverged_and_isolated(backend):
 
 
 def test_plain_loop_refuses_cuda_tensors():
-    """The plain ADMM loop is a CPU route: on CUDA tensors it raises and
-    names the K5 route; the K5 route is allowed on both."""
-    with pytest.raises(ValueError, match="qp_backend='pallas'"):
-        qp_admm.check_route("xla", torch.device("cuda"))
-    qp_admm.check_route("xla", torch.device("cpu"))
-    qp_admm.check_route("pallas", torch.device("cuda"))
+    """Both routes run on any device, the plain ADMM loop on CUDA tensors
+    too (the JAX package's ``api.MPCC`` default runs it on the
+    accelerator): no route refuses a device any more; a backend the port
+    does not have raises and names the ones it has."""
+    for backend in qp_admm.BACKENDS:
+        qp_admm.check_route(backend)
     for bad in ("pallas_interpret", "osqp"):
         with pytest.raises(ValueError, match="qp_backend"):
-            qp_admm.check_route(bad, torch.device("cpu"))
+            qp_admm.check_route(bad)
