@@ -105,7 +105,24 @@ Phases (the first failure exits non-zero and prints no result line):
     ``MPCC(device="cpu")`` in float64 from the card's state, input and
     carry (the envelope; the largest gap printed); the tick's median and
     p99 against Ts; then 10 ticks with ``runMPC(profile=True)``, the phase
-    split printed.
+    split printed;
+19. the runtime layer: the native telemetry library built into
+    ``build/native/`` and loaded (no fallback); a checkpoint resume at
+    batch 1024 with K1-K4 (6 ticks, save, 3 ticks against restore + 3
+    ticks, every leaf bit-identical; save and restore timed); the
+    ``IsaacBridge`` over the loopback plant, 12 ticks, with the JointState
+    contract; ``main_demo.main()`` in float32 and float64 and
+    ``main_obstacle_demo.main()`` in float32, 100 ticks each with
+    ``--device cuda`` into a temporary directory, their files' lines and
+    columns checked, their tick median and p99;
+20. the JAX package's closed-loop gates in float32 on K1-K4, 8 lanes (the
+    exact home state, 7 at 1e-3 N(0, 1) on the joints), through
+    `mpcc_manipulator_tpu_torch/gates.py` with the JAX tests' thresholds:
+    the repo's track to the end point (converged, 3,000-tick budget), the
+    static obstacle (margin, CBF contract, the constraint's bite), the
+    config ladder, RTI against the converged mode (60 ticks).
+
+Every phase's seconds are printed as it ends.
 
 Each kernel is timed three ways: its own device time (``torch.profiler``'s
 events of its symbol; ``ms`` and ``device_ms``), the wrapper's time (CUDA
@@ -121,7 +138,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -213,20 +229,29 @@ API_PROFILE_TICKS = 10
 # its plain version and RTI ticks, both systems
 HORIZONS = (5, 20)
 HORIZON_BATCH = 1024
-HORIZON_TICKS = 10
+HORIZON_TICKS = 5
+# the lanes of each K1 batch there solved again in float64 on the CPU for
+# the printed F1 gaps (the lane where the kernel and the plain solve differ
+# most always among them)
+F64_GAP_LANES = 256
 # the plain kinematics route's RTI loop, and closed_loop_scan's ticks
 PLAIN_KIN_TICKS = 10
 SCAN_TICKS = 10
+# the runtime layer: a checkpoint resume at BATCH (ticks before the save,
+# ticks after it), the simulator bridge's ticks, the demos' runs
+CKPT_TICKS = 6
+CKPT_RESUME = 3
+BRIDGE_TICKS = 12
+DEMO_TICKS = 100
+OBSTACLE_DEMO_TICKS = 100
+# the closed-loop gates run on the card, each with its runner's arguments
+# (the static gate without its constraint-disabled run; the rest, and the
+# disabled run: python -m mpcc_manipulator_tpu_torch.gates)
+CARD_GATES = (("track", {}), ("static", {"disabled": False}),
+              ("ladder", {}), ("rti_ab", {}))
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -381,11 +406,11 @@ def k4_flops(dof: int) -> int:
 def check_k4_nan(label, qs, system=None) -> None:
     """A NaN in one configuration's q (arm joint 3) at a few places -- the
     first configuration of a block, one inside a block, the last (of a
-    partial block) -- gives NaN in that configuration's p and R and in the
-    arm columns of its jv and dm, and leaves every other configuration's
-    outputs bit-identical to the run without it: the block stages and
-    stores its configurations' outputs together.  (m is sqrt(max(det, 0))
-    with fmaxf, so it comes out 0 there, as from the kernel K4 replaced.)"""
+    partial block) -- gives NaN in that configuration's p, R and m and in
+    the arm columns of its jv and dm (as from the plain version and the
+    JAX kernel), and leaves every other configuration's outputs
+    bit-identical to the run without it: the block stages and stores its
+    configurations' outputs together."""
     from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
     from mpcc_manipulator_tpu_torch.system import PANDA
     sy = system or PANDA
@@ -409,8 +434,7 @@ def check_k4_nan(label, qs, system=None) -> None:
                              if name == "jv" else g.shape[1])
         if name in ("jv", "d_manipul"):
             arm = arm[..., sy.base_dof:]
-        if name not in ("jw", "manipul") \
-                and not bool(torch.isnan(arm).all()):
+        if name != "jw" and not bool(torch.isnan(arm).all()):
             raise AssertionError(f"{label} NaN check: {name} of a NaN "
                                  "configuration is not all NaN")
     print(f"{label} NaN check: NaN in {len(where)} configurations' q "
@@ -2168,28 +2192,37 @@ def cpu_tick_by_tick(label, inputs, states_gpu, iters_gpu, cfg, system):
 def ipm_f64_gaps(label, qpk, warm, sol, ref, system, scheme) -> dict:
     """K1's solution ``sol`` and the plain float32 solve's ``ref`` on the
     card, each against the plain solve in float64 on the CPU on the same
-    QPs and warm start (ROADMAP section 3, F1): the QPs whose Newton count
-    differs from float64's and the largest |d du|, each; and the lane where
-    the kernel and the plain solve differ most.  Printed and returned."""
+    QPs and warm start (ROADMAP section 3, F1), on the first
+    ``F64_GAP_LANES`` lanes and the lane where the kernel and the plain
+    solve differ most: the QPs whose Newton count differs from float64's
+    and the largest |d du|, each; and that lane's.  Printed and
+    returned."""
     from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
         solve_qp_ipm_plain)
+    lane = int((sol.du - ref.du).abs().flatten(1).amax(1).argmax())
+    rows = torch.unique(torch.cat([
+        torch.arange(min(F64_GAP_LANES - 1, sol.du.shape[0])),
+        torch.tensor([lane])])).to(sol.du.device)
+    sub = lambda r: type(r)(**{f.name: getattr(r, f.name)[rows]
+                               for f in dataclasses.fields(r)})
+    sol, ref, at = sub(sol), sub(ref), int((rows == lane).nonzero()[0, 0])
     f64 = lambda t: t.cpu().to(torch.float64)
     ref64 = solve_qp_ipm_plain(
-        type(qpk)(**{f.name: f64(getattr(qpk, f.name))
+        type(qpk)(**{f.name: f64(getattr(qpk, f.name)[rows])
                      for f in dataclasses.fields(qpk)}),
-        system=system, scheme=scheme, **{k: f64(v) for k, v in warm.items()})
+        system=system, scheme=scheme,
+        **{k: f64(v[rows]) for k, v in warm.items()})
     out = {name: (int((got.iters.cpu() != ref64.iters).sum()),
                   float((f64(got.du) - ref64.du).abs().max()))
            for name, got in (("kernel", sol), ("plain", ref))}
-    lane = int((sol.du - ref.du).abs().flatten(1).amax(1).argmax())
-    dist = lambda a, b: float((f64(a.du[lane]) - f64(b.du[lane])).abs().max())
+    dist = lambda a, b: float((f64(a.du[at]) - f64(b.du[at])).abs().max())
     print(f"  {label} against float64 on the CPU: Newton counts differ on "
           f"{out['kernel'][0]} (kernel) and {out['plain'][0]} (plain "
           f"float32) of {ref64.iters.numel()} QPs, max |d du| "
           f"{out['kernel'][1]:.3e} and {out['plain'][1]:.3e}; lane {lane} "
           f"(kernel and plain furthest apart): iterations "
-          f"{int(sol.iters[lane])} / {int(ref.iters[lane])} / "
-          f"{int(ref64.iters[lane])} (kernel / plain / float64), |d du| "
+          f"{int(sol.iters[at])} / {int(ref.iters[at])} / "
+          f"{int(ref64.iters[at])} (kernel / plain / float64), |d du| "
           f"kernel-plain {dist(sol, ref):.3e}, kernel-float64 "
           f"{dist(sol, ref64):.3e}, plain-float64 {dist(ref, ref64):.3e}")
     return out
@@ -2435,14 +2468,233 @@ def phase_scan(problem, device, card) -> dict:
     return dict(ticks_per_s=SCAN_TICKS / secs, launches=launches)
 
 
+# ------------------------------------------------------------ runtime layer
+
+
+def phase_native() -> dict:
+    """The native runtime library built from the port's own source into
+    ``build/native/`` (no fallback: ``native_available()`` must hold)."""
+    from mpcc_manipulator_tpu_torch.runtime import native
+    t0 = time.perf_counter()
+    path = native.build()
+    if not native.native_available():
+        raise AssertionError("runtime: the native library did not load")
+    print(f"native runtime library {os.path.relpath(path)} (built or found "
+          f"in {time.perf_counter() - t0:.1f} s)")
+    return dict(path=path)
+
+
+def phase_checkpoint(problem, device, card) -> dict:
+    """A resume on the card at batch 1024 with K1-K4 (``SQPConfig()``): 6
+    ticks, save, 3 ticks, against restore + 3 ticks, bit for bit in every
+    leaf of (MPCCarry, x, u) (the counts set to 0 just before and read just
+    after: K1-K4 12 times each).  Times the save and the restore."""
+    import tempfile
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.runtime import checkpoint as ckpt
+    track, params, sel_nn, env_nn = problem
+    obs = torch.tensor([[3.0, 3.0, 3.0]], device=device).expand(BATCH, 3)
+    rad = torch.zeros(BATCH, device=device)
+
+    def tick(state):
+        carry, x, u = state
+        carry, out = mpc_step(track, params, sel_nn, env_nn, carry, x, u,
+                              obs, rad, ts=TS, cfg=SQPConfig())
+        return carry, sim_time_step(out.x0_updated, out.u0, TS), out.u0
+
+    template = lambda: (init_carry(BATCH, torch.float32, device),
+                        perturbed_states(BATCH, torch.float32, device),
+                        torch.zeros(BATCH, 8, device=device))
+    reset_counts()
+    st = template()
+    for _ in range(CKPT_TICKS):
+        st = tick(st)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"ckpt_{CKPT_TICKS}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_state(path, st, step=CKPT_TICKS)
+        t1 = time.perf_counter()
+        restored, step = ckpt.restore_state(path, template())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    for _ in range(CKPT_RESUME):
+        st = tick(st)
+        restored = tick(restored)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    from mpcc_manipulator_tpu_torch.runtime.checkpoint import \
+        _flatten_with_names
+    a, b = _flatten_with_names(st), _flatten_with_names(restored)
+    same = [n for (n, x), (_, y) in zip(a, b)
+            if x.device == y.device and torch.equal(x, y)]
+    n_ticks = CKPT_TICKS + 2 * CKPT_RESUME
+    want = dict(K1=n_ticks, K2=n_ticks, K3=n_ticks, K4=n_ticks, K5=0)
+    if step != CKPT_TICKS or len(same) != len(a) or launches != want:
+        raise AssertionError(
+            f"checkpoint resume: step {step}, bit-identical leaves {same} of "
+            f"{[n for n, _ in a]}, launches {launches} (expected {want})")
+    ms = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    print(f"checkpoint resume (RTI, K1-K4) {BATCH} lanes on {card}: "
+          f"{CKPT_TICKS} ticks, save, {CKPT_RESUME} ticks against restore + "
+          f"{CKPT_RESUME} ticks: all {len(a)} leaves bit-identical; save "
+          f"{ms[0]:.3f} ms, restore {ms[1]:.3f} ms ({size} B); launches "
+          f"{launches}")
+    return dict(save_ms=ms[0], restore_ms=ms[1], bytes=size)
+
+
+def phase_bridge(card, device) -> dict:
+    """``IsaacBridge`` on the card (``MPCC()``, JAX's default
+    configuration) over ``LoopbackSimTransport``: 12 ticks, every tick ok,
+    s rising, and the JointState contract of every command (the four
+    wheel names zero-padded first, then the seven arm joints, velocities
+    the MPC's u0)."""
+    from mpcc_manipulator_tpu_torch.runtime.sim_bridge import (
+        IsaacBridge, LoopbackSimTransport, PANDA_JOINT_NAMES,
+        WHEEL_JOINT_NAMES)
+    transport = LoopbackSimTransport(home()[:7])
+    bridge = IsaacBridge(transport, device=device)
+    transport.start()
+    for _ in range(BRIDGE_TICKS):
+        transport.spin_once()
+    lg, cmds = bridge.log, transport.published.get("/joint_command", [])
+    ok = (len(lg["s"]) == BRIDGE_TICKS and all(lg["ok"])
+          and len(cmds) == BRIDGE_TICKS and lg["s"][-1] > lg["s"][2] > 0.0
+          and "/mpcc/splined_path" in transport.published
+          and len(transport.published.get("/mpcc/local_path", []))
+          == BRIDGE_TICKS)
+    for m in cmds:
+        ok = ok and (m["name"] == WHEEL_JOINT_NAMES + PANDA_JOINT_NAMES
+                     and m["position"][:4] == [0.0] * 4
+                     and m["velocity"][:4] == [0.0] * 4
+                     and len(m["position"]) == len(m["velocity"]) == 11)
+    ok = ok and np.allclose(cmds[-1]["velocity"][4:], bridge._input[:7])
+    if not ok:
+        raise AssertionError(f"sim_bridge: ok {lg['ok']}, s {lg['s']}, "
+                             f"{len(cmds)} commands")
+    st = np.asarray(lg["solve_time"][1:]) * 1e3
+    print(f"IsaacBridge over LoopbackSimTransport on {card}: "
+          f"{BRIDGE_TICKS} ticks all ok, s {lg['s'][0]:.5f} -> "
+          f"{lg['s'][-1]:.5f}, every /joint_command in the JointState "
+          f"contract; solve median {np.median(st):.3f} ms")
+    return dict(median_ms=float(np.median(st)))
+
+
+def demo_tick_ms(times_s) -> dict:
+    ms = np.asarray(times_s[1:]) * 1e3
+    return dict(ticks=len(times_s), first_ms=float(times_s[0]) * 1e3,
+                median_ms=float(np.median(ms)),
+                p99_ms=float(np.percentile(ms, 99)))
+
+
+def phase_demos(card, device) -> dict:
+    """``main_demo.main()`` and ``main_obstacle_demo.main()`` in-process on
+    the card in float32, ``DEMO_TICKS`` / ``OBSTACLE_DEMO_TICKS`` ticks
+    into a temporary directory: ``splined_path.txt``
+    one line a spline knot, 7 columns (position, quaternion), finite;
+    ``debug.txt`` one line a tick, 22 columns, finite, s rising; the
+    ``.mat`` the reference's ten channels, one row a tick.  The tick times
+    come from the files (debug.txt's last column, the .mat's solve_time)."""
+    import contextlib
+    import io
+    import tempfile
+    from scipy.io import loadmat
+    from mpcc_manipulator_tpu_torch.runtime import main_demo
+    from mpcc_manipulator_tpu_torch.runtime import main_obstacle_demo
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        ticks = DEMO_TICKS
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            main_demo.main(["--n_sim", str(ticks), "--float32", "--device",
+                            str(device), "--out_dir", d])
+        secs = time.perf_counter() - t0
+        spl = np.loadtxt(os.path.join(d, "splined_path.txt"))
+        dbg = np.loadtxt(os.path.join(d, "debug.txt"), ndmin=2)
+        if (spl.ndim != 2 or spl.shape[1] != 7 or spl.shape[0] < 50
+                or dbg.shape != (ticks, 22)
+                or not np.isfinite(spl).all()
+                or not np.isfinite(dbg).all()
+                or not (np.diff(dbg[:, 19]) > 0).all()):
+            raise AssertionError(
+                f"main_demo: splined_path {spl.shape}, debug "
+                f"{dbg.shape}; output:\n{log.getvalue()}")
+        t = demo_tick_ms(dbg[:, 21])
+        out["main_demo_float32"] = t
+        print(f"main_demo --float32 --device {device}, {ticks} ticks on "
+              f"{card} ({secs:.1f} s): splined_path.txt {spl.shape[0]} x 7, "
+              f"debug.txt {dbg.shape[0]} x 22, finite, s rising to "
+              f"{dbg[-1, 19]:.5f}; tick median {t['median_ms']:.3f} ms, p99 "
+              f"{t['p99_ms']:.3f} ms (first {t['first_ms']:.1f})")
+        mat = os.path.join(d, "obstacle.mat")
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            main_obstacle_demo.main(["--n_sim", str(OBSTACLE_DEMO_TICKS),
+                                     "--float32", "--device", str(device),
+                                     "--mat", mat])
+        secs = time.perf_counter() - t0
+        m = loadmat(mat)
+        keys = sorted(k for k in m if not k.startswith("__"))
+        want = sorted(["ee_speed", "mani", "sel_min_dist", "env_min_dist",
+                       "contour_error", "s", "obs_z", "solve_time", "q",
+                       "qdot"])
+        rows = {k: m[k].shape[-1] if m[k].shape[0] == 1 else m[k].shape[0]
+                for k in keys}
+        if (keys != want or set(rows.values()) != {OBSTACLE_DEMO_TICKS}
+                or m["q"].shape != (OBSTACLE_DEMO_TICKS, 7)
+                or not all(np.isfinite(m[k]).all() for k in keys)):
+            raise AssertionError(f"main_obstacle_demo: keys {keys}, rows "
+                                 f"{rows}; output:\n{log.getvalue()}")
+        t = demo_tick_ms(m["solve_time"].reshape(-1))
+        out["main_obstacle_demo_float32"] = t
+        print(f"main_obstacle_demo --float32 --device {device}, "
+              f"{OBSTACLE_DEMO_TICKS} ticks on {card} ({secs:.1f} s): .mat "
+              f"with the ten channels x {OBSTACLE_DEMO_TICKS} rows, finite; "
+              f"min env distance {float(m['env_min_dist'].min()):.2f} cm; "
+              f"tick median {t['median_ms']:.3f} ms, p99 {t['p99_ms']:.3f} ms")
+    return out
+
+
+def phase_gates(card, device) -> dict:
+    """The JAX package's closed-loop gates on the card in float32 on 8
+    lanes (the exact home state and 7 lanes at 1e-3 N(0, 1) on the
+    joints), K1-K4, through `mpcc_manipulator_tpu_torch/gates.py`'s
+    runners with the JAX tests' thresholds: the repo's track to the end
+    point (converged, 3,000-tick budget), the static obstacle constrained
+    (margin, CBF contract), RTI against the converged mode (60 ticks) and
+    the config ladder (12 ticks a rung); each gate's figures printed as
+    JSON."""
+    from mpcc_manipulator_tpu_torch import gates
+    out = {}
+    for name, kwargs in CARD_GATES:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = gates.GATES[name](dtype=torch.float32, device=device,
+                                lanes=gates.LANES, **kwargs)
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        if res["launches"]["K1"] == 0 or res["launches"]["K4"] == 0:
+            raise AssertionError(f"gate {name}: K1/K4 never launched")
+        print(f"gate {name} on {card}: passed; {json.dumps(res)}")
+        out[name] = res
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mpcc_manipulator_tpu_torch.ops import cuda_build
     from mpcc_manipulator_tpu_torch.problem import build_problem
+    from mpcc_manipulator_tpu_torch.timing import card_line
 
     t_start = time.perf_counter()
+    phase_seconds = {}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2457,44 +2709,64 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        phase_seconds[name] = time.perf_counter() - t0
+        print(f"[phase {name}: {phase_seconds[name]:.1f} s]", flush=True)
+        return out
+
     problem = build_problem(torch.float32, device)
     aproblem = assembly_problem(device)
-    kernels = [phase_k1(problem, device),
-               phase_k2(problem, aproblem, device),
-               phase_k3(problem, aproblem, device), phase_k4(device),
-               phase_k5(problem, device)]
+    kernels = timed("kernels K1-K5", lambda: [
+        phase_k1(problem, device), phase_k2(problem, aproblem, device),
+        phase_k3(problem, aproblem, device), phase_k4(device),
+        phase_k5(problem, device)])
     mproblem = build_problem(torch.float32, device, system=mobile_system())
-    mkernels = [phase_k1_mobile(mproblem, device),
-                *phase_k23_mobile(mproblem, device),
-                phase_k4_mobile(device)]
-    mobile = phase_mobile_rti(mproblem, device, card)
+    mkernels = timed("kernels -h / -m", lambda: [
+        phase_k1_mobile(mproblem, device),
+        *phase_k23_mobile(mproblem, device), phase_k4_mobile(device)])
+    mobile = timed("Husky+Panda RTI",
+                   lambda: phase_mobile_rti(mproblem, device, card))
     for k in mkernels:
         k["launches"] = mobile["launches"][k["name"][:2]]
     # each path's kernels carry the launches of that path's own run
-    x0, states, launches = phase_closed_loop(problem, device, card)
-    states_conv, inputs = phase_converged(problem, x0, card)
-    states_meh, iters_meh, inputs_meh, launches_meh, solves_meh = \
-        phase_mehrotra_rti(problem, x0, card)
-    states_admm, inputs_admm, launches_admm = phase_admm_rti(problem, x0,
-                                                              card)
+    x0, states, launches = timed(
+        "RTI", lambda: phase_closed_loop(problem, device, card))
+    states_conv, inputs = timed(
+        "converged", lambda: phase_converged(problem, x0, card))
+    states_meh, iters_meh, inputs_meh, launches_meh, solves_meh = timed(
+        "Mehrotra RTI", lambda: phase_mehrotra_rti(problem, x0, card))
+    states_admm, inputs_admm, launches_admm = timed(
+        "ADMM RTI", lambda: phase_admm_rti(problem, x0, card))
     for k in kernels:
         name = k["name"][:2]
         k["launches"] = (launches_admm if name == "K5" else launches)[name]
     kernels[0]["mehrotra_launches"] = launches_meh["K1"]
-    phase_admm_converged(problem, x0, card)
-    phase_cpu_check_rti(x0, states)
-    phase_cpu_check_mehrotra(x0, inputs_meh, states_meh, iters_meh,
-                             solves_meh)
-    phase_cpu_check_converged(inputs, states_conv)
-    phase_cpu_check_admm(inputs_admm, states_admm)
-    phase_cpu_check_mobile(mobile["inputs"], mobile["states"],
-                           mobile["iters"])
-    horizon_ms = phase_horizons(problem, mproblem, device, card)
+    timed("ADMM converged", lambda: phase_admm_converged(problem, x0, card))
+    timed("CPU checks", lambda: (
+        phase_cpu_check_rti(x0, states),
+        phase_cpu_check_mehrotra(x0, inputs_meh, states_meh, iters_meh,
+                                 solves_meh),
+        phase_cpu_check_converged(inputs, states_conv),
+        phase_cpu_check_admm(inputs_admm, states_admm),
+        phase_cpu_check_mobile(mobile["inputs"], mobile["states"],
+                               mobile["iters"])))
+    horizon_ms = timed("horizons", lambda: phase_horizons(
+        problem, mproblem, device, card))
     kernels[0]["horizon_device_ms"] = horizon_ms["panda"]
     mkernels[0]["horizon_device_ms"] = horizon_ms["husky_panda"]
-    phase_plain_robot_data(problem, device, card)
-    phase_scan(problem, device, card)
-    phase_api(card)
+    timed("plain RobotData",
+          lambda: phase_plain_robot_data(problem, device, card))
+    timed("closed_loop_scan", lambda: phase_scan(problem, device, card))
+    timed("api.MPCC", lambda: phase_api(card))
+    timed("native", phase_native)
+    timed("checkpoint", lambda: phase_checkpoint(problem, device, card))
+    timed("sim_bridge", lambda: phase_bridge(card, device))
+    timed("demos", lambda: phase_demos(card, device))
+    timed("gates", lambda: phase_gates(card, device))
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_seconds.items()))
 
     print(f"command time {time.perf_counter() - t_start:.1f} s")
     print(card)

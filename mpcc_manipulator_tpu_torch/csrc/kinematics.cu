@@ -289,7 +289,12 @@ kin_kernel(const float* __restrict__ q, const float* __restrict__ consts,
       for (int b = k + 1; b < 6; ++b)
         mm[a][b] -= mm[a][k] * mm[k][b] / safe;
   }
-  const float mani = sqrtf(fmaxf(det, 0.f));
+  // a NaN det stays NaN (fmaxf would drop it), as the plain version's
+  // clamp and the replaced kernel's jnp.clip keep it: 0 * det is a signed
+  // zero for every finite det, which leaves m bit for bit as it was, and
+  // NaN for a NaN det.  (A select on isnan(det) gives the same values but
+  // makes ptxas lay the kernel out with a 32 B stack frame.)
+  const float mani = sqrtf(fmaxf(det, 0.f)) + 0.f * det;
   sm[S::M + tl] = mani;
 
   // ---- damped Cholesky of A (trace-scaled shift, pivot floor)

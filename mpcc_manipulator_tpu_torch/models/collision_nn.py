@@ -50,10 +50,17 @@ class CollisionMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Values only: x (..., n_in) -> (..., n_out)."""
-        h = nerf_encode(x)
-        for lin in self.layers[:-1]:
-            h = torch.relu(lin(h))
-        return self.layers[-1](h)
+        return mlp_forward(self, x)
+
+
+def mlp_forward(net: CollisionMLP, x: torch.Tensor,
+                is_nerf: bool = True) -> torch.Tensor:
+    """Value-only forward pass, x (..., n_in) -> (..., n_out); with
+    ``is_nerf=False`` the input goes to the first layer unencoded."""
+    h = nerf_encode(x) if is_nerf else x
+    for lin in net.layers[:-1]:
+        h = torch.relu(lin(h))
+    return net.layers[-1](h)
 
 
 def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor):

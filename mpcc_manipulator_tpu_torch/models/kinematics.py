@@ -224,3 +224,14 @@ def manipulability_and_grad_from_frames(p_ee: torch.Tensor,
     ainv_j = _cho_solve6(_cholesky6(a), j)
     dm = m[..., None] * torch.einsum("...ibc,...bc->...i", dj, ainv_j)
     return m, dm
+
+
+def manipulability_and_grad_analytic(q: torch.Tensor):
+    """(m, dm/dq) in closed form from one FK pass, q (..., 7)."""
+    p_ee, _, origins, axes = fk_chain(q)
+    return manipulability_and_grad_from_frames(p_ee, origins, axes)
+
+
+def ee_velocity(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """Linear EE velocity ``Jv(q) dq``, q and dq (..., 7) -> (..., 3)."""
+    return (ee_jacobian(q)[..., :3, :] @ dq[..., None])[..., 0]

@@ -168,3 +168,10 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
         env_dist=env, d_env_dist=d_env,
         obs_radius=obs_radius.to(qs.dtype)[:, None].expand(b, k),
     )
+
+
+def index_robot_data(rb: RobotData, k) -> RobotData:
+    """Select knot ``k`` of every scenario: each field (B, K, ...) ->
+    (B, ...)."""
+    return RobotData(**{f.name: getattr(rb, f.name)[:, k]
+                        for f in dataclasses.fields(RobotData)})

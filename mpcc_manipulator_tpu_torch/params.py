@@ -212,6 +212,79 @@ def _merge_mobile(js: dict, file: str, system: System) -> dict:
     return {**mob, **js}
 
 
+def _tensor(v, dtype, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def load_model_params(file: str, overrides: Mapping[str, float] | None = None,
+                      dtype=torch.float64, device="cuda") -> ModelParams:
+    js = _load_json(file)
+    g = lambda k: _tensor(_get(js, overrides, k), dtype, device)
+    return ModelParams(
+        max_dist_proj=g("max_dist_proj"),
+        desired_ee_velocity=g("desired_ee_velocity"),
+        s_trust_region=g("s_trust_region"),
+        deacc_ratio=g("deaccelerate_ratio"),
+        tol_sing=g("tol_sing"), tol_selcol=g("tol_selcol"),
+        tol_envcol=g("tol_envcol"))
+
+
+def load_cost_params(file: str, overrides: Mapping[str, float] | None = None,
+                     dtype=torch.float64, device="cuda") -> CostParams:
+    js = _load_json(file)
+    g = lambda k: _tensor(_get(js, overrides, k), dtype, device)
+    return CostParams(
+        q_c=g("qC"), q_c_N_mult=g("qCNmult"), q_l=g("qL"), q_vs=g("qVs"),
+        q_ori=g("qOri"), q_sing=g("qSing"),
+        r_dq=g("rdq"), r_ddq=g("rddq"), r_dVs=g("rdVs"),
+        q_c_red_ratio=g("qC_reduction_ratio"),
+        q_l_inc_ratio=g("qL_increase_ratio"),
+        q_ori_red_ratio=g("qOri_reduction_ratio"))
+
+
+def load_bounds_params(file: str, overrides: Mapping[str, float] | None = None,
+                       dtype=torch.float64, device="cuda",
+                       system: System = PANDA) -> BoundsParams:
+    js = _merge_mobile(_load_json(file), file, system)
+    xk, uk, ddk = _sys_keys(system)
+    vec = lambda keys, suffix: _tensor(
+        [float(_get(js, overrides, k + suffix)) for k in keys], dtype, device)
+    return BoundsParams(
+        x_l=vec(xk, "l"), x_u=vec(xk, "u"), u_l=vec(uk, "l"),
+        u_u=vec(uk, "u"), ddq_l=vec(ddk, "l"), ddq_u=vec(ddk, "u"))
+
+
+def load_normalization_params(file: str,
+                              overrides: Mapping[str, float] | None = None,
+                              dtype=torch.float64, device="cuda",
+                              system: System = PANDA) -> NormalizationParams:
+    js = _merge_mobile(_load_json(file), file, system)
+    xk, uk, _ = _sys_keys(system)
+    vec = lambda keys: _tensor([float(_get(js, overrides, k)) for k in keys],
+                               dtype, device)
+    return NormalizationParams(t_x=vec(xk), t_u=vec(uk))
+
+
+def load_sqp_params(file: str, overrides: Mapping[str, float] | None = None,
+                    dtype=torch.float64,
+                    device="cuda") -> tuple[SQPParams, SQPConfig]:
+    """The sqp.json scalars and the structure keys (``max_iter``,
+    ``line_search_max_iter``, ``do_SOC``, ``use_BFGS``) as an
+    :class:`SQPConfig` with every other field at its default."""
+    js = _load_json(file)
+    g = lambda k: _get(js, overrides, k)
+    t = lambda k: _tensor(g(k), dtype, device)
+    sqp = SQPParams(
+        eps_prim=t("eps_prim"), eps_dual=t("eps_dual"),
+        line_search_tau=t("line_search_tau"),
+        line_search_eta=t("line_search_eta"),
+        line_search_rho=t("line_search_rho"))
+    cfg = SQPConfig(max_iter=int(g("max_iter")),
+                    line_search_max_iter=int(g("line_search_max_iter")),
+                    do_SOC=bool(g("do_SOC")), use_BFGS=bool(g("use_BFGS")))
+    return sqp, cfg
+
+
 def load_params(param_dir: str | None = None,
                 overrides: Mapping[str, Mapping[str, float]] | None = None,
                 dtype=torch.float64, device="cuda",
@@ -225,51 +298,16 @@ def load_params(param_dir: str | None = None,
     ``use_BFGS``); everything else keeps its default.
     """
     ov = overrides or {}
-
-    def group(file, key, mobile=False):
-        path = param_path(file, param_dir)
-        js = _load_json(path)
-        if mobile:
-            js = _merge_mobile(js, path, system)
-        return lambda k: _get(js, ov.get(key), k)
-
-    def t(v):
-        return torch.tensor(v, dtype=dtype, device=device)
-
-    m = group("model.json", "param")
-    model = ModelParams(
-        max_dist_proj=t(m("max_dist_proj")),
-        desired_ee_velocity=t(m("desired_ee_velocity")),
-        s_trust_region=t(m("s_trust_region")),
-        deacc_ratio=t(m("deaccelerate_ratio")),
-        tol_sing=t(m("tol_sing")), tol_selcol=t(m("tol_selcol")),
-        tol_envcol=t(m("tol_envcol")))
-    c = group("cost.json", "cost")
-    cost = CostParams(
-        q_c=t(c("qC")), q_c_N_mult=t(c("qCNmult")), q_l=t(c("qL")),
-        q_vs=t(c("qVs")), q_ori=t(c("qOri")), q_sing=t(c("qSing")),
-        r_dq=t(c("rdq")), r_ddq=t(c("rddq")), r_dVs=t(c("rdVs")),
-        q_c_red_ratio=t(c("qC_reduction_ratio")),
-        q_l_inc_ratio=t(c("qL_increase_ratio")),
-        q_ori_red_ratio=t(c("qOri_reduction_ratio")))
-    xk, uk, ddk = _sys_keys(system)
-    b = group("bounds.json", "bounds", mobile=True)
-    vec = lambda g, keys, suffix: t([float(g(k + suffix)) for k in keys])
-    bounds = BoundsParams(
-        x_l=vec(b, xk, "l"), x_u=vec(b, xk, "u"),
-        u_l=vec(b, uk, "l"), u_u=vec(b, uk, "u"),
-        ddq_l=vec(b, ddk, "l"), ddq_u=vec(b, ddk, "u"))
-    n = group("normalization.json", "normalization", mobile=True)
-    normalization = NormalizationParams(
-        t_x=vec(n, xk, ""), t_u=vec(n, uk, ""))
-    s = group("sqp.json", "sqp")
-    sqp = SQPParams(
-        eps_prim=t(s("eps_prim")), eps_dual=t(s("eps_dual")),
-        line_search_tau=t(s("line_search_tau")),
-        line_search_eta=t(s("line_search_eta")),
-        line_search_rho=t(s("line_search_rho")))
-    cfg = SQPConfig(max_iter=int(s("max_iter")),
-                    line_search_max_iter=int(s("line_search_max_iter")),
-                    do_SOC=bool(s("do_SOC")), use_BFGS=bool(s("use_BFGS")))
-    return MPCCParams(model=model, cost=cost, bounds=bounds,
-                      normalization=normalization, sqp=sqp), cfg
+    path = lambda name: param_path(name, param_dir)
+    sqp, cfg = load_sqp_params(path("sqp.json"), ov.get("sqp"), dtype, device)
+    return MPCCParams(
+        model=load_model_params(path("model.json"), ov.get("param"), dtype,
+                                device),
+        cost=load_cost_params(path("cost.json"), ov.get("cost"), dtype,
+                              device),
+        bounds=load_bounds_params(path("bounds.json"), ov.get("bounds"),
+                                  dtype, device, system),
+        normalization=load_normalization_params(
+            path("normalization.json"), ov.get("normalization"), dtype,
+            device, system),
+        sqp=sqp), cfg

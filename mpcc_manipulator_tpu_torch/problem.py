@@ -1,7 +1,6 @@
 """The problems the bench and the tests drive: home pose, track, parameters
 and networks (`__graft_entry__._build_problem` of the JAX repo with
-``small=False``, and `runtime/track_gen.lissajous_track`, which is numpy
-only but imports JAX through its package).
+``small=False``; the Panda's track is `runtime/track_gen.lissajous_track`).
 
 * Panda: the Lissajous track from the home pose's EE position, tool
   pointing down;
@@ -19,6 +18,7 @@ from .models import collision_nn as cnn
 from .models import kinematics as kin
 from .models import kinematics_mobile as kinm
 from .params import load_params
+from .runtime.track_gen import lissajous_track
 from .splines import arc_length as als
 from .system import PANDA, System
 
@@ -29,23 +29,6 @@ X0_HOME = np.asarray(
 X0_HOME_MOBILE = np.asarray(
     [0.0, 0.0, 0.0,
      0.0, 0.0, 0.0, -np.pi / 2, 0.0, np.pi / 2, np.pi / 4, 0.0, 0.0])
-
-
-def lissajous_track(radius: float = 0.1, amp=(2.2, 2.6, 0.0),
-                    n_points: int = 100, freq=(1, 2, 1),
-                    phase: float = np.pi / 2) -> dict:
-    """Lissajous curve in the EE task plane, constant downward orientation
-    (reference-format waypoint dict)."""
-    t = np.linspace(phase, 2 * np.pi + phase, n_points)
-    x = amp[0] * radius * np.sin(freq[0] * t)
-    y = amp[1] * radius * np.sin(freq[1] * t)
-    z = amp[2] * radius * np.cos(freq[2] * t)
-    quat = np.tile(np.array([1.0, 0.0, 0.0, 0.0]), (n_points, 1))
-    return {
-        "X": x.tolist(), "Y": y.tolist(), "Z": z.tolist(),
-        "quat_X": quat[:, 0].tolist(), "quat_Y": quat[:, 1].tolist(),
-        "quat_Z": quat[:, 2].tolist(), "quat_W": quat[:, 3].tolist(),
-    }
 
 
 def build_problem(dtype=torch.float64, device="cuda",

@@ -1,9 +1,11 @@
 """Timing on the card: a wrapper's time (CUDA events), a kernel's own
-device time (``torch.profiler``'s device events of its symbol) and a
-wrapper's host time per call."""
+device time (``torch.profiler``'s device events of its symbol), a
+wrapper's host time per call, and the card's name and power limit to
+print beside them."""
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -72,3 +74,13 @@ def host_us(fn, reps: int = 20) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / reps * 1e6
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]

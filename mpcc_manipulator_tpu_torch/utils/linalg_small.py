@@ -52,3 +52,9 @@ def cho_solve_small(l: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
             r = r[..., :i, :] - l[..., i, :i, None] * xi[..., None, :]
     out = torch.stack(x, dim=-2)
     return out[..., 0] if vec else out
+
+
+def solve_psd_small(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """``A^{-1} b`` for PSD ``a`` (..., n, n) via the unrolled factor and
+    solve."""
+    return cho_solve_small(cholesky_small(a, n), b, n)

@@ -162,3 +162,30 @@ def test_wrapper_is_plain_version_on_cpu_f32(system):
     for g, r in zip(kin_sweep(qs, system), kin_sweep_plain(qs, system)):
         assert g.dtype == torch.float32 and torch.equal(g, r)
     assert kin_sweep.launches == before
+
+
+@pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
+def test_nan_configuration_gives_nan_m_and_dm(system):
+    """The NaN contract K4 is held to on the card: a NaN in one
+    configuration's arm joint 3 gives NaN in its m and in the arm columns
+    of its dm, from the plain version as from the JAX kernel
+    (`kin_sweep(interpret=True)`, whose `jnp.clip` keeps the NaN in
+    sqrt(max(det, 0))); the other configurations stay finite."""
+    from mpcc_manipulator_tpu.system import HUSKY_PANDA as JSYS
+    from mpcc_manipulator_tpu.system import PANDA as JPANDA
+    jsys = JSYS if system.base_dof else JPANDA
+    rng = np.random.default_rng(11)
+    home = X0_HOME_MOBILE if system.base_dof else X0_HOME
+    qs = (home[:system.dof]
+          + 0.3 * rng.standard_normal((2, 4, system.dof))).astype(np.float32)
+    qs[0, 1, system.base_dof + 3] = np.nan
+    ref = jax.vmap(lambda q: pkin.kin_sweep(q, system=jsys, interpret=True))(
+        jnp.asarray(qs))
+    got = kin_sweep_plain(torch.tensor(qs), system)
+    bad = np.zeros((2, 4), dtype=bool)
+    bad[0, 1] = True
+    for m, dm in ((np.asarray(ref[4]), np.asarray(ref[5])),
+                  (got[4].numpy(), got[5].numpy())):
+        assert np.isnan(m[bad]).all()
+        assert np.isnan(dm[bad][:, system.base_dof:]).all()
+        assert np.isfinite(m[~bad]).all() and np.isfinite(dm[~bad]).all()
