@@ -111,8 +111,8 @@ Phases (the first failure exits non-zero and prints no result line):
     batch 1024 with K1-K4 (6 ticks, save, 3 ticks against restore + 3
     ticks, every leaf bit-identical; save and restore timed); the
     ``IsaacBridge`` over the loopback plant, 12 ticks, with the JointState
-    contract; ``main_demo.main()`` in float32 and float64 and
-    ``main_obstacle_demo.main()`` in float32, 100 ticks each with
+    contract; ``main_demo.main()`` and ``main_obstacle_demo.main()`` in
+    float32, 50 ticks each with
     ``--device cuda`` into a temporary directory, their files' lines and
     columns checked, their tick median and p99;
 20. the JAX package's closed-loop gates in float32 on K1-K4, 8 lanes (the
@@ -120,7 +120,16 @@ Phases (the first failure exits non-zero and prints no result line):
     `mpcc_manipulator_tpu_torch/gates.py` with the JAX tests' thresholds:
     the repo's track to the end point (converged, 3,000-tick budget), the
     static obstacle (margin, CBF contract, the constraint's bite), the
-    config ladder, RTI against the converged mode (60 ticks).
+    config ladder, RTI against the converged mode (60 ticks);
+21. the scenario split (`parallel/sharding.py`): over NCCL at world size
+    1, 5 RTI ticks of the sharded step bit-identical to ``mpc_step`` (the
+    Panda at 1024, the Husky+Panda at 4096; K1-K4 once a tick), the fleet
+    diagnostics through NCCL equal to the local means, both paths' median
+    tick; then the Panda's 1024 lanes split over two spawned processes on
+    the one card over gloo (512 a rank, 5 RTI ticks) against the
+    unsharded ticks: every lane ok and inside the RTI envelope, the
+    bit-identical lanes counted, the fleet diagnostics over gloo on CUDA
+    tensors exact.
 
 Every phase's seconds are printed as it ends.
 
@@ -242,13 +251,21 @@ SCAN_TICKS = 10
 CKPT_TICKS = 6
 CKPT_RESUME = 3
 BRIDGE_TICKS = 12
-DEMO_TICKS = 100
-OBSTACLE_DEMO_TICKS = 100
+DEMO_TICKS = 50
+OBSTACLE_DEMO_TICKS = 50
 # the closed-loop gates run on the card, each with its runner's arguments
 # (the static gate without its constraint-disabled run; the rest, and the
 # disabled run: python -m mpcc_manipulator_tpu_torch.gates)
 CARD_GATES = (("track", {}), ("static", {"disabled": False}),
               ("ladder", {}), ("rti_ab", {}))
+# the scenario split (`parallel/sharding.py`): RTI ticks through the
+# sharded step at world size 1 over NCCL (the Panda at BATCH, the
+# Husky+Panda at MOBILE_BATCHES[0]), then the Panda's BATCH split over
+# GLOO_RANKS processes on the one card; a rank's result waits at most
+# GLOO_TIMEOUT s
+SHARDED_TICKS = 5
+GLOO_RANKS = 2
+GLOO_TIMEOUT = 300
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -2685,6 +2702,227 @@ def phase_gates(card, device) -> dict:
     return out
 
 
+# ------------------------------------------------------------ sharding
+
+
+def sharded_inputs(x0: torch.Tensor, system) -> tuple:
+    """(carry, x0, u0, obs_pos, obs_radius) for the rows of ``x0``: a cold
+    carry, zero inputs, the obstacle far away."""
+    from mpcc_manipulator_tpu_torch.parallel import sharding as shd
+    b, dt, dev = x0.shape[0], x0.dtype, x0.device
+    return (shd.batch_init_carry(b, dt, system, dev), x0,
+            torch.zeros(b, system.nu, dtype=dt, device=dev),
+            torch.tensor([[3.0, 3.0, 3.0]], dtype=dt, device=dev).expand(b, 3),
+            torch.zeros(b, dtype=dt, device=dev))
+
+
+def tick_loop(step, problem, scen, ticks: int) -> tuple:
+    """``ticks`` closed-loop ticks of ``step(track, params, sel_nn, env_nn,
+    carry, x, u, obs, rad)`` and the plant step from ``scen``: each tick's
+    output, the plant states (ticks, B, nx) and each tick's host seconds."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    carry, x, u, obs, rad = scen
+    sync = torch.cuda.synchronize if x.device.type == "cuda" else lambda: None
+    outs, states, times = [], [], []
+    for _ in range(ticks):
+        sync()
+        t0 = time.perf_counter()
+        carry, out = step(*problem, carry, x, u, obs, rad)
+        u = out.u0
+        x = sim_time_step(out.x0_updated, u, TS)
+        sync()
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+        states.append(x)
+    return outs, torch.stack(states), times
+
+
+def gloo_rank(rank: int, world: int, init_file: str, device: str,
+              batch: int, results) -> None:
+    """One spawned rank of the two-process run: joins the gloo group, runs
+    its slice of the Panda's ``batch`` lanes (RTI, ``SHARDED_TICKS``) on
+    ``device`` (the card), reduces the fleet diagnostics over gloo there,
+    and sends its rows (or its traceback) back."""
+    import traceback
+    try:
+        import torch.distributed as dist
+        from mpcc_manipulator_tpu_torch.params import SQPConfig
+        from mpcc_manipulator_tpu_torch.parallel import sharding as shd
+        from mpcc_manipulator_tpu_torch.problem import build_problem
+        from mpcc_manipulator_tpu_torch.system import PANDA
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = torch.device(device)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            mesh = shd.make_mesh(devices=[device] * world)
+            problem = shd.replicate(build_problem(torch.float32, device),
+                                    mesh)
+            scen = shd.shard_batch(sharded_inputs(perturbed_states(
+                batch, torch.float32, device), PANDA), mesh)
+            step = shd.make_sharded_step(mesh, ts=TS, cfg=SQPConfig())
+            outs, states, times = tick_loop(step, problem, scen,
+                                            SHARDED_TICKS)
+            diag = shd.fleet_diagnostics(outs[-1].ok, outs[-1].sqp_iters,
+                                         mesh)
+            results.put((rank, dict(
+                u=torch.stack([o.u0 for o in outs]).cpu().numpy(),
+                x=states.cpu().numpy(),
+                ok=torch.stack([o.ok for o in outs]).cpu().numpy(),
+                diag={k: float(v) for k, v in diag.items()},
+                diag_device=str(diag["success_rate"].device),
+                times=times)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_sharded(problem, mproblem, device, card) -> dict:
+    """`parallel/sharding.py` on the card.  (a) NCCL at world size 1:
+    ``SHARDED_TICKS`` RTI ticks of the sharded step (the counts set to 0
+    just before and read just after: K1-K4 once a tick) bit-identical to
+    ``mpc_step`` on the same inputs, for the Panda at BATCH and the
+    Husky+Panda at MOBILE_BATCHES[0]; ``fleet_diagnostics`` through NCCL
+    equal to the local means; both paths' median tick.  (b) The Panda's
+    BATCH lanes split over GLOO_RANKS spawned processes on the one card
+    against the unsharded ticks of (a): every lane ok every tick and inside
+    the RTI envelope, the bit-identical lanes counted, the fleet
+    diagnostics over gloo exact.  A rank that fails fails the phase."""
+    import multiprocessing
+    import tempfile
+    import torch.distributed as dist
+    from mpcc_manipulator_tpu_torch.mpc import mpc_step
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.parallel import sharding as shd
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    cfg = SQPConfig()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/nccl",
+                                rank=0, world_size=1)
+        try:
+            mesh = shd.make_mesh()
+            if (mesh.world_size, mesh.device) != (1, device):
+                raise AssertionError(f"make_mesh over NCCL: {mesh}")
+            for label, system, prob, batch in (
+                    ("Panda", PANDA, problem, BATCH),
+                    ("Husky+Panda", mobile_system(), mproblem,
+                     MOBILE_BATCHES[0])):
+                scen = sharded_inputs(perturbed_states(
+                    batch, torch.float32, device, system), system)
+                step = shd.make_sharded_step(mesh, ts=TS, cfg=cfg,
+                                             system=system)
+                reset_counts()
+                sh_outs, sh_x, sh_t = tick_loop(
+                    step, shd.replicate(prob, mesh),
+                    shd.shard_batch(scen, mesh), SHARDED_TICKS)
+                launches = read_counts()
+                ref_outs, ref_x, ref_t = tick_loop(
+                    lambda *a: mpc_step(*a, ts=TS, cfg=cfg, system=system),
+                    prob, scen, SHARDED_TICKS)
+                want = dict(K1=SHARDED_TICKS, K2=SHARDED_TICKS,
+                            K3=SHARDED_TICKS, K4=SHARDED_TICKS, K5=0)
+                same = torch.equal(sh_x, ref_x) and all(
+                    torch.equal(getattr(a, f.name), getattr(b, f.name))
+                    for a, b in zip(sh_outs, ref_outs)
+                    for f in dataclasses.fields(a))
+                ok = torch.stack([o.ok for o in sh_outs])
+                if launches != want or not same or not bool(ok.all()):
+                    raise AssertionError(
+                        f"sharded {label}: launches {launches} (expected "
+                        f"{want}), bit-identical to mpc_step {same}, all ok "
+                        f"{bool(ok.all())}")
+                last = sh_outs[-1]
+                diag = shd.fleet_diagnostics(last.ok, last.sqp_iters, mesh)
+                local = shd.fleet_diagnostics(last.ok, last.sqp_iters)
+                if any(not torch.equal(diag[k], local[k]) for k in diag):
+                    raise AssertionError(f"sharded {label}: NCCL fleet "
+                                         f"diagnostics {diag} != {local}")
+                med_sh = statistics.median(sh_t[1:])
+                med_ref = statistics.median(ref_t[1:])
+                print(f"sharded step (NCCL, world size 1) {label} {batch} x "
+                      f"{SHARDED_TICKS} RTI ticks on {card}: bit-identical "
+                      f"to mpc_step, all ok; median tick {med_sh * 1e3:.3f} "
+                      f"ms ({batch / med_sh:.1f} solves/s) against mpc_step "
+                      f"{med_ref * 1e3:.3f} ms ({batch / med_ref:.1f} "
+                      f"solves/s); fleet diagnostics "
+                      f"{ {k: float(v) for k, v in diag.items()} }; "
+                      f"launches {launches}")
+                out[label] = dict(tick_ms=med_sh * 1e3,
+                                  mpc_step_ms=med_ref * 1e3,
+                                  launches=launches)
+                if system is PANDA:
+                    ref_u = torch.stack([o.u0 for o in ref_outs]).cpu()
+                    ref_states = ref_x.cpu()
+                    ref_diag = {k: float(v) for k, v in local.items()}
+        finally:
+            dist.destroy_process_group()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=gloo_rank,
+                             args=(r, GLOO_RANKS, f"{d}/gloo", str(device),
+                                   BATCH, results))
+                 for r in range(GLOO_RANKS)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, res = results.get(timeout=GLOO_TIMEOUT)
+                if isinstance(res, str):
+                    raise AssertionError(f"gloo rank {rank} failed:\n{res}")
+                got[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if [p.exitcode for p in procs] != [0] * GLOO_RANKS:
+        raise AssertionError(f"gloo ranks exited "
+                             f"{[p.exitcode for p in procs]}")
+    u = np.concatenate([got[r]["u"] for r in range(GLOO_RANKS)], axis=1)
+    x = np.concatenate([got[r]["x"] for r in range(GLOO_RANKS)], axis=1)
+    ok = np.concatenate([got[r]["ok"] for r in range(GLOO_RANKS)], axis=1)
+    du = np.abs(u - ref_u.numpy())
+    dx = np.abs(x - ref_states.numpy())
+    gaps = {"u": float(du.max()), "q": float(dx[..., :7].max()),
+            "s": float(dx[..., 7].max()), "vs": float(dx[..., 8].max())}
+    identical = int(((du.max(axis=(0, 2)) == 0)
+                     & (dx.max(axis=(0, 2)) == 0)).sum())
+    diags = [got[r]["diag"] for r in range(GLOO_RANKS)]
+    bad = (not ok.all()
+           or any(gaps[k] >= ENVELOPE[k] for k in ("q", "s", "vs"))
+           or any(dg != ref_diag for dg in diags)
+           or any(got[r]["diag_device"] != str(device)
+                  for r in range(GLOO_RANKS)))
+    if bad:
+        raise AssertionError(
+            f"sharded over {GLOO_RANKS} gloo ranks: all ok {bool(ok.all())}, "
+            f"gaps {gaps} (envelope {ENVELOPE}), fleet diagnostics {diags} "
+            f"against {ref_diag} on {[g['diag_device'] for g in got.values()]}")
+    rank_ms = [statistics.median(got[r]["times"][1:]) * 1e3
+               for r in range(GLOO_RANKS)]
+    print(f"sharded step over {GLOO_RANKS} gloo ranks on one card "
+          f"({card}), Panda {BATCH} lanes x {SHARDED_TICKS} RTI ticks, "
+          f"{BATCH // GLOO_RANKS} a rank: all ok; {identical} of {BATCH} "
+          f"lanes bit-identical to the unsharded ticks; max |du| "
+          f"{gaps['u']:.3e}, |dq| {gaps['q']:.3e}, |ds| {gaps['s']:.3e}, "
+          f"|dvs| {gaps['vs']:.3e} (envelope {ENVELOPE}); fleet "
+          f"diagnostics over gloo on {got[0]['diag_device']} {diags[0]} "
+          f"equal to the unsharded means; median tick per rank "
+          f"{[round(t, 3) for t in rank_ms]} ms; "
+          f"{time.perf_counter() - t0:.1f} s with the spawns")
+    out["gloo"] = dict(identical_lanes=identical, gaps=gaps,
+                       rank_tick_ms=rank_ms)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2765,6 +3003,7 @@ def main() -> int:
     timed("sim_bridge", lambda: phase_bridge(card, device))
     timed("demos", lambda: phase_demos(card, device))
     timed("gates", lambda: phase_gates(card, device))
+    timed("sharded", lambda: phase_sharded(problem, mproblem, device, card))
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
 

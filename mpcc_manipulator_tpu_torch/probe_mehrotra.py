@@ -18,6 +18,8 @@ in float64 by the plain version on the CPU, and in float32 by:
   contraction (``--fmad=false``); with the Mehrotra gradient blocks built
   by the tile pass that the adaptive scheme uses; with IEEE ``1 / sqrtf``
   in place of the ``rsqrtf`` Cholesky pivots; the first two together;
+  with K1's Mehrotra-only code in the plain solve's summation order and
+  roundings (``_PLAIN_ORDER``);
   with Mehrotra's saved factorization held in float64 (``-DMPCC_FACT_F64``:
   r_bar factored again in float64 for it, and the vector sweeps'
   triangular solves against it in float64); and with the vector sweeps'
@@ -57,6 +59,58 @@ from .utils.linalg_small import cho_solve_small, cholesky_small
 BATCH, TICKS, TS = 1024, 10, 0.01
 TRACE = (4, 5)          # (tick, lane) of the iteration-by-iteration trace
 _GRADIENT_PASS = "      gradient_blocks(c);\n"
+# The plain solve's (`solver/qp_ipm.py`) order and roundings in the
+# Mehrotra-only code of K1: the gradient rows w (s - d) + rhs / s and the
+# corrector's right-hand side with the product rounded apart; each gradient
+# block as g + (C' r over C's rows), then the box terms, each product rounded
+# apart; in the vector sweep the a_sv coupling rounded apart and the
+# triangular solves against L as `cho_solve_small` takes them (right-looking:
+# the backward half subtracts from the last row up; products rounded apart;
+# a division by L's diagonal).  The adaptive scheme's code is untouched.
+_PLAIN_ORDER = [
+    ("    c.cz[i] = c.w[i] * (sv - c.d[i]) + rhs / ss;\n",
+     "    c.cz[i] = rhs_mode == 1 ? c.w[i] * (sv - c.d[i]) + rhs / ss\n"
+     "        : __fadd_rn(__fmul_rn(c.w[i], sv - c.d[i]), rhs / ss);\n"),
+    ("        c.tp[Q_UP + e] = __ldg(c.gx + c.n_st * NX + e)\n"
+     "                       + c.tx[e] * (gl[O_XU + e] - gl[O_XL + e]);\n",
+     "        c.tp[Q_UP + e] = __fadd_rn(__ldg(c.gx + c.n_st * NX + e),\n"
+     "            __fmul_rn(c.tx[e], gl[O_XU + e] - gl[O_XL + e]));\n"),
+    ("        v = __ldg(c.gx + k * NX + e);\n"
+     "        if (k >= 1) v += c.tx[e] * (gk[O_XU + e - NC] - gk[O_XL + e - NC]);\n"
+     "        for (int r = 0; r < NPC; ++r) v += __ldg(cx + r * NX + e) * gk[O_P + r];\n",
+     "        float pr = 0.f;\n"
+     "        for (int r = 0; r < NPC; ++r) pr += __ldg(cx + r * NX + e) * gk[O_P + r];\n"
+     "        v = __fadd_rn(__ldg(c.gx + k * NX + e), pr);\n"
+     "        if (k >= 1) v = __fadd_rn(v, __fmul_rn(c.tx[e],\n"
+     "            gk[O_XU + e - NC] - gk[O_XL + e - NC]));\n"),
+    ("        v = __ldg(c.gxu + k * DOF + u)\n"
+     "            - c.tr[u] * (gk[O_RU + u] - gk[O_RL + u]);\n",
+     "        v = __fsub_rn(__ldg(c.gxu + k * DOF + u),\n"
+     "            __fmul_rn(c.tr[u], gk[O_RU + u] - gk[O_RL + u]));\n"),
+    ("        v = __ldg(c.gu + k * NU + u) + c.tu[u] * (gk[O_UU + u] - gk[O_UL + u]);\n"
+     "        if (u < DOF) v += c.tr[u] * (gk[O_RU + u] - gk[O_RL + u]);\n"
+     "        for (int r = 0; r < NPC; ++r) v += __ldg(cu + r * NU + u) * gk[O_P + r];\n",
+     "        float pr = 0.f;\n"
+     "        for (int r = 0; r < NPC; ++r) pr += __ldg(cu + r * NU + u) * gk[O_P + r];\n"
+     "        v = __fadd_rn(__ldg(c.gu + k * NU + u), __fadd_rn(\n"
+     "            __fmul_rn(c.tu[u], gk[O_UU + u] - gk[O_UL + u]), pr));\n"
+     "        if (u < DOF) v = __fadd_rn(v, __fmul_rn(c.tr[u],\n"
+     "            gk[O_RU + u] - gk[O_RL + u]));\n"),
+    ("          c.r[i] = sigma_m * mu_meas - c.r[i] * c.cz[i];\n",
+     "          c.r[i] = __fsub_rn(sigma_m * mu_meas, __fmul_rn(c.r[i], c.cz[i]));\n"),
+    ("V(0));\n      if (lane == VS_IDX) qx += c.a_sv * ms;\n",
+     "V(0));\n      if (lane == VS_IDX) qx = __fadd_rn(qx, __fmul_rn(c.a_sv, ms));\n"),
+    ("          for (int j = 0; j < i; ++j) acc -= fk[F_L + i * NU + j] * z[j];\n"
+     "          z[i] = acc * fk[F_LINV + i];\n",
+     "          for (int j = 0; j < i; ++j)\n"
+     "            acc = __fsub_rn(acc, __fmul_rn(fk[F_L + i * NU + j], z[j]));\n"
+     "          z[i] = __fdiv_rn(acc, fk[F_L + i * NU + i]);\n"),
+    ("          for (int j = i + 1; j < NU; ++j) acc -= fk[F_L + j * NU + i] * z[j];\n"
+     "          z[i] = acc * fk[F_LINV + i];\n",
+     "          for (int j = NU - 1; j > i; --j)\n"
+     "            acc = __fsub_rn(acc, __fmul_rn(fk[F_L + j * NU + i], z[j]));\n"
+     "          z[i] = __fdiv_rn(acc, fk[F_L + i * NU + i]);\n"),
+]
 VARIANTS = {
     "no FMA contraction": (["--fmad=false"], []),
     "gradient blocks by the tile pass": (
@@ -67,6 +121,7 @@ VARIANTS = {
     "no FMA contraction, tile pass": (
         ["--fmad=false"],
         [(_GRADIENT_PASS, "      stage_blocks(c, GQ_OFF, SLOT);\n")]),
+    "plain summation order": ([], _PLAIN_ORDER),
     "saved factorization in float64": (["-DMPCC_FACT_F64"], []),
     "saved factorization and vector sweeps in float64": (
         ["-DMPCC_FACT_F64", "-DMPCC_VSWEEP_F64"], []),

@@ -18,7 +18,6 @@ mid-write never corrupts the previous checkpoint.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import re
 import tempfile
@@ -26,36 +25,16 @@ import tempfile
 import numpy as np
 import torch
 
+from ..utils.tree import flatten_with_path, unflatten
+
 _STEP_KEY = "__step__"
 
 
-def _flatten_with_names(tree, prefix: str = ""):
-    """``[(name, leaf)]`` in the JAX package's key-path order and spelling."""
-    if isinstance(tree, (tuple, list)):
-        return [x for i, v in enumerate(tree)
-                for x in _flatten_with_names(v, f"{prefix}[{i}]")]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree)
-                for x in _flatten_with_names(tree[k], f"{prefix}[{k!r}]")]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [x for f in dataclasses.fields(tree)
-                for x in _flatten_with_names(getattr(tree, f.name),
-                                             f"{prefix}.{f.name}")]
-    # npz member names must be unique and filesystem-safe
-    return [(re.sub(r"[^A-Za-z0-9_.\[\]']+", "_", prefix), tree)]
-
-
-def _unflatten(template, leaves):
-    """``template``'s structure with its leaves replaced, in order."""
-    if isinstance(template, (tuple, list)):
-        return type(template)(_unflatten(v, leaves) for v in template)
-    if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
-    if dataclasses.is_dataclass(template) and not isinstance(template, type):
-        return dataclasses.replace(template, **{
-            f.name: _unflatten(getattr(template, f.name), leaves)
-            for f in dataclasses.fields(template)})
-    return next(leaves)
+def _flatten_with_names(tree):
+    """``[(name, leaf)]`` in the JAX package's key-path order and spelling;
+    npz member names must be unique and filesystem-safe."""
+    return [(re.sub(r"[^A-Za-z0-9_.\[\]']+", "_", path), leaf)
+            for path, leaf in flatten_with_path(tree)]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -137,7 +116,7 @@ def restore_state(path: str, template):
             leaves.append(torch.from_numpy(arr).to(tleaf.device))
         else:
             leaves.append(arr)
-    return _unflatten(template, iter(leaves)), step
+    return unflatten(template, iter(leaves)), step
 
 
 def latest_checkpoint(directory: str, prefix: str = "ckpt_"):
