@@ -129,7 +129,25 @@ Phases (the first failure exits non-zero and prints no result line):
     the one card over gloo (512 a rank, 5 RTI ticks) against the
     unsharded ticks: every lane ok and inside the RTI envelope, the
     bit-identical lanes counted, the fleet diagnostics over gloo on CUDA
-    tensors exact.
+    tensors exact;
+22. the routes (``SQPConfig`` settings beside the bench's): the packed
+    ``qp_solver="riccati"`` and ``"riccati_struct"`` routes (plain stage
+    QP and IPM, K4 kinematics) for the Panda at 1024 and the Husky+Panda
+    at 4096, 5 RTI ticks each beside the bench route's (K1-K4), every lane
+    ok, K4 alone launched on the plain routes, each route's median tick;
+    on the first tick's QPs the packed solve, the structured one and K1
+    agree (Newton iterations within 1, steps within 5e-4); fleet mode on
+    the bench configuration (Panda/1024, the converged mode,
+    ``max_iter=5``, 3 ticks) bit-identical to the early-exit loop with
+    K1-K3 launched ``max_iter`` times a tick, and the device-to-host syncs
+    of one ``solve_ocp`` in each mode (``torch.cuda.set_sync_debug_mode``),
+    on the bench route and the packed one: none from `solver/sqp.py` or
+    `solver/qp_ipm.py` in fleet mode; the bf16 NN GEMMs (``nn_bf16``) on
+    the bench configuration (Panda/1024, 10 RTI ticks): every lane ok,
+    |dq| against the float32 GEMMs' run below 2e-4 on the lanes whose
+    Newton counts stay the float32 run's, inside the RTI envelope on those
+    where the bf16 perturbation moves the IPM's stop test (JAX drifts the
+    same way there), the NN half's device ms both ways.
 
 Every phase's seconds are printed as it ends.
 
@@ -1079,7 +1097,7 @@ def main_path_qps(problem, device):
     states, current u zero."""
     from mpcc_manipulator_tpu_torch.ocp import qp_data
     track, params = problem[:2]
-    z, _, _, _, rb = main_path_inputs(problem, device)
+    z, _, _, _, rb = main_path_inputs(problem, device, batch=BATCH)
     u0 = torch.zeros(BATCH, 8, dtype=torch.float32, device=device)
     p, q, a, lo, hi, _, constr = qp_data.build_qp(track, z, rb, params, u0,
                                                   TS)
@@ -2923,6 +2941,276 @@ def phase_sharded(problem, mproblem, device, card) -> dict:
     return out
 
 
+# the routes phase: RTI ticks per route and system, the fleet-mode ticks
+# (the converged mode at max_iter), the bf16 ticks, and the first tick's
+# QPs held across the three IPMs at K1's contract
+ROUTE_TICKS = 5
+ROUTE_BATCHES = {"panda": BATCH, "husky_panda": MOBILE_BATCHES[0]}
+FLEET = dict(rti=False, max_iter=5)
+FLEET_TICKS = 3
+BF16_TICKS = 10
+BF16_DQ = 2e-4        # JAX tests/test_nn_bf16.py (one lane)
+ROUTE_IPM_TOL = 5e-4  # tests/test_qp_ipm_pallas.py:77-137
+# the loops whose host reads fleet mode removes
+LOOP_FILES = ("solver/sqp.py", "solver/qp_ipm.py")
+
+
+def route_cfgs() -> dict:
+    """The Riccati routes as a user selects them: the bench configuration
+    (K1-K4), and the packed and structured solvers (the plain assembly
+    and IPM, as JAX requires; K4 for the kinematics)."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    plain = dict(qp_assembly="xla", kin_backend="pallas",
+                 mani_grad="analytic", ipm_warm_start=True)
+    return {"riccati_pallas": SQPConfig(),
+            "riccati_struct": SQPConfig(qp_solver="riccati_struct", **plain),
+            "riccati": SQPConfig(qp_solver="riccati", **plain)}
+
+
+def first_tick_solves(prob, device, system, batch) -> dict:
+    """The first tick's QPs (the cold-start horizon at the perturbed
+    states, current u zero) solved cold by each route's IPM: the packed
+    solve, the structured one and K1 (adaptive)."""
+    from mpcc_manipulator_tpu_torch.ocp import qp_stages
+    from mpcc_manipulator_tpu_torch.solver import qp_ipm
+    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
+        solve_qp_ipm_k)
+    track, params = prob[:2]
+    z, _, _, _, rb = main_path_inputs(prob, device, system, batch)
+    u0 = torch.zeros(batch, system.nu, dtype=torch.float32, device=device)
+    args = (track, z, rb, params, u0, TS)
+    packed = qp_ipm.solve_qp_ipm(qp_stages.build_qp_stages(
+        *args, system=system))
+    struct = qp_ipm.solve_qp_ipm_s(qp_stages.build_qp_stages_s(
+        *args, system=system))
+    kernel = solve_qp_ipm_k(qp_stages.build_qp_stages_k(
+        *args, system=system), system=system)
+    torch.cuda.synchronize()
+    return {"riccati": packed, "riccati_struct": struct,
+            "riccati_pallas": kernel}
+
+
+def route_ticks(prob, x0, cfg, ticks, system) -> tuple:
+    """``ticks`` RTI / converged ticks of ``cfg`` with the counts set to 0
+    just before and read just after: (host times, ok, states, launches,
+    outputs)."""
+    reset_counts()
+    times, oks, states, iters, sqp_iters, _ = closed_loop(
+        prob, x0, ticks, cfg, system=system)
+    return times, oks, states, read_counts(), (iters, sqp_iters)
+
+
+def sync_sites(fn) -> list:
+    """The device-to-host syncs ``fn()`` makes
+    (``torch.cuda.set_sync_debug_mode``'s warnings), each as ``file:line``
+    of the innermost line of the package on the stack that asked for it."""
+    import traceback
+    import warnings
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "mpcc_manipulator_tpu_torch")
+    sites = []
+
+    def record(message, category, filename, lineno, *rest):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(pkg)]
+        sites.append(f"{os.path.relpath(frames[-1].filename, pkg)}:"
+                     f"{frames[-1].lineno}" if frames else
+                     f"outside the package ({os.path.basename(filename)}:"
+                     f"{lineno})")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def nn_half_device_ms(rb_inputs, mm_dtype, reps: int = 10) -> dict:
+    """The NN half of RobotData on ``rb_inputs`` with its GEMMs in
+    ``mm_dtype``: device ms a call of every kernel it launches, and of its
+    GEMMs alone (kernels named gemm / xmma / cutlass), from
+    ``torch.profiler``; and the host-clock ms of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import _nn_half
+    call = lambda: _nn_half(*rb_inputs, nn_mm_dtype=mm_dtype)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = lambda e: getattr(e, "device_time_total", None) or e.cuda_time_total
+    gemm = [e for e in kernels
+            if any(k in e.name.lower() for k in ("gemm", "xmma", "cutlass"))]
+    names = sorted({e.name[:60] for e in gemm})
+    return {"all_ms": sum(us(e) for e in kernels) / reps / 1e3,
+            "gemm_ms": sum(us(e) for e in gemm) / reps / 1e3,
+            "gemm_kernels": names, "call_ms": cuda_time(call, reps)}
+
+
+def phase_routes(problem, mproblem, device, card) -> dict:
+    """Every SQPConfig route beside the bench's on the card (docstring,
+    item 22)."""
+    from mpcc_manipulator_tpu_torch.ocp import qp_data
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.solver import sqp
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    out = {}
+    cfgs = route_cfgs()
+    no_kernel = dict(K1=0, K2=0, K3=0, K5=0)
+    for name, system, prob in (("panda", PANDA, problem),
+                               ("husky_panda", mobile_system(), mproblem)):
+        batch = ROUTE_BATCHES[name]
+        sols = first_tick_solves(prob, device, system, batch)
+        ref = sols["riccati_struct"]
+        gaps = {}
+        for route in ("riccati", "riccati_pallas"):
+            sol, label = sols[route], f"routes, {name} first tick, {route}"
+            d_it = int((sol.iters - ref.iters).abs().max())
+            if d_it > 1:
+                raise AssertionError(f"{label}: Newton iterations differ "
+                                     f"from riccati_struct's by {d_it}")
+            gaps[route] = max(
+                check_close(f"{label} du", sol.du, ref.du, ROUTE_IPM_TOL),
+                check_close(f"{label} dx", sol.dx_tilde, ref.dx_tilde,
+                            ROUTE_IPM_TOL))
+        x0 = perturbed_states(batch, torch.float32, device, system)
+        med, final = {}, {}
+        for route, cfg in cfgs.items():
+            times, oks, states, launches, _ = route_ticks(
+                prob, x0, cfg, ROUTE_TICKS, system)
+            final[route] = states
+            check_ok(f"route {route} {name}", oks, states)
+            want = (dict(K1=ROUTE_TICKS, K2=ROUTE_TICKS, K3=ROUTE_TICKS,
+                         K4=ROUTE_TICKS, K5=0) if route == "riccati_pallas"
+                    else dict(no_kernel, K4=ROUTE_TICKS))
+            if launches != want:
+                raise AssertionError(f"route {route} {name}: launches "
+                                     f"{launches}, expected {want}")
+            med[route] = statistics.median(times[1:]) * 1e3
+        q = slice(system.base_dof, system.dof)
+        route_gap = {r: float((final[r][..., q] - final["riccati_struct"]
+                               [..., q]).abs().max())
+                     for r in ("riccati_pallas", "riccati")}
+        print(f"routes, {name} {batch} x {ROUTE_TICKS} RTI ticks on {card}: "
+              f"all ok; median tick ms "
+              + ", ".join(f"{r} {v:.3f}" for r, v in med.items())
+              + f"; first tick's QPs against riccati_struct: max|d step| "
+              f"packed {gaps['riccati']:.3e}, K1 {gaps['riccati_pallas']:.3e}"
+              f"; Newton iterations mean packed "
+              f"{sols['riccati'].iters.float().mean():.2f}, struct "
+              f"{ref.iters.float().mean():.2f}, K1 "
+              f"{sols['riccati_pallas'].iters.float().mean():.2f}; the "
+              f"float32 states after {ROUTE_TICKS} ticks, max |d q| "
+              f"against riccati_struct: K1-K4 {route_gap['riccati_pallas']:.3e},"
+              f" packed {route_gap['riccati']:.3e}")
+        out[name] = dict(tick_ms=med, step_gap=gaps, state_gap=route_gap)
+
+    # fleet mode on the bench configuration, the converged mode
+    x0 = perturbed_states(BATCH, torch.float32, device)
+    runs = {}
+    for fleet in (False, True):
+        cfg = SQPConfig(fleet_mode=fleet, **FLEET)
+        runs[fleet] = route_ticks(problem, x0, cfg, FLEET_TICKS, PANDA)
+    (t0_, ok0, st0, l0, it0), (t1_, ok1, st1, l1, it1) = runs[False], \
+        runs[True]
+    check_ok("fleet mode", ok1, st1)
+    same = (torch.equal(st0, st1) and torch.equal(ok0, ok1)
+            and all(torch.equal(a, b) for a, b in zip(it0, it1)))
+    per = FLEET["max_iter"] * FLEET_TICKS
+    if not same or l1 != dict(K1=per, K2=per, K3=per, K4=FLEET_TICKS, K5=0):
+        raise AssertionError(f"fleet mode: bit-identical {same}, launches "
+                             f"{l1} (early exit {l0})")
+    # the syncs of one solve_ocp (the first tick's inputs), both modes, on
+    # the bench route and on the packed route (the plain IPM)
+    z, _, _, _, rb = main_path_inputs(problem, device, batch=BATCH)
+    u0 = torch.zeros(BATCH, 8, dtype=torch.float32, device=device)
+    track, params = problem[:2]
+    syncs = {}
+    for route in ("riccati_pallas", "riccati"):
+        for fleet in (False, True):
+            cfg = dataclasses.replace(cfgs[route], fleet_mode=fleet,
+                                      **FLEET)
+            solve = lambda: sqp.solve_ocp(track, rb, params, cfg, z, u0, TS)
+            solve()
+            syncs[(route, fleet)] = sync_sites(solve)
+    loops = {k: [s for s in v if s.startswith(LOOP_FILES)]
+             for k, v in syncs.items()}
+    if any(loops[(r, True)] for r in ("riccati_pallas", "riccati")):
+        raise AssertionError(f"fleet mode: host syncs from the SQP / IPM "
+                             f"loops: {loops}")
+    count = lambda sites: {s: sites.count(s) for s in sorted(set(sites))}
+    print(f"fleet mode (bench configuration, converged max_iter="
+          f"{FLEET['max_iter']}) {BATCH} x {FLEET_TICKS} ticks on {card}: "
+          f"bit-identical to the early exit; launches {l1} (early exit "
+          f"{l0}); median tick {statistics.median(t1_[1:]) * 1e3:.3f} ms "
+          f"(early exit {statistics.median(t0_[1:]) * 1e3:.3f} ms)")
+    for (route, fleet), sites in syncs.items():
+        print(f"  syncs of one solve_ocp, {route}, fleet_mode={fleet}: "
+              f"{len(sites)} ({len(loops[(route, fleet)])} from the SQP / "
+              f"IPM loops) {count(sites)}")
+    out["fleet"] = dict(launches=l1, early_launches=l0,
+                        syncs={f"{r} fleet={f}": len(v)
+                               for (r, f), v in syncs.items()})
+
+    # the bf16 NN GEMMs on the bench configuration: JAX's bound where every
+    # Newton count is the float32 run's; where the bf16 perturbation moves
+    # the IPM's stop test to another iteration, the RTI envelope (JAX
+    # drifts there alike: tests/test_torch_nn_bf16.py)
+    _, oks16, st16, l16, (it16, _) = route_ticks(
+        problem, x0, SQPConfig(nn_bf16=True), BF16_TICKS, PANDA)
+    _, _, st32, _, (it32, _) = route_ticks(problem, x0, SQPConfig(),
+                                           BF16_TICKS, PANDA)
+    check_ok("nn_bf16", oks16, st16)
+    dq_lane = (st16[..., :7] - st32[..., :7]).abs().amax(dim=(0, 2))
+    split = (it16 != it32).any(dim=0)
+    dq = float(dq_lane[~split].max())
+    dq_split = float(dq_lane[split].max()) if bool(split.any()) else 0.0
+    if (dq >= BF16_DQ or dq_split >= ENVELOPE["q"]
+            or l16 != dict(K1=BF16_TICKS, K2=BF16_TICKS, K3=BF16_TICKS,
+                           K4=BF16_TICKS, K5=0)):
+        raise AssertionError(f"nn_bf16: |dq| {dq:.3e} (bound {BF16_DQ}), "
+                             f"on lanes with a moved Newton count "
+                             f"{dq_split:.3e} (envelope {ENVELOPE['q']}), "
+                             f"launches {l16}")
+    xs, _ = qp_data.split_z(z, PANDA)
+    obs = torch.tensor([[3.0, 3.0, 3.0]], device=device).expand(BATCH, 3)
+    nn_in = (xs[..., :7].contiguous(), obs, problem[2], problem[3], PANDA)
+    nn = {k: nn_half_device_ms(nn_in, k) for k in (None, "bfloat16")}
+    # the bf16 GEMM's call (`models/collision_nn.py::_mm`): its product is
+    # float32 before any cast
+    bf = torch.ones(4, 4, dtype=torch.bfloat16, device=device)
+    mm_dtype = torch.mm(bf, bf, out_dtype=torch.float32).dtype
+    print(f"nn_bf16 (bench configuration) {BATCH} x {BF16_TICKS} RTI ticks "
+          f"on {card}: all ok; max |dq| against the float32 GEMMs' run "
+          f"{dq:.3e} (bound {BF16_DQ}) on {int((~split).sum())} lanes, "
+          f"{dq_split:.3e} on the {int(split.sum())} whose Newton counts "
+          f"moved (envelope {ENVELOPE['q']}; median |dq| "
+          f"{float(dq_lane.median()):.3e}); launches {l16}; the NN half at "
+          f"({BATCH}, {KNOTS}) knots, device ms a call float32 "
+          f"{nn[None]['all_ms']:.4f} (GEMMs {nn[None]['gemm_ms']:.4f}, "
+          f"{nn[None]['gemm_kernels']}), bf16 {nn['bfloat16']['all_ms']:.4f} "
+          f"(GEMMs {nn['bfloat16']['gemm_ms']:.4f}, "
+          f"{nn['bfloat16']['gemm_kernels']}); CUDA-event ms a call "
+          f"{nn[None]['call_ms']:.4f} / {nn['bfloat16']['call_ms']:.4f}; "
+          f"torch.mm(bf16, bf16, out_dtype=torch.float32) gives {mm_dtype}")
+    if mm_dtype != torch.float32:
+        raise AssertionError(f"nn_bf16: the GEMM's product is {mm_dtype}")
+    out["nn_bf16"] = dict(dq=dq, dq_split=dq_split,
+                          split_lanes=int(split.sum()), nn_ms=nn)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3004,6 +3292,7 @@ def main() -> int:
     timed("demos", lambda: phase_demos(card, device))
     timed("gates", lambda: phase_gates(card, device))
     timed("sharded", lambda: phase_sharded(problem, mproblem, device, card))
+    timed("routes", lambda: phase_routes(problem, mproblem, device, card))
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
 

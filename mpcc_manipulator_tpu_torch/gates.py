@@ -63,9 +63,9 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRACK_JSON = os.path.join(_REPO_ROOT, "assets", "tracks", "track.json")
 
 TS = 0.01
-# the JAX gates' solver settings on the port's structured route (JAX's
-# qp_solver="riccati" is the packed solver, not ported; riccati_struct is
-# the same algorithm as the port's structured IPM)
+# the JAX gates' solver settings on the port's default route (K1-K4 on the
+# card; JAX's gates run qp_solver="riccati", the packed solver, which is
+# the same algorithm)
 CONVERGED = SQPConfig(rti=False, max_iter=20, ipm_max_iter=25)
 RTI = SQPConfig(max_iter=1, rti=True, ipm_max_iter=25)
 TOL_ENV = 8.0     # cm (assets/params/model.json: tol_envcol)
@@ -330,20 +330,21 @@ def _blocking_obstacle(track) -> tuple:
 
 def static_obstacle(dtype=torch.float32, device="cuda",
                     lanes: int = LANES, n: int = 300,
-                    disabled: bool = True) -> dict:
+                    disabled: bool = True,
+                    cfg: SQPConfig = CONVERGED) -> dict:
     """`test_obstacle_avoidance.py:139`: a static sphere blocking the path;
     constrained, the robot advances past 0.2 L, stops short of the sphere
     and holds the margin and the CBF contract; with the constraint
     disabled (a second ``n``-tick run, left out when ``disabled`` is
     false) it drives through (s past the sphere, the margin broken by more
-    than 3 cm)."""
+    than 3 cm).  ``cfg``: the solver (the converged mode)."""
     track = circle_track(dtype, device)
     L = float(track.length)
     s_obs, obs = _blocking_obstacle(track)
     x0 = home_states(lanes, dtype, device)
     lg, secs = _timed(lambda: run_logged(
         track, x0, {"param": {"desired_ee_velocity": 0.25}}, n,
-        lambda t: obs, OBS_R))
+        lambda t: obs, OBS_R, cfg=cfg))
     out = _obstacle_contract("static", lg, MARGIN)
     s_end = lg["s"][:, -1]
     _check((s_end > 0.2 * L).all(), ("static", "progress", s_end))
@@ -354,7 +355,8 @@ def static_obstacle(dtype=torch.float32, device="cuda",
         return res
     off, secs_off = _timed(lambda: run_logged(
         track, x0, {"param": {"desired_ee_velocity": 0.25,
-                              "tol_envcol": -1e3}}, n, lambda t: obs, OBS_R))
+                              "tol_envcol": -1e3}}, n, lambda t: obs, OBS_R,
+        cfg=cfg))
     _check(off["ok"].all(), ("static (disabled)", "not-ok ticks"))
     _check((off["s"][:, -1] > s_obs + 0.02).all(), (
         "static (disabled)", off["s"][:, -1], s_obs))

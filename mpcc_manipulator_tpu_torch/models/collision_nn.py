@@ -9,6 +9,14 @@ both with the "NeRF" input encoding ``[x, sin x, cos x]``.  The Jacobian is
 accumulated from the output side (both nets have fewer outputs than encoded
 inputs), ``J <- (J * relu'(z_l)) @ W_l`` with ReLU' taken as ``z > 0``; the
 batched products are plain ``torch`` matmuls.
+
+``mm_dtype="bfloat16"`` (``SQPConfig.nn_bf16``) runs the forward-and-
+Jacobian pass's GEMMs as JAX's ``_mm`` does: both operands rounded to
+bf16, the product accumulated in float32, then cast to the pipeline dtype.
+On the card that is one ``torch.mm(..., out_dtype=torch.float32)`` on bf16
+operands (cuBLAS, bf16 tensor cores, float32 result); on the CPU the
+rounded operands are multiplied in float32 (the products of bf16 values
+are exact there, so the two differ in summation order only).
 """
 
 from __future__ import annotations
@@ -63,25 +71,54 @@ def mlp_forward(net: CollisionMLP, x: torch.Tensor,
     return net.layers[-1](h)
 
 
-def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor):
+MM_DTYPES = (None, "bfloat16")
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, mm_dtype) -> torch.Tensor:
+    """``a @ b`` for 2-D ``a``, ``b``; with ``mm_dtype="bfloat16"`` on bf16
+    operands with a float32 product, cast back to ``a``'s dtype."""
+    if mm_dtype is None:
+        return a @ b
+    bf16 = torch.bfloat16
+    if a.is_cuda:
+        out = torch.mm(a.to(bf16), b.to(bf16), out_dtype=torch.float32)
+    else:
+        out = a.to(bf16).float() @ b.to(bf16).float()
+    return out.to(a.dtype)
+
+
+def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None):
     """Forward pass + analytic input Jacobian.
 
-    ``x`` (B, n_in) -> ``(y (B, n_out), dy/dx (B, n_out, n_in))``.
+    ``x`` (B, n_in) -> ``(y (B, n_out), dy/dx (B, n_out, n_in))``;
+    ``mm_dtype``: ``None`` (the pipeline dtype) or ``"bfloat16"``.
     """
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype {mm_dtype!r}: expected one of "
+                         f"{MM_DTYPES}")
     h = nerf_encode(x)
     last = net.layers[-1]
     if last.out_features >= h.shape[-1]:
         raise ValueError("output-side Jacobian accumulation needs fewer "
                          "outputs than encoded inputs")
+    if mm_dtype is None:
+        linear = lambda lin, h: lin(h)
+    else:
+        linear = lambda lin, h: _mm(h, lin.weight.T, mm_dtype) + lin.bias
     masks = []
     for lin in net.layers[:-1]:
-        z = lin(h)
+        z = linear(lin, h)
         masks.append((z > 0.0).to(x.dtype))
         h = torch.relu(z)
-    y = last(h)
+    y = linear(last, h)
     jac = last.weight.expand(x.shape[0], -1, -1)
     for lin, mask in zip(reversed(net.layers[:-1]), reversed(masks)):
-        jac = torch.matmul(jac * mask[:, None, :], lin.weight)
+        if mm_dtype is None:
+            jac = torch.matmul(jac * mask[:, None, :], lin.weight)
+        else:
+            rows = (jac * mask[:, None, :]).reshape(-1, lin.out_features)
+            jac = _mm(rows, lin.weight, mm_dtype).reshape(
+                x.shape[0], -1, lin.in_features)
     # chain through the encoding: d[x, sin x, cos x]/dx = [I; diag(cos); -diag(sin)]
     n = x.shape[-1]
     jac = (jac[..., :n] + jac[..., n:2 * n] * torch.cos(x)[:, None, :]

@@ -98,6 +98,19 @@ def ee_orientation(q: torch.Tensor) -> torch.Tensor:
     return fk_chain(q)[1]
 
 
+def ee_position_host(q) -> np.ndarray:
+    """:func:`ee_position` of host data (numpy / a list, (..., 7)) on the
+    CPU, returned as numpy in the input's dtype: setup paths (track
+    shifting, the API entry) read the EE position on the host without a
+    device round trip."""
+    return ee_position(torch.as_tensor(np.asarray(q))).numpy()
+
+
+def ee_orientation_host(q) -> np.ndarray:
+    """:func:`ee_orientation` of host data on the CPU, as numpy."""
+    return ee_orientation(torch.as_tensor(np.asarray(q))).numpy()
+
+
 def ee_jacobian(q: torch.Tensor) -> torch.Tensor:
     """(..., 6, 7) point Jacobian ``[Jv; Jw]`` of the TCP."""
     p_ee, _, origins, axes = fk_chain(q)

@@ -8,6 +8,7 @@ at the base origin.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .kinematics import _det_psd6, fk_chain
@@ -39,6 +40,17 @@ def ee_orientation(q_m: torch.Tensor) -> torch.Tensor:
     base, q = split_q(q_m)
     rb, _ = _base_transform(base)
     return rb @ fk_chain(q)[1]
+
+
+def ee_position_host(q_m) -> np.ndarray:
+    """:func:`ee_position` of host data (numpy / a list, (..., 10)) on the
+    CPU, as numpy (`kinematics.ee_position_host`)."""
+    return ee_position(torch.as_tensor(np.asarray(q_m))).numpy()
+
+
+def ee_orientation_host(q_m) -> np.ndarray:
+    """:func:`ee_orientation` of host data on the CPU, as numpy."""
+    return ee_orientation(torch.as_tensor(np.asarray(q_m))).numpy()
 
 
 def ee_jacobian(q_m: torch.Tensor) -> torch.Tensor:

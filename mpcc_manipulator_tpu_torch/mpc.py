@@ -156,7 +156,9 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
         rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos,
                                 obs_radius, sel_nn, env_nn, system,
                                 mani_grad=cfg.mani_grad,
-                                kin_backend=cfg.kin_backend)
+                                kin_backend=cfg.kin_backend,
+                                nn_mm_dtype="bfloat16" if cfg.nn_bf16
+                                else None)
 
     # --- 5. SQP (QP and IPM warm state carried across ticks; zeros / ones
     # on a cold start)

@@ -112,8 +112,17 @@ def _is_terminal(n: int, device=None) -> torch.Tensor:
 
 
 def _discrete_ab(ts, dtype, device, system: System = PANDA):
+    """The discrete (Ad, Bd) as tensors on ``device``, built once per
+    (ts, dtype, device, system): callers only read them, and a copy to the
+    card per call would be a host sync."""
+    return _discrete_ab_cached(float(ts), dtype, str(torch.device(device)),
+                               system)
+
+
+@functools.lru_cache(maxsize=None)
+def _discrete_ab_cached(ts: float, dtype, device: str, system: System):
     from ..models.dynamics import discrete_ab
-    ad, bd, _ = discrete_ab(float(ts), system)
+    ad, bd, _ = discrete_ab(ts, system)
     return (torch.tensor(ad, dtype=dtype, device=device),
             torch.tensor(bd, dtype=dtype, device=device))
 

@@ -1,15 +1,24 @@
-"""Stage-wise QP assembly for the Riccati/IPM solver, batch-first
+"""Stage-wise QP assembly for the Riccati/IPM solvers, batch-first
 (`mpcc_manipulator_tpu/ocp/qp_stages.py`).
 
 The normalized QP in stage-separable form with the state augmentation
 ``x~_k = [x^_k; u^_{k-1}]`` (NXT = 17), which makes the ddq smoothness cost
-and rate rows stage-local.  :class:`StageQPK` holds exactly the blocks the
-K1 kernel reads; :class:`StageQPS` is the structured representation the
-plain solver (`solver/qp_ipm.py`) consumes; :func:`qpk_to_qps` repacks.
+and rate rows stage-local.  Three representations of the same QP, one per
+solver route (``SQPConfig.qp_solver``):
+
+* :class:`StageQP` (``"riccati"``): every stage's rows as a dense
+  (nc_stage, nzt) block with a static activity mask, and the dynamics as
+  dense (nxt, nxt) / (nxt, nu) maps (:func:`build_qp_stages`);
+* :class:`StageQPS` (``"riccati_struct"``): only the nonzero content, the
+  box rows as diagonal scales and offsets (:func:`build_qp_stages_s`;
+  :func:`pack_stage_qp` packs it into a :class:`StageQP`);
+* :class:`StageQPK` (``"riccati_pallas"``): exactly the blocks the K1
+  kernel reads (:func:`build_qp_stages_k`; :func:`qpk_to_qps` repacks).
 
 Inequality rows per stage (NC_STAGE = 59), in the packed order:
 ``[x_u 0..8 | x_l 9..17 | u_u 18..25 | u_l 26..33 | ddq_u 34..40 |
-ddq_l 41..47 | polytopic 48..58]``.
+ddq_l 41..47 | polytopic 48..58]``; the state box is active on knots
+1..N, the other rows on knots 0..N-1.
 """
 
 from __future__ import annotations
@@ -64,6 +73,105 @@ def _cost_blocks_raw(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     pred = xs[:, :-1] @ ad.T + us @ bd.T
     defect = (xs[:, 1:] - pred) * params.normalization.t_x_inv
     return g_x, g_u, h_xx, h_uu, h_xu, two_r, ddq_pair, defect, xs, us, up
+
+
+def _row_masks(system: System, dtype, device) -> torch.Tensor:
+    """(N+1, nc_stage) activity of the packed rows: the state box on knots
+    1..N, the input box, rate and polytopic rows on knots 0..N-1."""
+    nx, n_h = system.nx, system.horizon
+    m = torch.zeros(n_h + 1, system.nc_stage, dtype=dtype, device=device)
+    m[1:, :2 * nx] = 1.0
+    m[:n_h, 2 * nx:] = 1.0
+    return m
+
+
+def _cost_blocks(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+                 params: MPCCParams, current_u: torch.Tensor, ts,
+                 exact_heading_jac: bool, system: System):
+    """The normalized cost and dynamics blocks in augmented stage
+    coordinates, shared by :class:`StageQP` and :class:`StageQPS`:
+    ``(h (B,N,nzt,nzt), g (B,N,nzt), h_term (B,nxt,nxt), g_term (B,nxt),
+    e (B,N,nxt), xs, us, up, ddq_pair)``."""
+    b = z.shape[0]
+    nx, dof, n_h = system.nx, system.dof, system.horizon
+    nxt, nzt = system.nxt, system.nzt
+    tudq = params.normalization.t_u[:dof]
+
+    (g_x, g_u, h_xx, h_uu, h_xu, two_r, ddq_pair, defect,
+     xs, us, up) = _cost_blocks_raw(track, z, rb, params, current_u, ts,
+                                    exact_heading_jac, system)
+
+    h = z.new_zeros(b, n_h, nzt, nzt)
+    h[..., :nx, :nx] = h_xx[:, :n_h]
+    h[..., :nx, nxt:] = h_xu
+    h[..., nxt:, :nx] = h_xu.transpose(-1, -2)
+    h[..., nxt:, nxt:] = h_uu
+    g = z.new_zeros(b, n_h, nzt)
+    g[..., :nx] = g_x[:, :n_h]
+    g[..., nxt:] = g_u
+    # ddq smoothness: +2r on u_k and on u^_{k-1}, -2r across
+    tu2 = tudq[:, None] * tudq[None, :] * torch.eye(dof, dtype=z.dtype,
+                                                    device=z.device)
+    blk = two_r[:, None, None] * tu2
+    h[..., nxt:nxt + dof, nxt:nxt + dof] += blk
+    h[..., nx:nx + dof, nx:nx + dof] += blk
+    h[..., nx:nx + dof, nxt:nxt + dof] += -blk
+    h[..., nxt:nxt + dof, nx:nx + dof] += -blk
+    g_sm = two_r[:, None] * tudq[None, :] * ddq_pair
+    g[..., nxt:nxt + dof] += g_sm
+    g[..., nx:nx + dof] += -g_sm
+
+    h_term = z.new_zeros(b, nxt, nxt)
+    h_term[:, :nx, :nx] = h_xx[:, n_h]
+    g_term = z.new_zeros(b, nxt)
+    g_term[:, :nx] = g_x[:, n_h]
+    e = z.new_zeros(b, n_h, nxt)
+    e[..., :nx] = -defect
+    return h, g, h_term, g_term, e, xs, us, up, ddq_pair
+
+
+def _box_offsets(track: TrackSpline, xs, us, ddq_pair, params: MPCCParams,
+                 ts, system: System):
+    """``(d_xu, d_xl (B,N+1,nx), d_uu, d_ul (B,N,nu), d_ru, d_rl
+    (B,N,dof))``: the box and rate rows' offsets, the s rows clamped to a
+    tiny feasible margin (they are weakly controllable over the first
+    stages; see the JAX assembly)."""
+    s_idx = system.s_idx
+    bx_l, bx_u = state_bounds(xs, params, track.length, system)
+    d_xu, d_xl = bx_u - xs, xs - bx_l
+    d_xu[..., s_idx] = torch.clamp(d_xu[..., s_idx], min=1e-6)
+    d_xl[..., s_idx] = torch.clamp(d_xl[..., s_idx], min=1e-6)
+    bp = params.bounds
+    rate_val = ddq_pair / ts
+    return (d_xu, d_xl, bp.u_u - us, us - bp.u_l, bp.ddq_u - rate_val,
+            rate_val - bp.ddq_l)
+
+
+@dataclasses.dataclass
+class StageQP:
+    """The packed stage-separable normalized QP, batch-first."""
+
+    h: torch.Tensor        # (B, N, NZT, NZT) stage Hessians over (x~, u)
+    g: torch.Tensor        # (B, N, NZT)
+    h_term: torch.Tensor   # (B, NXT, NXT)
+    g_term: torch.Tensor   # (B, NXT)
+    at: torch.Tensor       # (B, NXT, NXT)  Delta x~_{k+1} = at Delta x~_k
+    bt: torch.Tensor       # (B, NXT, NU)                  + bt Delta u_k + e_k
+    e: torch.Tensor        # (B, N, NXT)
+    c_rows: torch.Tensor   # (B, N+1, NC_STAGE, NZT) rows @ (x~_k, u_k) <= d
+    d_vec: torch.Tensor    # (B, N+1, NC_STAGE)
+    mask: torch.Tensor     # (B, N+1, NC_STAGE) 1.0 active / 0.0 inactive
+
+
+def build_qp_stages(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+                    params: MPCCParams, current_u: torch.Tensor, ts,
+                    exact_heading_jac: bool = False,
+                    system: System = PANDA) -> StageQP:
+    """Assemble the normalized QP in the packed dense-row layout (the
+    ``"riccati"`` route)."""
+    return pack_stage_qp(build_qp_stages_s(track, z, rb, params, current_u,
+                                           ts, exact_heading_jac, system),
+                         system)
 
 
 @dataclasses.dataclass
@@ -124,31 +232,23 @@ def build_qp_stages_k(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     _, bd_raw = _discrete_ab(ts, dtype, dev, system)
     bd = tx_inv[:, None] * bd_raw * tu[None, :]
 
-    bx_l, bx_u = state_bounds(xs, params, track.length, system)
-    d_xu = (bx_u - xs)[:, 1:]
-    d_xl = (xs - bx_l)[:, 1:]
-    # s rows are weakly controllable over the first stages: clamp their
-    # offsets to a tiny feasible margin (see the JAX assembly)
-    d_xu[..., s_idx] = torch.clamp(d_xu[..., s_idx], min=1e-6)
-    d_xl[..., s_idx] = torch.clamp(d_xl[..., s_idx], min=1e-6)
-    bp = params.bounds
-    rate_val = ddq_pair / ts
+    d_xu, d_xl, d_uu, d_ul, d_ru, d_rl = _box_offsets(
+        track, xs, us, ddq_pair, params, ts, system)
 
     cvals, _, _, cx, cu = stage_constraints(
         xs, up, rb, _is_terminal(n_h, dev), params, with_jacobian=True,
         system=system)
 
-    per_b = lambda t: t.expand((b,) + t.shape).contiguous()
+    per_b = lambda t: _expand(t, b)
     return StageQPK(
         hxx=h_xx.contiguous(), hux=h_xu.transpose(-1, -2).contiguous(),
         huu=huu.contiguous(), r2=per_b(r2), gx=g_x.contiguous(),
         gu=gu.contiguous(), gxu=(-g_sm).contiguous(),
         e=(-defect).contiguous(), a_sv=per_b(a_sv), bd=per_b(bd),
         tx=per_b(tx), tu=per_b(tu), t_rate=per_b(tudq / ts),
-        d_xu=d_xu.contiguous(), d_xl=d_xl.contiguous(),
-        d_uu=(bp.u_u - us).contiguous(), d_ul=(us - bp.u_l).contiguous(),
-        d_ru=(bp.ddq_u - rate_val).contiguous(),
-        d_rl=(rate_val - bp.ddq_l).contiguous(),
+        d_xu=d_xu[:, 1:].contiguous(), d_xl=d_xl[:, 1:].contiguous(),
+        d_uu=d_uu.contiguous(), d_ul=d_ul.contiguous(),
+        d_ru=d_ru.contiguous(), d_rl=d_rl.contiguous(),
         d_p=(-cvals[:, :n_h]).contiguous(),
         cpx=(cx * tx)[:, :n_h].contiguous(),
         cpu=(cu * tu)[:, :n_h].contiguous())
@@ -179,6 +279,91 @@ class StageQPS:
     d_p: torch.Tensor      # (B, N+1, NPC)
     m_x: torch.Tensor      # (B, N+1) state box active for k >= 1
     m_u: torch.Tensor      # (B, N+1) input/rate/polytopic active k <= N-1
+
+
+def _expand(t: torch.Tensor, b: int) -> torch.Tensor:
+    """A scenario-independent block, one contiguous copy per scenario."""
+    return t.expand((b,) + t.shape).contiguous()
+
+
+def build_qp_stages_s(track: TrackSpline, z: torch.Tensor, rb: RobotData,
+                      params: MPCCParams, current_u: torch.Tensor, ts,
+                      exact_heading_jac: bool = False,
+                      system: System = PANDA) -> StageQPS:
+    """Assemble the normalized QP in the structured form (the
+    ``"riccati_struct"`` route); the dynamics are ``I + a_sv E_{s,vs}`` and
+    ``[bd; I]`` exactly."""
+    dtype, dev = z.dtype, z.device
+    b = z.shape[0]
+    n_h, s_idx, vs_idx = system.horizon, system.s_idx, system.vs_idx
+    tx = params.normalization.t_x
+    tu = params.normalization.t_u
+    tx_inv = params.normalization.t_x_inv
+
+    h, g, h_term, g_term, e, xs, us, up, ddq_pair = _cost_blocks(
+        track, z, rb, params, current_u, ts, exact_heading_jac, system)
+    # a fill, not a copy from the host (which would sync the card)
+    a_sv = torch.full((), float(ts), dtype=dtype, device=dev) \
+        * tx[vs_idx] * tx_inv[s_idx]
+    _, bd_raw = _discrete_ab(ts, dtype, dev, system)
+    d_xu, d_xl, d_uu, d_ul, d_ru, d_rl = _box_offsets(
+        track, xs, us, ddq_pair, params, ts, system)
+    cvals, _, _, cx, cu = stage_constraints(
+        xs, up, rb, _is_terminal(n_h, dev), params, with_jacobian=True,
+        system=system)
+    ones = torch.ones(b, n_h, dtype=dtype, device=dev)
+    zero = torch.zeros(b, 1, dtype=dtype, device=dev)
+    return StageQPS(
+        h=h, g=g, h_term=h_term, g_term=g_term, a_sv=_expand(a_sv, b),
+        bd=_expand(tx_inv[:, None] * bd_raw * tu[None, :], b), e=e,
+        tx=_expand(tx, b), tu=_expand(tu, b),
+        t_rate=_expand(tu[:system.dof] / ts, b),
+        d_xu=d_xu, d_xl=d_xl, d_uu=d_uu, d_ul=d_ul, d_ru=d_ru, d_rl=d_rl,
+        cpx=cx * tx, cpu=(cu * tu)[:, :n_h], d_p=-cvals,
+        m_x=torch.cat([zero, ones], 1), m_u=torch.cat([ones, zero], 1))
+
+
+def pack_stage_qp(qps: StageQPS, system: System = PANDA) -> StageQP:
+    """StageQPS -> the packed :class:`StageQP` (the row layout of
+    :func:`build_qp_stages`): every row type but the polytopic is
+    diagonal or two-entry."""
+    b, n_st = qps.e.shape[:2]
+    nx, nu, dof = system.nx, system.nu, system.dof
+    nxt, nzt = system.nxt, system.nzt
+    dtype, dev = qps.e.dtype, qps.e.device
+    at = qps.e.new_zeros(b, nxt, nxt)
+    at[:, :nx, :nx] = torch.eye(nx, dtype=dtype, device=dev)
+    at[:, system.s_idx, system.vs_idx] += qps.a_sv
+    bt = qps.e.new_zeros(b, nxt, nu)
+    bt[:, :nx] = qps.bd
+    bt[:, nx:] = torch.eye(nu, dtype=dtype, device=dev)
+    c = qps.e.new_zeros(b, n_st + 1, system.nc_stage, nzt)
+    d = qps.e.new_zeros(b, n_st + 1, system.nc_stage)
+    tx_d, tu_d = torch.diag_embed(qps.tx), torch.diag_embed(qps.tu)
+    rate = torch.diag_embed(qps.t_rate)
+    c[:, :, 0:nx, :nx] = tx_d[:, None]
+    c[:, :, nx:2 * nx, :nx] = -tx_d[:, None]
+    d[..., 0:nx] = qps.d_xu
+    d[..., nx:2 * nx] = qps.d_xl
+    o = 2 * nx
+    c[:, :n_st, o:o + nu, nxt:] = tu_d[:, None]
+    c[:, :n_st, o + nu:o + 2 * nu, nxt:] = -tu_d[:, None]
+    d[:, :n_st, o:o + nu] = qps.d_uu
+    d[:, :n_st, o + nu:o + 2 * nu] = qps.d_ul
+    o = 2 * nx + 2 * nu
+    c[:, :n_st, o:o + dof, nxt:nxt + dof] = rate[:, None]
+    c[:, :n_st, o:o + dof, nx:nx + dof] = -rate[:, None]
+    c[:, :n_st, o + dof:o + 2 * dof, nxt:nxt + dof] = -rate[:, None]
+    c[:, :n_st, o + dof:o + 2 * dof, nx:nx + dof] = rate[:, None]
+    d[:, :n_st, o:o + dof] = qps.d_ru
+    d[:, :n_st, o + dof:o + 2 * dof] = qps.d_rl
+    o = 2 * nx + 2 * nu + 2 * dof
+    c[:, :, o:, :nx] = qps.cpx
+    c[:, :n_st, o:, nxt:] = qps.cpu
+    d[..., o:] = qps.d_p
+    return StageQP(h=qps.h, g=qps.g, h_term=qps.h_term, g_term=qps.g_term,
+                   at=at, bt=bt, e=qps.e, c_rows=c, d_vec=d,
+                   mask=_expand(_row_masks(system, dtype, dev), b))
 
 
 def qpk_to_qps(qpk: StageQPK, system: System = PANDA) -> StageQPS:

@@ -13,7 +13,8 @@ manipulability and its gradient) takes one of two routes, as in JAX
   mobile system takes the arm's autodiff gradient whatever ``mani_grad``
   says (JAX `_single_knot_mobile`).
 
-The NN half is batched ``torch`` matmuls on either route.
+The NN half is batched ``torch`` matmuls on either route, in bf16 with a
+float32 product under ``nn_mm_dtype="bfloat16"`` (JAX `_mm`).
 
 For the mobile system (JAX `_nn_knot`, ``base_dof != 0``):
 
@@ -58,18 +59,19 @@ class RobotData:
 
 
 def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
-             system: System):
+             system: System, nn_mm_dtype=None):
     """The NN half over (B, K) knots: ``(sel (B,K), d_sel (B,K,dof), env
-    (B,K,L), d_env (B,K,L,dof))``."""
+    (B,K,L), d_env (B,K,L,dof))``; its GEMMs in ``nn_mm_dtype``
+    (`models/collision_nn.py`)."""
     b, k, dof = qs.shape
     q_flat = qs.reshape(b * k, dof)
     q_arm = q_flat[:, system.arm_slice]
     obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
-    sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm)
+    sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm, nn_mm_dtype)
     d_sel = d_sel[:, 0]
     if system.base_dof == 0:
         env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs], dim=-1))
+            env_nn, torch.cat([q_arm, obs], dim=-1), nn_mm_dtype)
         # the joint columns only (the reference slices off the obstacle ones)
         d_env = d_env_full[:, :, :dof]
     else:
@@ -78,7 +80,7 @@ def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
         rbt = rb.transpose(-1, -2)
         obs_local = (rbt @ rel[..., None])[..., 0]
         env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs_local], dim=-1))
+            env_nn, torch.cat([q_arm, obs_local], dim=-1), nn_mm_dtype)
         arm = system.arm_dof
         d_env_q, d_env_o = d_env_full[:, :, :arm], d_env_full[:, :, arm:]
         # d obs_local / d(x_b, y_b, th_b): -R_b' on the translations, and
@@ -144,11 +146,13 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
                        obs_radius: torch.Tensor, sel_nn: cnn.CollisionMLP,
                        env_nn: cnn.CollisionMLP, system: System = PANDA,
                        mani_grad: str = "analytic",
-                       kin_backend: str = "pallas") -> RobotData:
+                       kin_backend: str = "pallas",
+                       nn_mm_dtype: str | None = None) -> RobotData:
     """The full cache for joint configurations ``qs`` (B, K, dof), one
     obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,)); the
     kinematic half by the ``kin_backend`` route with the ``mani_grad``
-    gradient."""
+    gradient, the NN GEMMs in ``nn_mm_dtype`` (``"bfloat16"``:
+    ``SQPConfig.nn_bf16``)."""
     if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
         raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
                          f"{kin_backend!r}: the port runs {MANI_GRADS} / "
@@ -161,7 +165,8 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
         # contiguous, as K2 and K3 read them
         p_ee, r_ee, jv, jw, mani, d_mani = (
             t.contiguous() for t in _kin_half_plain(qs, mani_grad, system))
-    sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn, system)
+    sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn, system,
+                                      nn_mm_dtype)
     return RobotData(
         q=qs, ee_pos=p_ee, ee_rot=r_ee, jv=jv, jw=jw,
         manipul=mani, d_manipul=d_mani, sel_dist=sel, d_sel_dist=d_sel,

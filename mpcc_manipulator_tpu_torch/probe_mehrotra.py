@@ -130,7 +130,7 @@ _F64_FLAG = "-DMPCC_FACT_F64"
 
 
 def _gram_backward(qp, hbar, gbar, hbar_term, gbar_term, with_vectors=True):
-    """`qp_ipm._riccati_backward` with K1's P update, P = q_bar - Y'Y,
+    """`qp_ipm._riccati_backward_s` with K1's P update, P = q_bar - Y'Y,
     Y = L^-1 s_bar (matrix sweep only, as Mehrotra runs it)."""
     assert not with_vectors
     bd, a_sv = qp.bd, qp.a_sv[:, None]
@@ -267,12 +267,12 @@ def main() -> None:
     report("plain float32, card", plain)
     report("plain float32, CPU", lambda qp, ws, wl, _: plain(
         _cast(qp, lambda t: t.cpu()), ws.cpu(), wl.cpu(), None))
-    backward = qp_ipm._riccati_backward
-    qp_ipm._riccati_backward = _gram_backward
+    backward = qp_ipm._riccati_backward_s
+    qp_ipm._riccati_backward_s = _gram_backward
     try:
         report("plain float32, card, P = q_bar - Y'Y", plain)
     finally:
-        qp_ipm._riccati_backward = backward
+        qp_ipm._riccati_backward_s = backward
     fact_floats = qp_ipm_kernel.fact_floats
     try:
         for name in variants:

@@ -1,18 +1,26 @@
-"""Structured QP solver: primal-dual interior point + Riccati recursion,
-batch-first (`mpcc_manipulator_tpu/solver/qp_ipm.py::solve_qp_ipm_s`).
+"""Structured QP solvers: primal-dual interior point + Riccati recursion,
+batch-first (`mpcc_manipulator_tpu/solver/qp_ipm.py`).
 
-Both centering schemes of the JAX function (adaptive, and Mehrotra's
-predictor-corrector against a saved factorization), with optional warm
-start, on the structured :class:`~..ocp.qp_stages.StageQPS`.  This is
-the plain version of the K1 kernel (`solver/qp_ipm_kernel.py`).  The
-Newton loop is a fixed-trip loop with per-lane freeze masks -- a lane
+Two solvers of one algorithm, both centering schemes of the JAX functions
+(adaptive, and Mehrotra's predictor-corrector against a saved
+factorization), with optional warm start:
+
+* :func:`solve_qp_ipm` on the packed :class:`~..ocp.qp_stages.StageQP`
+  (dense stage rows with an activity mask, dense dynamics maps; the
+  ``"riccati"`` route);
+* :func:`solve_qp_ipm_s` on the structured
+  :class:`~..ocp.qp_stages.StageQPS` (the ``"riccati_struct"`` route, and
+  the plain version of the K1 kernel, `solver/qp_ipm_kernel.py`); its rows
+  are seven exact-shape groups per stage, ``(xu, xl, uu, ul, ru, rl, p)``:
+  the state box covers knots 1..N, the input / rate / polytopic rows knots
+  0..N-1.
+
+The Newton loop is a fixed-trip loop with per-lane freeze masks -- a lane
 stops updating once it has converged or diverged, the semantics of
-``vmap(while_loop)`` -- and it returns early once every lane is frozen
-(which changes no result).
-
-Rows are handled as seven exact-shape groups per stage,
-``(xu, xl, uu, ul, ru, rl, p)``: the state box covers knots 1..N, the
-input / rate / polytopic rows knots 0..N-1.
+``vmap(while_loop)``.  By default it returns early once every lane is
+frozen (one flag read on the host per iteration; no result changes);
+``fixed_iters=True`` (JAX's fleet mode) runs all ``max_iter`` trips and
+never reads the flag.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import dataclasses
 
 import torch
 
-from ..ocp.qp_stages import StageQPS
+from ..ocp.qp_stages import StageQP, StageQPS
 from ..utils.linalg_small import cho_solve_small, cholesky_small
 
 # Complementarity target (a constant here; the JAX package reads an
@@ -59,13 +67,13 @@ def groups_to_rows(cat: torch.Tensor, base: float, nx: int) -> torch.Tensor:
     return rows
 
 
-def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term,
+def _riccati_backward_s(qp: StageQPS, hbar, gbar, hbar_term, gbar_term,
                       with_vectors: bool = True):
     """Structured backward sweep: ``(k_gains, k_ffs, fact)``.  With
     ``with_vectors`` the matrix and vector recursions run fused; without,
     only the matrix recursion runs (``k_ffs`` are zero) and ``fact = (P's
     x-columns, Cholesky factors, s_bars)`` per stage supports later
-    vector-only sweeps (:func:`_riccati_ff`)."""
+    vector-only sweeps (:func:`_riccati_ff_s`)."""
     bd, a_sv = qp.bd, qp.a_sv[:, None]
     nx, nu = bd.shape[-2:]
     nxt = nx + nu
@@ -91,7 +99,7 @@ def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term,
         chol = cholesky_small(r_bar + 1e-9 * eye_u, nu)
         p_xs[k], chols[k], s_bars[k] = p_mat[:, :, :nx], chol, s_bar
         if with_vectors:
-            qx_bar, ru_bar = _riccati_vector(qp, k, p_mat[:, :, :nx], p_vec,
+            qx_bar, ru_bar = _riccati_vector_s(qp, k, p_mat[:, :, :nx], p_vec,
                                              gbar[:, k])
             sol = -cho_solve_small(
                 chol, torch.cat([s_bar, ru_bar[..., None]], dim=-1), nu)
@@ -106,7 +114,7 @@ def _riccati_backward(qp: StageQPS, hbar, gbar, hbar_term, gbar_term,
     return k_gains, k_ffs, (p_xs, chols, s_bars)
 
 
-def _riccati_vector(qp: StageQPS, k: int, p_x, p_vec, g_k):
+def _riccati_vector_s(qp: StageQPS, k: int, p_x, p_vec, g_k):
     """One vector Riccati step against P_{k+1}'s x-columns ``p_x``:
     ``(qx_bar, ru_bar)``."""
     bd, a_sv = qp.bd, qp.a_sv
@@ -122,7 +130,7 @@ def _riccati_vector(qp: StageQPS, k: int, p_x, p_vec, g_k):
     return qx_bar, ru_bar
 
 
-def _riccati_ff(qp: StageQPS, fact, k_gains, gbar, gbar_term):
+def _riccati_ff_s(qp: StageQPS, fact, k_gains, gbar, gbar_term):
     """Vector-only backward sweep against a saved factorization, then the
     forward rollout (the Mehrotra probe and corrector)."""
     nu = qp.bd.shape[-1]
@@ -130,14 +138,14 @@ def _riccati_ff(qp: StageQPS, fact, k_gains, gbar, gbar_term):
     p_vec = gbar_term
     k_ffs = [None] * len(k_gains)
     for k in reversed(range(len(k_gains))):
-        qx_bar, ru_bar = _riccati_vector(qp, k, p_xs[k], p_vec, gbar[:, k])
+        qx_bar, ru_bar = _riccati_vector_s(qp, k, p_xs[k], p_vec, gbar[:, k])
         k_ffs[k] = -cho_solve_small(chols[k], ru_bar, nu)
         p_vec = (qx_bar
                  + (s_bars[k].transpose(-1, -2) @ k_ffs[k][..., None])[..., 0])
-    return _riccati_forward(qp, k_gains, k_ffs)
+    return _riccati_forward_s(qp, k_gains, k_ffs)
 
 
-def _riccati_forward(qp: StageQPS, k_gains, k_ffs):
+def _riccati_forward_s(qp: StageQPS, k_gains, k_ffs):
     """Rollout dx'_{k+1} = at dx'_k + bt du_k + e_k from dx'_0 = 0."""
     nx = qp.bd.shape[-2]
     s_idx, vs_idx = nx - 2, nx - 1
@@ -154,10 +162,91 @@ def _riccati_forward(qp: StageQPS, k_gains, k_ffs):
     return torch.stack(dxs, dim=1), torch.stack(dus, dim=1)
 
 
+def _check_scheme(scheme: str) -> None:
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
+                         f"{SCHEMES}")
+
+
+def _max_alpha(v, dv):
+    """Fraction-to-boundary step length per lane, over every row."""
+    neg = dv < -1e-12
+    ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0),
+                        torch.full_like(v, float("inf")))
+    return torch.clamp(FRAC_TO_BOUNDARY * ratio.amin((-1, -2)), max=1.0)
+
+
+def _newton_loop(scheme, max_iter, fixed_iters, dx, du, s, lam, newton,
+                 mean, residual):
+    """The interior-point iterations shared by both solvers, per lane:
+    ``newton(s, lam)`` factors the iteration's Newton system and returns
+    ``solve_rhs(rhs) -> (dx, du, s, lam)`` targets for a complementarity
+    right-hand side; ``mean`` averages rows over the active ones;
+    ``residual`` is the largest |C z + s - d|.  A lane freezes once it has
+    converged or diverged; a non-finite update is not taken.  Returns
+    ``(dx, du, s, lam, iterations)``."""
+    bsz, dev = s.shape[0], s.device
+    mu = mean(s * lam)
+    it = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    col = lambda v: v[:, None, None]
+    for _ in range(max_iter):
+        solve_rhs = newton(s, lam)
+        if scheme == "mehrotra":
+            # affine probe, then the centering corrector with the
+            # second-order term
+            mu_meas = mean(s * lam)
+            _, _, s_a, lam_a = solve_rhs(torch.zeros_like(s))
+            ds_a, dlam_a = s_a - s, lam_a - lam
+            a_p_aff = col(_max_alpha(s, ds_a))
+            a_d_aff = col(_max_alpha(lam, dlam_a))
+            mu_aff = mean((s + a_p_aff * ds_a) * (lam + a_d_aff * dlam_a))
+            sigma_m = torch.clamp(
+                (mu_aff / torch.clamp(mu_meas, min=1e-12)) ** 3, 1e-4, 1.0)
+            rhs = col(sigma_m * mu_meas) - ds_a * dlam_a
+        else:
+            rhs = col(mu).expand_as(s)
+        dx_t, du_t, s_t, lam_t = solve_rhs(rhs)
+        step_s = s_t - s
+        step_lam = lam_t - lam
+        alpha_p = _max_alpha(s, step_s)
+        alpha_d = _max_alpha(lam, step_lam)
+
+        dx_n = dx + col(alpha_p) * (dx_t - dx)
+        du_n = du + col(alpha_p) * (du_t - du)
+        s_n = s + col(alpha_p) * step_s
+        lam_n = lam + col(alpha_d) * step_lam
+        finite = (torch.isfinite(dx_n).all((-1, -2))
+                  & torch.isfinite(du_n).all((-1, -2))
+                  & torch.isfinite(s_n).all((-1, -2))
+                  & torch.isfinite(lam_n).all((-1, -2)))
+        # frozen lanes keep their carry; a non-finite update is not taken
+        upd = col(~done & finite)
+        dx = torch.where(upd, dx_n, dx)
+        du = torch.where(upd, du_n, du)
+        s = torch.where(upd, s_n, s)
+        lam = torch.where(upd, lam_n, lam)
+
+        r_ineq = residual(dx, du, s)
+        mu_post = mean(s * lam)
+        alpha_min = torch.minimum(alpha_p, alpha_d)
+        sigma = torch.clamp((1.0 - alpha_min) ** 2, 0.1, 0.8)
+        mu = torch.where(done, mu, torch.clamp(sigma * mu_post,
+                                               min=0.01 * EPS_IPM))
+        stop = ((mu_post < EPS_IPM) & (r_ineq < 2e-4)) | ~finite \
+            | (mu_post > 1e6)
+        it = it + (~done).long()
+        done = done | stop
+        if not fixed_iters and bool(done.all()):
+            break
+    return dx, du, s, lam, it
+
+
 def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
                    warm_s: torch.Tensor | None = None,
                    warm_lam: torch.Tensor | None = None,
-                   scheme: str = "adaptive") -> IPMSolution:
+                   scheme: str = "adaptive",
+                   fixed_iters: bool = False) -> IPMSolution:
     """Interior-point solve of a batch of structured stage QPs.
 
     ``scheme``: ``"adaptive"`` (one fused matrix + vector sweep per Newton
@@ -166,10 +255,9 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
     centering corrector as vector-only sweeps against the saved
     factorization).  ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage)
     warm-start iterates; ``None`` is the cold start (all ones).
+    ``fixed_iters``: run all ``max_iter`` trips, no early exit.
     """
-    if scheme not in SCHEMES:
-        raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
-                         f"{SCHEMES}")
+    _check_scheme(scheme)
     dtype, dev = qp.e.dtype, qp.e.device
     bsz, n_st = qp.e.shape[:2]
     nx, nu = qp.bd.shape[-2:]
@@ -199,12 +287,6 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
                 + torch.einsum("bkrz,bkz->bkr", qp.cpu, du_all))
         return torch.cat([cz_x, -cz_x, cz_u, -cz_u, cz_r, -cz_r, cz_p], -1)
 
-    def max_alpha(v, dv):
-        neg = dv < -1e-12
-        ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0),
-                            torch.full_like(v, float("inf")))
-        return torch.clamp(FRAC_TO_BOUNDARY * ratio.amin((-1, -2)), max=1.0)
-
     def gradient(r_g):
         """gbar, gbar_term from the (B, N, nc) gradient rows."""
         r_xu, r_xl, r_uu, r_ul, r_ru, r_rl, r_p = split(r_g)
@@ -221,16 +303,7 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
         gbar_term[:, :nx] += gx_box[:, n_st - 1]
         return gbar, gbar_term
 
-    ones = torch.ones(bsz, n_st, nc, dtype=dtype, device=dev)
-    s = ones if warm_s is None else rows_to_groups(warm_s, nx).to(dtype)
-    lam = ones if warm_lam is None else rows_to_groups(warm_lam, nx).to(dtype)
-    dx = qp.e.new_zeros(bsz, n_st + 1, nxt)
-    du = qp.e.new_zeros(bsz, n_st, nu)
-    mu = (s * lam).sum((-1, -2)) / m_act
-    it = torch.zeros(bsz, dtype=torch.int64, device=dev)
-    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
-
-    for _ in range(max_iter):
+    def newton(s, lam):
         s_safe = torch.clamp(s, min=1e-10)
         w = lam / s_safe
         w_xu, w_xl, w_uu, w_ul, w_ru, w_rl, w_p = split(w)
@@ -257,76 +330,202 @@ def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
         hbar_term[:, ar_x, ar_x] += dxx[:, n_st - 1]
 
         if scheme == "mehrotra":
-            k_gains, _, fact = _riccati_backward(
+            k_gains, _, fact = _riccati_backward_s(
                 qp, hbar, None, hbar_term, None, with_vectors=False)
-            sweep = lambda gb, gt: _riccati_ff(qp, fact, k_gains, gb, gt)
+            sweep = lambda gb, gt: _riccati_ff_s(qp, fact, k_gains, gb, gt)
         else:
             def sweep(gb, gt):
-                k_gains, k_ffs, _ = _riccati_backward(qp, hbar, gb,
+                k_gains, k_ffs, _ = _riccati_backward_s(qp, hbar, gb,
                                                       hbar_term, gt)
-                return _riccati_forward(qp, k_gains, k_ffs)
+                return _riccati_forward_s(qp, k_gains, k_ffs)
 
         def solve_rhs(rhs):
-            """Targets (dx, du, s, lam) of the Newton system whose
-            complementarity right-hand side is ``rhs`` (B, N, nc)."""
             dx_t, du_t = sweep(*gradient(w * (s - d_all) + rhs / s_safe))
             cz = row_dots(dx_t, du_t)
             return (dx_t, du_t, d_all - cz,
                     rhs / s_safe + w * (cz + s - d_all))
+        return solve_rhs
 
-        if scheme == "mehrotra":
-            # affine probe, then the centering corrector with the
-            # second-order term (JAX `solve_qp_ipm_s(scheme="mehrotra")`)
-            mu_meas = (s * lam).sum((-1, -2)) / m_act
-            _, _, s_a, lam_a = solve_rhs(torch.zeros_like(s))
-            ds_a, dlam_a = s_a - s, lam_a - lam
-            a_p_aff = max_alpha(s, ds_a)[:, None, None]
-            a_d_aff = max_alpha(lam, dlam_a)[:, None, None]
-            mu_aff = ((s + a_p_aff * ds_a) * (lam + a_d_aff * dlam_a)).sum(
-                (-1, -2)) / m_act
-            sigma_m = torch.clamp(
-                (mu_aff / torch.clamp(mu_meas, min=1e-12)) ** 3, 1e-4, 1.0)
-            rhs = (sigma_m * mu_meas)[:, None, None] - ds_a * dlam_a
-        else:
-            rhs = mu[:, None, None].expand_as(s)
-        dx_t, du_t, s_t, lam_t = solve_rhs(rhs)
-        step_s = s_t - s
-        step_lam = lam_t - lam
-        alpha_p = max_alpha(s, step_s)
-        alpha_d = max_alpha(lam, step_lam)
+    ones = torch.ones(bsz, n_st, nc, dtype=dtype, device=dev)
+    s = ones if warm_s is None else rows_to_groups(warm_s, nx).to(dtype)
+    lam = ones if warm_lam is None else rows_to_groups(warm_lam, nx).to(dtype)
+    mean = lambda v: v.sum((-1, -2)) / m_act
+    residual = lambda dx, du, s: torch.abs(row_dots(dx, du) + s
+                                           - d_all).amax((-1, -2))
+    dx, du, s, lam, it = _newton_loop(
+        scheme, max_iter, fixed_iters, qp.e.new_zeros(bsz, n_st + 1, nxt),
+        qp.e.new_zeros(bsz, n_st, nu), s, lam, newton, mean, residual)
 
-        dx_n = dx + alpha_p[:, None, None] * (dx_t - dx)
-        du_n = du + alpha_p[:, None, None] * (du_t - du)
-        s_n = s + alpha_p[:, None, None] * step_s
-        lam_n = lam + alpha_d[:, None, None] * step_lam
-        finite = (torch.isfinite(dx_n).all((-1, -2))
-                  & torch.isfinite(du_n).all((-1, -2))
-                  & torch.isfinite(s_n).all((-1, -2))
-                  & torch.isfinite(lam_n).all((-1, -2)))
-        # frozen lanes keep their carry; a non-finite update is not taken
-        upd = (~done & finite)[:, None, None]
-        dx = torch.where(upd, dx_n, dx)
-        du = torch.where(upd, du_n, du)
-        s = torch.where(upd, s_n, s)
-        lam = torch.where(upd, lam_n, lam)
-
-        r_ineq = torch.abs(row_dots(dx, du) + s - d_all).amax((-1, -2))
-        mu_post = (s * lam).sum((-1, -2)) / m_act
-        alpha_min = torch.minimum(alpha_p, alpha_d)
-        sigma = torch.clamp((1.0 - alpha_min) ** 2, 0.1, 0.8)
-        mu = torch.where(done, mu, torch.clamp(sigma * mu_post,
-                                               min=0.01 * EPS_IPM))
-        stop = ((mu_post < EPS_IPM) & (r_ineq < 2e-4)) | ~finite \
-            | (mu_post > 1e6)
-        it = it + (~done).long()
-        done = done | stop
-        if bool(done.all()):
-            break
-
-    r_fin = torch.abs(row_dots(dx, du) + s - d_all).amax((-1, -2))
-    mu_fin = (s * lam).sum((-1, -2)) / m_act
-    solved = (mu_fin < 10 * EPS_IPM) & (r_fin < 1e-3)
+    mu_fin = mean(s * lam)
+    solved = (mu_fin < 10 * EPS_IPM) & (residual(dx, du, s) < 1e-3)
     return IPMSolution(dx_tilde=dx, du=du, lam=groups_to_rows(lam, 0.0, nx),
                        iters=it, solved=solved, mu=mu_fin,
                        s_rows=groups_to_rows(s, 1.0, nx),
                        lam_rows=groups_to_rows(lam, 1.0, nx))
+
+
+# ------------------------------------------------------------------
+# The packed solver (StageQP)
+# ------------------------------------------------------------------
+
+
+def _stage_split(h, g, nxt):
+    """(B, nzt, nzt) / (B, nzt) stage blocks -> (Q, S, R, qx, ru)."""
+    return (h[:, :nxt, :nxt], h[:, nxt:, :nxt], h[:, nxt:, nxt:],
+            g[:, :nxt], g[:, nxt:])
+
+
+def _mv(a, v):
+    return (a @ v[..., None])[..., 0]
+
+
+def _riccati_factor(qp: StageQP, hbar, hbar_term):
+    """Matrix half of the backward sweep against the dense dynamics maps:
+    ``(p_mats, chols, s_bars, k_gains)`` per stage, ``p_mats[k]`` the
+    cost-to-go Hessian entering stage k (P_{k+1})."""
+    at, bt = qp.at, qp.bt
+    nxt, nu = bt.shape[-2:]
+    att, btt = at.transpose(-1, -2), bt.transpose(-1, -2)
+    eye_u = torch.eye(nu, dtype=at.dtype, device=at.device)
+    n_st = hbar.shape[1]
+    p_mats, chols, s_bars, k_gains = ([None] * n_st for _ in range(4))
+    p_mat = hbar_term
+    for k in reversed(range(n_st)):
+        h_k = hbar[:, k]
+        q, s, r = h_k[:, :nxt, :nxt], h_k[:, nxt:, :nxt], h_k[:, nxt:, nxt:]
+        pa = p_mat @ at
+        s_bar = s + btt @ pa
+        chol = cholesky_small(r + btt @ (p_mat @ bt) + 1e-9 * eye_u, nu)
+        k_gain = -cho_solve_small(chol, s_bar, nu)
+        p_new = q + att @ pa + s_bar.transpose(-1, -2) @ k_gain
+        p_mats[k], chols[k], s_bars[k], k_gains[k] = p_mat, chol, s_bar, \
+            k_gain
+        p_mat = 0.5 * (p_new + p_new.transpose(-1, -2))
+    return p_mats, chols, s_bars, k_gains
+
+
+def _riccati_rollout(qp: StageQP, k_gains, k_ffs):
+    """dx_{k+1} = at dx_k + bt du_k + e_k from dx_0 = 0: ``(dx (B, N+1,
+    nxt), du (B, N, nu))``."""
+    dx = qp.e.new_zeros(qp.e.shape[0], qp.e.shape[2])
+    dxs, dus = [dx], []
+    for k in range(len(k_gains)):
+        du_k = _mv(k_gains[k], dx) + k_ffs[k]
+        dx = _mv(qp.at, dx) + _mv(qp.bt, du_k) + qp.e[:, k]
+        dxs.append(dx)
+        dus.append(du_k)
+    return torch.stack(dxs, dim=1), torch.stack(dus, dim=1)
+
+
+def _riccati_ff(qp: StageQP, fact, gbar, gbar_term):
+    """Vector half of the sweep against a saved factorization, then the
+    rollout (the Mehrotra probe and corrector)."""
+    at, bt = qp.at, qp.bt
+    nxt, nu = bt.shape[-2:]
+    p_mats, chols, s_bars, k_gains = fact
+    p_vec = gbar_term
+    k_ffs = [None] * len(k_gains)
+    for k in reversed(range(len(k_gains))):
+        m_vec = p_vec + _mv(p_mats[k], qp.e[:, k])
+        ru_bar = gbar[:, k, nxt:] + _mv(bt.transpose(-1, -2), m_vec)
+        k_ffs[k] = -cho_solve_small(chols[k], ru_bar, nu)
+        p_vec = (gbar[:, k, :nxt] + _mv(at.transpose(-1, -2), m_vec)
+                 + _mv(s_bars[k].transpose(-1, -2), k_ffs[k]))
+    return _riccati_rollout(qp, k_gains, k_ffs)
+
+
+def _riccati_solve(qp: StageQP, hbar, gbar, hbar_term, gbar_term):
+    """The fused backward sweep (matrix and vector recursions together)
+    and the rollout of the equality-constrained LQR
+    ``min sum_k 1/2 z_k' Hbar_k z_k + gbar_k' z_k`` (+ terminal) subject to
+    ``dx_{k+1} = at dx_k + bt du_k + e_k``, ``dx_0 = 0``."""
+    at, bt = qp.at, qp.bt
+    nxt, nu = bt.shape[-2:]
+    att, btt = at.transpose(-1, -2), bt.transpose(-1, -2)
+    eye_u = torch.eye(nu, dtype=at.dtype, device=at.device)
+    n_st = hbar.shape[1]
+    k_gains, k_ffs = [None] * n_st, [None] * n_st
+    p_mat, p_vec = hbar_term, gbar_term
+    for k in reversed(range(n_st)):
+        q, s, r, qx, ru = _stage_split(hbar[:, k], gbar[:, k], nxt)
+        pa = p_mat @ at
+        m_vec = p_vec + _mv(p_mat, qp.e[:, k])
+        s_bar = s + btt @ pa
+        chol = cholesky_small(r + btt @ (p_mat @ bt) + 1e-9 * eye_u, nu)
+        sol = -cho_solve_small(
+            chol, torch.cat([s_bar, (ru + _mv(btt, m_vec))[..., None]], -1),
+            nu)
+        k_gains[k], k_ffs[k] = sol[..., :nxt], sol[..., nxt]
+        st = s_bar.transpose(-1, -2)
+        p_new = q + att @ pa + st @ k_gains[k]
+        p_vec = qx + _mv(att, m_vec) + _mv(st, k_ffs[k])
+        p_mat = 0.5 * (p_new + p_new.transpose(-1, -2))
+    return _riccati_rollout(qp, k_gains, k_ffs)
+
+
+def solve_qp_ipm(qp: StageQP, max_iter: int = 25, scheme: str = "adaptive",
+                 fixed_iters: bool = False,
+                 warm_s: torch.Tensor | None = None,
+                 warm_lam: torch.Tensor | None = None) -> IPMSolution:
+    """Interior-point solve of a batch of packed stage QPs (JAX
+    `solve_qp_ipm`): the same Newton systems as :func:`solve_qp_ipm_s`,
+    with every stage's rows a dense (nc_stage, nzt) block; an inactive row
+    is ``0 . z <= 1`` and stays at the cold values.  ``warm_s`` /
+    ``warm_lam``: packed (B, N+1, nc_stage) warm-start iterates (``None``:
+    cold, all ones); ``fixed_iters``: all ``max_iter`` trips, no early
+    exit."""
+    _check_scheme(scheme)
+    bsz, n_st, nxt = qp.e.shape
+    nu = qp.bt.shape[-1]
+    mask = qp.mask
+    m_act = torch.clamp(mask.sum((-1, -2)), min=1.0)
+    c_eff = qp.c_rows * mask[..., None]
+    d_eff = qp.d_vec * mask + (1.0 - mask)
+
+    def row_dot(dx_all, du_all):
+        """C z for every stage row, (B, N+1, nc_stage)."""
+        z_all = torch.cat([dx_all, torch.cat(
+            [du_all, du_all.new_zeros(bsz, 1, nu)], 1)], -1)
+        return torch.einsum("bkrz,bkz->bkr", c_eff, z_all)
+
+    def newton(s, lam):
+        # (s, lam) eliminated: an equality-constrained QP in the target
+        # iterate with Hessian H + C'WC and gradient g + C'(W(s - d) +
+        # rhs/s), W = lam/s; slack and dual targets in closed form
+        s_safe = torch.clamp(s, min=1e-10)
+        w = lam / s_safe
+        h_mod = torch.einsum("bkrz,bkrv->bkzv", c_eff * w[..., None], c_eff)
+        hbar = qp.h + h_mod[:, :n_st]
+        hbar_term = qp.h_term + h_mod[:, n_st, :nxt, :nxt]
+        if scheme == "mehrotra":
+            fact = _riccati_factor(qp, hbar, hbar_term)
+            sweep = lambda gb, gt: _riccati_ff(qp, fact, gb, gt)
+        else:
+            sweep = lambda gb, gt: _riccati_solve(qp, hbar, gb, hbar_term,
+                                                  gt)
+
+        def solve_rhs(rhs):
+            g_mod = torch.einsum("bkrz,bkr->bkz", c_eff,
+                                 w * (s - d_eff) + rhs / s_safe)
+            dx_t, du_t = sweep(qp.g + g_mod[:, :n_st],
+                               qp.g_term + g_mod[:, n_st, :nxt])
+            cz = row_dot(dx_t, du_t)
+            return (dx_t, du_t, d_eff - cz,
+                    rhs / s_safe + w * (cz + s - d_eff))
+        return solve_rhs
+
+    ones = torch.ones_like(d_eff)
+    # inactive rows always start at the cold value
+    s = ones if warm_s is None else warm_s * mask + (1.0 - mask)
+    lam = ones if warm_lam is None else warm_lam * mask + (1.0 - mask)
+    mean = lambda v: (v * mask).sum((-1, -2)) / m_act
+    residual = lambda dx, du, s: torch.abs(
+        (row_dot(dx, du) + s - d_eff) * mask).amax((-1, -2))
+    dx, du, s, lam, it = _newton_loop(
+        scheme, max_iter, fixed_iters, qp.e.new_zeros(bsz, n_st + 1, nxt),
+        qp.e.new_zeros(bsz, n_st, nu), s, lam, newton, mean, residual)
+    mu_fin = mean(s * lam)
+    solved = (mu_fin < 10 * EPS_IPM) & (residual(dx, du, s) < 1e-3)
+    return IPMSolution(dx_tilde=dx, du=du, lam=lam, iters=it, solved=solved,
+                       mu=mu_fin, s_rows=s * mask + (1.0 - mask),
+                       lam_rows=lam * mask + (1.0 - mask))

@@ -2,13 +2,21 @@
 
 Two bodies, routed by ``cfg.qp_solver``:
 
-* ``"riccati_pallas"``: stage-QP assembly (K2 for ``qp_assembly="pallas"``,
-  the plain assembly for ``"xla"``) -> NaN guard -> K1 interior-point solve
-  in ``cfg.ipm_scheme`` (adaptive or Mehrotra centering; warm-started from
-  the carried slacks/duals, clipped off the boundary) ->
+* the Riccati family: stage-QP assembly -> NaN guard -> interior-point
+  solve in ``cfg.ipm_scheme`` (adaptive or Mehrotra centering;
+  warm-started from the carried slacks/duals, clipped off the boundary) ->
   optional second-order correction re-solve -> step back to the dense
-  layout -> filter or l1-merit line search (the trial values from K3 or the
-  plain evaluation);
+  layout -> filter or l1-merit line search.  Three routes, one QP:
+
+  - ``"riccati_pallas"``: the kernel blocks StageQPK (K2 for
+    ``qp_assembly="pallas"``, the plain assembly for ``"xla"``) solved by
+    K1, the trial values from K3 or the plain evaluation;
+  - ``"riccati_struct"``: the structured StageQPS and the plain
+    ``qp_ipm.solve_qp_ipm_s``;
+  - ``"riccati"``: the packed StageQP and the plain ``qp_ipm.solve_qp_ipm``;
+
+  the last two with the plain evaluation (``qp_assembly="xla"``, as JAX
+  requires);
 * ``"admm"``: the dense QP (``build_qp``) -> optional damped BFGS update of
   the Lagrangian Hessian -> NaN / positive-definiteness guard (jittered
   Cholesky) -> ADMM QP solve (K5 for ``qp_backend="pallas"``, the plain
@@ -19,9 +27,12 @@ Two bodies, routed by ``cfg.qp_solver``:
 then the ``eps_prim`` test.  The loop is the JAX ``fleet_mode`` form:
 ``max_iter`` trips with a per-lane freeze once a lane is done, equal lane
 for lane to ``vmap(while_loop)``.  It stops early once every lane is done
-(one flag read per iteration, none after the last).  The filter carries its
-entries from iteration to iteration, as do the IPM warm iterates and the
-ADMM warm start.  Under RTI (``rti=True``) every iteration counts as
+(one flag read per iteration, none after the last); with ``cfg.fleet_mode``
+it runs all ``max_iter`` trips and never reads the flag, and the plain
+IPMs run all their trips too (``fixed_iters``), so neither loop syncs the
+host (K1 keeps its per-scenario loop on the device).  The filter carries
+its entries from iteration to iteration, as do the IPM warm iterates and
+the ADMM warm start.  Under RTI (``rti=True``) every iteration counts as
 converged, so the loop ends after its first.  On failure the returned
 horizon is the zero-velocity guess (all knots at x0, inputs zero).
 """
@@ -30,6 +41,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import operator
 
 import torch
 
@@ -42,9 +55,11 @@ from ..ops.admm_kernel import mv
 from ..params import MPCCParams, SQPConfig
 from ..splines.arc_length import TrackSpline
 from ..system import PANDA, System
-from . import qp_admm
+from . import qp_admm, qp_ipm
 from .qp_ipm import SCHEMES
 from .qp_ipm_kernel import solve_qp_ipm_k
+
+QP_SOLVERS = ("riccati_pallas", "riccati_struct", "riccati", "admm")
 
 
 class Status:
@@ -78,9 +93,10 @@ def no_phase(name: str):
 
 def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
     """Raise the JAX package's ``ValueError`` for an inconsistent
-    configuration, and ``NotImplementedError`` for every configuration the
-    port does not run yet, naming the ROADMAP item that ports it (a setting
-    is never silently ignored)."""
+    configuration, a ``ValueError`` for a value no route has, and
+    ``NotImplementedError`` for ``ipm_interpret``: it forces the Pallas
+    interpreter, which has no counterpart here (a setting is never
+    silently ignored)."""
     if system.name != "panda" and cfg.qp_solver == "admm":
         raise ValueError(
             "the dense ADMM backend is Panda-only (OSQP-conformance path); "
@@ -95,67 +111,90 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
             "use_BFGS requires the dense ADMM backend (qp_solver='admm'): "
             "the structured Riccati/IPM path factors exact stage Hessians "
             "and is structurally incompatible with a dense BFGS carry")
-    todo = {
-        "qp_assembly other than 'pallas' (K2/K3) or 'xla' (plain)":
-            cfg.qp_assembly not in ("pallas", "xla"),
-        "ipm_scheme other than 'adaptive' or 'mehrotra'":
-            cfg.ipm_scheme not in SCHEMES,
-        "qp_backend other than 'pallas' (K5) or 'xla' (the plain loop)":
-            cfg.qp_backend not in qp_admm.BACKENDS,
-        "line_search other than 'filter' or 'merit'":
-            cfg.line_search not in ("filter", "merit"),
-        "fleet_mode (the port's loops are per-lane masked already; "
-        "ROADMAP 'not to port')": cfg.fleet_mode,
-        "nn_bf16 (ROADMAP 'not to port')": cfg.nn_bf16,
-        "mani_grad other than 'fd', 'ad' or 'analytic'":
-            cfg.mani_grad not in MANI_GRADS,
-        "qp_solver other than the K1 route 'riccati_pallas' (the plain "
-        "version runs for CPU tensors) or 'admm'":
-            cfg.qp_solver not in ("riccati_pallas", "admm"),
-        "kin_backend other than the K4 route 'pallas' (the plain version "
-        "runs for CPU tensors) or the plain route 'xla'":
-            cfg.kin_backend not in KIN_BACKENDS,
-        "ipm_interpret (no interpret mode exists in the port)":
-            cfg.ipm_interpret is not None,
-        "max_iter < 1": cfg.max_iter < 1,
+    unknown = {
+        "qp_solver": (cfg.qp_solver, QP_SOLVERS),
+        "qp_assembly": (cfg.qp_assembly, ("pallas", "xla")),
+        "ipm_scheme": (cfg.ipm_scheme, SCHEMES),
+        "qp_backend": (cfg.qp_backend, qp_admm.BACKENDS),
+        "line_search": (cfg.line_search, ("filter", "merit")),
+        "mani_grad": (cfg.mani_grad, MANI_GRADS),
+        "kin_backend": (cfg.kin_backend, KIN_BACKENDS),
     }
-    missing = [k for k, v in todo.items() if v]
-    if missing:
-        raise NotImplementedError("not ported: " + "; ".join(missing))
+    for name, (value, known) in unknown.items():
+        if value not in known:
+            raise ValueError(f"{name}={value!r}: expected one of {known}")
+    if cfg.max_iter < 0:
+        raise ValueError(f"max_iter={cfg.max_iter} < 0")
+    if cfg.ipm_interpret is not None:
+        raise NotImplementedError(
+            "not ported: ipm_interpret (it forces the Pallas interpreter; "
+            "the port's kernels have no interpret mode, and on CPU tensors "
+            "every kernel wrapper runs its plain version)")
 
 
-def _soc_corrected_rep(rep: qps.StageQPK, sol, z: torch.Tensor, track_length,
-                       params: MPCCParams,
-                       system: System = PANDA) -> qps.StageQPK:
-    """Second-order correction of the StageQPK offsets (JAX
-    `_soc_corrected_rep`, ``riccati_pallas`` branch): with RobotData frozen
-    for the tick, only the polytopic rows move (``d_p += Cpx dx``) and the
-    s trust region re-centres at ``s + ds`` (knots 1..N)."""
+# the per-lane l1 violation of l <= c <= u (JAX `sqp.constraint_norm`)
+constraint_norm = qp_data.constraint_norm
+
+
+def _soc_corrected_rep(rep, sol, z: torch.Tensor, track_length,
+                       params: MPCCParams, solver: str = "riccati_pallas",
+                       system: System = PANDA):
+    """Second-order correction of the stage-QP offsets (JAX
+    `_soc_corrected_rep`): with RobotData frozen for the tick, only the
+    polytopic rows move (``d_p += Cpx dx``) and the s trust region
+    re-centres at ``s + ds``.  ``solver`` names the representation:
+    StageQPK (``"riccati_pallas"``: knots 1..N / 0..N-1), StageQPS
+    (``"riccati_struct"``: knots 0..N) or the packed StageQP."""
     xs, _ = qp_data.split_z(z, system)
-    s_idx, n_h = system.s_idx, system.horizon
+    s_idx, nx, n_h = system.s_idx, system.nx, system.horizon
     tr = params.model.s_trust_region
-    dxn = sol.dx_tilde[..., :system.nx]          # (B, N+1, nx) normalized
+    dxn = sol.dx_tilde[..., :nx]                 # (B, N+1, nx) normalized
     s_cur = xs[..., s_idx]
     s_soc = s_cur + dxn[..., s_idx] * params.normalization.t_x[s_idx]
     du_s = torch.clamp(torch.minimum(s_soc + tr, track_length) - s_cur,
                        min=1e-6)
     dl_s = torch.clamp(s_cur - torch.clamp(s_soc - tr, min=0.0), min=1e-6)
-    d_xu, d_xl = rep.d_xu.clone(), rep.d_xl.clone()
-    d_xu[..., s_idx] = du_s[:, 1:]
-    d_xl[..., s_idx] = dl_s[:, 1:]
-    d_p = rep.d_p + torch.einsum("bkrz,bkz->bkr", rep.cpx, dxn[:, :n_h])
-    return dataclasses.replace(rep, d_p=d_p.contiguous(), d_xu=d_xu,
-                               d_xl=d_xl)
+    poly = lambda cpx, dx: torch.einsum("bkrz,bkz->bkr", cpx, dx)
+    if solver == "riccati_pallas":
+        d_xu, d_xl = rep.d_xu.clone(), rep.d_xl.clone()
+        d_xu[..., s_idx] = du_s[:, 1:]
+        d_xl[..., s_idx] = dl_s[:, 1:]
+        d_p = rep.d_p + poly(rep.cpx, dxn[:, :n_h])
+        return dataclasses.replace(rep, d_p=d_p.contiguous(), d_xu=d_xu,
+                                   d_xl=d_xl)
+    if solver == "riccati_struct":
+        d_xu, d_xl = rep.d_xu.clone(), rep.d_xl.clone()
+        d_xu[..., s_idx] = du_s
+        d_xl[..., s_idx] = dl_s
+        return dataclasses.replace(rep, d_p=rep.d_p + poly(rep.cpx, dxn),
+                                   d_xu=d_xu, d_xl=d_xl)
+    # packed rows: [x_u | x_l | ... | polytopic]
+    o = 2 * nx + 2 * system.nu + 2 * system.dof
+    d_vec = rep.d_vec.clone()
+    d_vec[..., o:] += poly(rep.c_rows[..., o:, :nx], dxn)
+    d_vec[..., s_idx] = du_s
+    d_vec[..., nx + s_idx] = dl_s
+    return dataclasses.replace(rep, d_vec=d_vec)
 
 
-def _stage_model_terms(rep: qps.StageQPK, sol, system: System = PANDA):
+def _stage_model_terms(rep, sol, solver: str = "riccati_pallas",
+                       system: System = PANDA):
     """``(q'step, step'H step)`` per lane of the normalized QP model, from
-    the StageQPK blocks (JAX `_stage_model_terms`, ``riccati_pallas``
-    branch): the merit weight's ingredients."""
+    the stage blocks (JAX `_stage_model_terms`): the merit weight's
+    ingredients.  ``solver`` names the representation, as for
+    :func:`_soc_corrected_rep`."""
     nx, dof, n_h = system.nx, system.dof, system.horizon
-    dx = sol.dx_tilde[..., :nx]
-    up = sol.dx_tilde[:, :n_h, nx:nx + dof]     # u_{k-1} slots
-    du = sol.du
+    dxt, du = sol.dx_tilde, sol.du
+    if solver != "riccati_pallas":
+        # StageQP and StageQPS share the (h, g, h_term, g_term) layout
+        zs = torch.cat([dxt[:, :n_h], du], dim=-1)
+        x_n = dxt[:, n_h]
+        q_dot = (rep.g * zs).sum((1, 2)) + (rep.g_term * x_n).sum(-1)
+        quad = (torch.einsum("bkz,bkzv,bkv->b", zs, rep.h, zs)
+                + torch.einsum("bz,bzv,bv->b", x_n, rep.h_term, x_n))
+        return q_dot, quad
+    dx = dxt[..., :nx]
+    up = dxt[:, :n_h, nx:nx + dof]              # u_{k-1} slots
     q_dot = ((rep.gx * dx).sum((1, 2)) + (rep.gu * du).sum((1, 2))
              + (rep.gxu * up).sum((1, 2)))
     quad = (torch.einsum("bkx,bkxy,bky->b", dx, rep.hxx, dx)
@@ -165,6 +204,28 @@ def _stage_model_terms(rep: qps.StageQPK, sol, system: System = PANDA):
             # u_prev coupling is up^2 - 2 up du
             + (rep.r2 * (up * up - 2.0 * up * du[..., :dof])).sum((1, 2)))
     return q_dot, quad
+
+
+def _riccati_route(cfg: SQPConfig, system: System):
+    """``(assemble, NaN-guarded fields, solve)`` of the Riccati route
+    ``cfg.qp_solver``; ``solve(rep, warm_s, warm_lam)``."""
+    kw = dict(max_iter=cfg.ipm_max_iter, scheme=cfg.ipm_scheme)
+    if cfg.qp_solver == "riccati_pallas":
+        # K1 keeps its per-scenario loop on the device: no fixed_iters
+        return ((ak.build_qp_stages_k_kernel if cfg.qp_assembly == "pallas"
+                 else ak.build_qp_stages_k_plain),
+                ("hxx", "gx", "cpx", "d_p", "d_xu", "d_xl"),
+                lambda r, ws, wl: solve_qp_ipm_k(
+                    r, warm_s=ws, warm_lam=wl, system=system, **kw))
+    if cfg.qp_solver == "riccati_struct":
+        return (qps.build_qp_stages_s,
+                ("h", "g", "cpx", "d_p", "d_xu", "d_xl"),
+                lambda r, ws, wl: qp_ipm.solve_qp_ipm_s(
+                    r, warm_s=ws, warm_lam=wl, fixed_iters=cfg.fleet_mode,
+                    **kw))
+    return (qps.build_qp_stages, ("h", "g", "c_rows", "d_vec"),
+            lambda r, ws, wl: qp_ipm.solve_qp_ipm(
+                r, warm_s=ws, warm_lam=wl, fixed_iters=cfg.fleet_mode, **kw))
 
 
 def _bfgs_update(hess, step_prev, delta_grad_l):
@@ -254,10 +315,10 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     nanany = lambda t: torch.isnan(t).flatten(1).any(-1)
     alpha_fail = sqp.line_search_tau ** cfg.line_search_max_iter
     riccati = cfg.qp_solver != "admm"
-    kernels = cfg.qp_assembly == "pallas"
-    assemble = (ak.build_qp_stages_k_kernel if kernels
-                else ak.build_qp_stages_k_plain)
-    evaluate = ak.eval_point_kernel if kernels else ak.eval_point_plain
+    evaluate = (ak.eval_point_kernel if cfg.qp_assembly == "pallas"
+                else ak.eval_point_plain)
+    if riccati:
+        assemble, nan_fields, solve_route = _riccati_route(cfg, system)
     clip = lambda a: torch.clamp(a, cfg.ipm_warm_clip_lo,
                                  cfg.ipm_warm_clip_hi)
 
@@ -267,9 +328,7 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     def solve(rep, warm_s, warm_lam):
         if not cfg.ipm_warm_start:
             warm_s = warm_lam = None
-        return solve_qp_ipm_k(rep, max_iter=cfg.ipm_max_iter, warm_s=warm_s,
-                              warm_lam=warm_lam, system=system,
-                              scheme=cfg.ipm_scheme)
+        return solve_route(rep, warm_s, warm_lam)
 
     def solve_dense(p, q, a, lo, hi, **warm):
         return qp_admm.solve_qp(p, q, a, lo, hi, max_iter=cfg.qp_max_iter,
@@ -325,9 +384,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
         with phase("set_qp"):
             rep = assemble(track, z, rb, params, current_u, ts,
                            exact_heading_jac, system)
-            has_nan = (nanany(rep.hxx) | nanany(rep.gx) | nanany(rep.cpx)
-                       | nanany(rep.d_p) | nanany(rep.d_xu)
-                       | nanany(rep.d_xl))
+            has_nan = functools.reduce(operator.or_, (
+                nanany(getattr(rep, f)) for f in nan_fields))
         with phase("solve_qp"):
             sol = solve(rep, clip(st.ipm_s), clip(st.ipm_lam))
             qp_used = sol.iters
@@ -335,7 +393,7 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
                 # re-solve against the corrected offsets, warm-started from
                 # the first solve; the step is the second solve's
                 rep_soc = _soc_corrected_rep(rep, sol, z, track.length,
-                                             params, system)
+                                             params, cfg.qp_solver, system)
                 sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
                             clip(sol.lam_rows.to(dtype)))
                 qp_used = qp_used + sol.iters
@@ -356,7 +414,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
 
         def merit_terms():
             obj0, vio0 = eval_point(z)
-            q_dot, quad = _stage_model_terms(rep, sol, system)
+            q_dot, quad = _stage_model_terms(rep, sol, cfg.qp_solver,
+                                             system)
             return obj0, vio0, q_dot.to(dtype), quad.to(dtype)
 
         with phase("get_alpha"):
@@ -456,7 +515,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
                 frozen.view((-1,) + (1,) * (getattr(new, f.name).dim() - 1)),
                 getattr(st, f.name), getattr(new, f.name))
             for f in dataclasses.fields(_LoopState)})
-        if trip + 1 < cfg.max_iter and bool(st.done.all()):
+        if (not cfg.fleet_mode and trip + 1 < cfg.max_iter
+                and bool(st.done.all())):
             break
 
     success = st.status == Status.SOLVED

@@ -12,6 +12,12 @@ phases:
 * ``get_alpha``: the line search;
 * ``total``: the whole tick.
 
+:func:`solve_ocp_timed` (the dense ADMM route) and
+:func:`solve_ocp_timed_riccati` (the Riccati family) are JAX's names for
+the SQP loop alone with these phases: ``solve_ocp(timer=...)`` of one
+Panda problem, batch-first, returning JAX's ``(z, status, times,
+sqp_iters)``.
+
 On the card each phase is a pair of CUDA events on the current stream, read
 after one synchronization at the end of the tick, so the timing adds no
 host wait inside the tick; on the CPU it is ``time.perf_counter``.
@@ -28,6 +34,7 @@ import torch
 from ..mpc import mpc_step
 from ..params import SQPConfig
 from ..system import PANDA, System
+from .sqp import solve_ocp
 
 @dataclasses.dataclass
 class ComputeTime:
@@ -93,3 +100,41 @@ def mpc_step_profiled(track, params, sel_nn, env_nn, carry, x0, u0, obs_pos,
                               exact_heading_jac=exact_heading_jac,
                               system=system, timer=timer)
     return carry, out, timer.times()
+
+
+def _solve_ocp_timed(track, rb, params, cfg: SQPConfig, z0, current_u, ts,
+                     exact_heading_jac: bool):
+    timer = PhaseTimer(z0.device)
+    with timer.phase("total"):
+        res = solve_ocp(track, rb, params, cfg, z0, current_u, ts,
+                        exact_heading_jac=exact_heading_jac, system=PANDA,
+                        timer=timer)
+    return res.z, res.status, timer.times(), res.sqp_iters
+
+
+def solve_ocp_timed(track, rb, params, cfg: SQPConfig, z0: torch.Tensor,
+                    current_u: torch.Tensor, ts: float,
+                    exact_heading_jac: bool = False):
+    """The SQP loop on the dense ADMM route with its phases timed (JAX
+    `sqp_debug.solve_ocp_timed`, which runs the ADMM solve whatever
+    ``cfg.qp_solver`` says): ``(z (B, n_var), status (B,), ComputeTime,
+    sqp_iters (B,))`` for the Panda from ``z0`` (B, n_var), cold QP warm
+    starts; ``set_env`` stays 0."""
+    cfg = dataclasses.replace(cfg, qp_solver="admm", qp_assembly="xla")
+    return _solve_ocp_timed(track, rb, params, cfg, z0, current_u, ts,
+                            exact_heading_jac)
+
+
+def solve_ocp_timed_riccati(track, rb, params, cfg: SQPConfig,
+                            z0: torch.Tensor, current_u: torch.Tensor,
+                            ts: float, exact_heading_jac: bool = False):
+    """The SQP loop on the Riccati route ``cfg.qp_solver`` names
+    (``"riccati_pallas"``, ``"riccati_struct"`` or ``"riccati"``) with its
+    phases timed (JAX `sqp_debug.solve_ocp_timed_riccati`): ``(z, status,
+    ComputeTime, sqp_iters)`` as :func:`solve_ocp_timed`, a cold interior
+    point on the first iteration."""
+    if not cfg.qp_solver.startswith("riccati"):
+        raise ValueError(f"qp_solver={cfg.qp_solver!r}: "
+                         "solve_ocp_timed_riccati runs the Riccati family")
+    return _solve_ocp_timed(track, rb, params, cfg, z0, current_u, ts,
+                            exact_heading_jac)

@@ -146,12 +146,12 @@ def test_rti_passes_oracle_conformance_gate():
     assert x_o[7] > 0.15 and float(x_p[0, 7]) > 0.15
 
 
-@pytest.mark.parametrize("change", [
-    dict(fleet_mode=True), dict(nn_bf16=True), dict(qp_solver="riccati"),
-    dict(ipm_interpret=True)],
-    ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+@pytest.mark.parametrize("change", [dict(ipm_interpret=True)],
+                         ids=lambda c: "-".join(f"{k}={v}"
+                                                for k, v in c.items()))
 def test_off_slice_settings_raise(change):
-    """A setting the port does not run yet raises; none is ignored.  (The
+    """A setting the port does not run raises; none is ignored.  Only
+    ``ipm_interpret`` is left: it forces the Pallas interpreter.  (The
     plain assembly is the base: with the kernel assembly, a solver other
     than 'riccati_pallas' raises the JAX package's ValueError first.)"""
     import dataclasses
@@ -166,13 +166,16 @@ def test_off_slice_settings_raise(change):
     dict(qp_assembly="pallas"), dict(do_SOC=True), dict(line_search="merit"),
     dict(rti=False), dict(qp_solver="admm"),
     dict(qp_solver="admm", use_BFGS=True), dict(ipm_scheme="mehrotra"),
-    dict(mani_grad="fd", kin_backend="xla"), dict(kin_backend="xla")],
+    dict(mani_grad="fd", kin_backend="xla"), dict(kin_backend="xla"),
+    dict(fleet_mode=True), dict(nn_bf16=True), dict(qp_solver="riccati"),
+    dict(qp_solver="riccati_struct")],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_slice_settings_are_supported(change):
     """The kernel assembly route, SOC, the merit line search, the converged
-    mode, the dense ADMM path with BFGS, Mehrotra's centering, and the plain
-    kinematics route with the finite-difference manipulability gradient run
-    in the port (the kernel routes are the default)."""
+    mode, the dense ADMM path with BFGS, Mehrotra's centering, the plain
+    kinematics route with the finite-difference manipulability gradient,
+    fleet mode, the bf16 NN GEMMs and the packed and structured solver
+    routes run in the port (the kernel routes are the default)."""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),

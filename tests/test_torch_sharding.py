@@ -8,6 +8,9 @@ on the CPU in float64.
   sharded step, run for each of W = 8 ranks in turn, against JAX's
   ``make_sharded_step`` on the 8-device CPU mesh and against the port's
   unsharded step, at that test's 1e-9;
+* fleet mode (the packed ``riccati`` route, fixed-trip loops) through the
+  sharded step against JAX's on the 8-device mesh at 1e-9, and against
+  the port's early-exit tick bit for bit;
 * the Husky+Panda, tests/test_mobile_mpcc.py::test_mobile_batched_sharded
   with its assertions, W = 2, against the unsharded tick at 1e-9;
 * two real processes over gloo (the Panda, RTI), each on its slice: their
@@ -205,14 +208,106 @@ def test_sharded_step_matches_jax_mesh_and_unsharded():
     assert bool(_rows(outs, "ok").all())
 
 
+def test_fleet_sharded_step_matches_jax_mesh():
+    """Fleet mode through the sharded step (tests/test_multihost.py's
+    setting: the packed ``riccati`` route, fixed-trip SQP and IPM loops):
+    tests/test_sharding.py's problem and inputs, the converged mode with
+    the merit line search, JAX on the 8-device mesh against the port's 8
+    ranks in turn and its unsharded fleet tick at 1e-9; the fleet tick
+    equals the early-exit tick bit for bit, and no rank's tick reads a
+    convergence flag on the host (every SQP and IPM loop runs its full
+    trips)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mpcc_manipulator_tpu.config import PANDA_DOF
+    from mpcc_manipulator_tpu.models import collision_nn as jcnn
+    from mpcc_manipulator_tpu.models import kinematics as jkin
+    from mpcc_manipulator_tpu.parallel import sharding as jshd
+    from mpcc_manipulator_tpu.params import SQPConfig as JaxSQPConfig
+    from mpcc_manipulator_tpu.params import load_params as j_load_params
+    from mpcc_manipulator_tpu.splines import arc_length as jals
+    from mpcc_manipulator_tpu_torch import convert
+    from mpcc_manipulator_tpu_torch.params import reference_sqp_config
+    from mpcc_manipulator_tpu_torch.solver import qp_ipm
+    from tests.test_sharding import _batch_inputs
+
+    params, _ = j_load_params(dtype=jnp.float64)
+    sel_nn = jcnn.load_self_collision_nn(dtype=jnp.float64)
+    env_nn = jcnn.load_env_collision_nn(dtype=jnp.float64)
+    x0 = jnp.asarray(X0_HOME, dtype=jnp.float64)
+    ee = np.asarray(jkin.ee_position(x0[:PANDA_DOF]))
+    phi = np.linspace(0, 2 * np.pi, 60)
+    track = jals.gen_6d_spline(
+        np.zeros(60) + ee[0], 0.15 * np.cos(phi) - 0.15 + ee[1],
+        0.15 * np.sin(phi) + ee[2],
+        np.tile(np.asarray(jkin.ee_orientation(x0[:PANDA_DOF])), (60, 1, 1)),
+        dtype=jnp.float64)
+    batch = 16
+    x0_b, u0_b, obs_b, rad_b = _batch_inputs(x0, batch)
+    change = dict(max_iter=3, qp_solver="riccati", ipm_max_iter=20,
+                  line_search="merit", fleet_mode=True)
+
+    mesh = jshd.make_mesh(jax.devices("cpu")[:8])
+    jstep = jshd.make_sharded_step(mesh, ts=TS, cfg=JaxSQPConfig(**change))
+    scen = jshd.shard_batch((jshd.batch_init_carry(batch, jnp.float64),
+                             x0_b, u0_b, obs_b, rad_b), mesh)
+    _, out_j = jstep(*(jshd.replicate(t, mesh)
+                       for t in (track, params, sel_nn, env_nn)), *scen)
+
+    np_tree = lambda t: jax.tree.map(np.asarray, t)
+    problem = (convert.track(np_tree(track), device="cpu"),
+               convert.mpcc_params(np_tree(params), device="cpu"),
+               convert.mlp(np_tree(sel_nn), device="cpu"),
+               convert.mlp(np_tree(env_nn), device="cpu"))
+    # JAX's defaults besides the change: the converged mode, the plain
+    # kinematics with the fd gradient, a cold interior point
+    cfg = SQPConfig(rti=False, qp_assembly="xla", kin_backend="xla",
+                    mani_grad="fd", ipm_warm_start=False, **change)
+    scen_p = (shd.batch_init_carry(batch, DT, device="cpu"),
+              *(torch.tensor(np.asarray(a)) for a in
+                (x0_b, u0_b, obs_b, rad_b)))
+    flags = []
+    loop = qp_ipm._newton_loop
+    qp_ipm._newton_loop = lambda *a: flags.append(a[2]) or loop(*a)
+    try:
+        outs = []
+        for r in range(8):
+            rank = shd.Mesh(r, 8, "cpu")
+            step = shd.make_sharded_step(rank, ts=TS, cfg=cfg)
+            outs.append(step(*shd.replicate(problem, rank),
+                             *shd.shard_batch(scen_p, rank))[1])
+    finally:
+        qp_ipm._newton_loop = loop
+    assert flags and all(flags)       # every IPM solve: fixed_iters=True
+    _, ref = shd.batched_mpc_step(*problem, *scen_p, ts=TS, cfg=cfg)
+    _, early = shd.batched_mpc_step(
+        *problem, *scen_p, ts=TS, cfg=dataclasses.replace(cfg,
+                                                          fleet_mode=False))
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(early, f.name)), \
+            f.name
+    for f in ("u0", "x0_updated"):
+        got = _rows(outs, f).numpy()
+        np.testing.assert_allclose(got, np.asarray(getattr(out_j, f)),
+                                   rtol=TOL, atol=TOL, err_msg=f)
+        np.testing.assert_allclose(got, getattr(ref, f).numpy(), rtol=TOL,
+                                   atol=TOL, err_msg=f)
+    for f in ("ok", "status", "sqp_iters", "qp_iters"):
+        np.testing.assert_array_equal(_rows(outs, f).numpy(),
+                                      np.asarray(getattr(out_j, f)),
+                                      err_msg=f)
+    assert bool(_rows(outs, "ok").all())
+
+
 # ------------------------------------------------------------ Husky+Panda
 
 
 # tests/test_mobile_mpcc.py's CFG (`SQPConfig(max_iter=25, qp_solver=
 # "riccati", ipm_max_iter=30, mani_grad="ad")` over JAX's defaults: the
-# converged mode, the plain kinematics, a cold interior point); the
-# structured IPM stands in for the packed "riccati", which the port leaves
-# out by design (`solver/sqp.py::check_supported`)
+# converged mode, the plain kinematics, a cold interior point) on the
+# port's structured IPM route, the same algorithm as the packed "riccati"
+# (held against each other in tests/test_torch_solver_routes.py)
 MOBILE_CFG = SQPConfig(rti=False, max_iter=25, ipm_max_iter=30,
                        mani_grad="ad", kin_backend="xla", qp_assembly="xla",
                        ipm_warm_start=False)
