@@ -147,7 +147,17 @@ Phases (the first failure exits non-zero and prints no result line):
     |dq| against the float32 GEMMs' run below 2e-4 on the lanes whose
     Newton counts stay the float32 run's, inside the RTI envelope on those
     where the bf16 perturbation moves the IPM's stop test (JAX drifts the
-    same way there), the NN half's device ms both ways.
+    same way there), the NN half's device ms both ways;
+23. the surface (the JAX package's names the port gained last):
+    ``import mpcc_manipulator_tpu_torch as M`` and one ``M.MPCC()`` tick
+    at batch 1 (JAX's default configuration, no kernel) held to
+    ``M.MPCC(device="cpu")``; ``kinematics_mobile.manipulability_gradient``
+    (the Husky+Panda's 10-DoF one) in float64 at 64 configurations within
+    1e-9 of the CPU's; the collision nets' unencoded Jacobian
+    (``mlp_forward_jacobian(..., is_nerf=False)``) in float64 within 1e-10
+    of the CPU's, and RobotData's bf16 GEMMs (``nn_bf16``) in float32
+    within 2^-9 of each block's scale of the CPU's, and not equal to the
+    float32 GEMMs'.
 
 Every phase's seconds are printed as it ends.
 
@@ -284,6 +294,13 @@ CARD_GATES = (("track", {}), ("static", {"disabled": False}),
 SHARDED_TICKS = 5
 GLOO_RANKS = 2
 GLOO_TIMEOUT = 300
+# the surface phase: configurations of the 10-DoF gradient, and lanes of
+# RobotData's knots (the Panda's N + 1 each) through the collision nets
+SURFACE_CONFIGS = 64
+SURFACE_LANES = 64
+SURFACE_GRAD_TOL = 1e-9       # absolute: the base columns are rounding
+SURFACE_JAC_TOL = 1e-10       # of the Jacobian's scale, float64
+SURFACE_BF16_TOL = 2.0 ** -9  # of each block's scale (bf16's roundoff)
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -3211,6 +3228,107 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     return out
 
 
+def phase_surface(card) -> dict:
+    """The package root's ``MPCC``, the 10-DoF manipulability gradient,
+    the unencoded Jacobian and the bf16 NN route on the card, each against
+    the same call on the CPU (docstring, item 23)."""
+    import mpcc_manipulator_tpu_torch as M
+    from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
+    from mpcc_manipulator_tpu_torch.models import kinematics_mobile as kmob
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    f64, f32 = torch.float64, torch.float32
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    # one tick of the package root's MPCC, JAX's default configuration
+    x, u = home(), np.zeros(M.NU)
+    states = []
+    for device in ("cuda", "cpu"):
+        mpc = M.MPCC() if device == "cuda" else M.MPCC(device="cpu")
+        mpc.setTrack(x)
+        reset_counts()
+        ok, x_upd, u_out, _, ct = mpc.runMPC(x, u)
+        if device == "cuda":
+            launches, tick_ms = read_counts(), ct["total"] * 1e3
+        if not ok or not np.isfinite(u_out).all():
+            raise AssertionError(f"surface: M.MPCC() tick on {device} not "
+                                 f"ok ({ok}) or not finite")
+        states.append(sim_time_step(torch.tensor(x_upd, dtype=f64)[None],
+                                    torch.tensor(u_out, dtype=f64)[None],
+                                    TS))
+    if any(launches.values()):
+        raise AssertionError(f"surface: JAX's default configuration "
+                             f"launched kernels {launches}")
+    out["mpcc_gaps"] = envelope_gaps("surface, M.MPCC() tick",
+                                     states[1][None], states[0][None])
+    print(f"surface: M.MPCC() one tick at batch 1 on {card}: ok, "
+          f"{tick_ms:.1f} ms (the first tick), launches {launches}")
+
+    # the Husky+Panda's 10-DoF manipulability gradient, float64
+    qm = torch.tensor(
+        home(mobile_system())[:kmob.NQ_MOBILE]
+        + 0.4 * rng.standard_normal((SURFACE_CONFIGS, kmob.NQ_MOBILE)),
+        dtype=f64)
+    out["grad_err"] = check_close(
+        "surface: kinematics_mobile.manipulability_gradient",
+        kmob.manipulability_gradient(qm.cuda()).cpu(),
+        kmob.manipulability_gradient(qm), SURFACE_GRAD_TOL)
+
+    # the nets' unencoded Jacobian, float64
+    errs = []
+    for load in (cnn.load_self_collision_nn, cnn.load_env_collision_nn):
+        gpu_net, cpu_net = load(f64, "cuda"), load(f64, "cpu")
+        xin = torch.tensor(rng.standard_normal(
+            (SURFACE_LANES * KNOTS, gpu_net.layers[0].in_features)), dtype=f64)
+        got = cnn.mlp_forward_jacobian(gpu_net, xin.cuda(), is_nerf=False)
+        ref = cnn.mlp_forward_jacobian(cpu_net, xin, is_nerf=False)
+        for g, r, what in zip(got, ref, ("y", "jacobian")):
+            scale = max(1.0, float(r.abs().max()))
+            errs.append(check_close(
+                f"surface: {load.__name__} is_nerf=False {what}", g.cpu(), r,
+                SURFACE_JAC_TOL * scale) / scale)
+    out["unencoded_rel_err"] = max(errs)
+
+    # RobotData's NN half with bf16 GEMMs (nn_bf16), float32
+    qs = torch.tensor(home()[:PANDA.dof] + 0.3 * rng.standard_normal(
+        (SURFACE_LANES, KNOTS, PANDA.dof)), dtype=f32)
+    obs = torch.tensor(np.array([0.4, 0.0, 0.4]) + 0.2 * rng.standard_normal(
+        (SURFACE_LANES, 3)), dtype=f32)
+    rad = torch.full((SURFACE_LANES,), 0.03, dtype=f32)
+    fields = ("sel_dist", "d_sel_dist", "env_dist", "d_env_dist")
+
+    def nn_blocks(device, mm):
+        sel = cnn.load_self_collision_nn(f32, device)
+        env = cnn.load_env_collision_nn(f32, device)
+        rb = compute_robot_data(qs.to(device), obs.to(device), rad.to(device),
+                                sel, env, PANDA, mani_grad="ad",
+                                kin_backend="xla", nn_mm_dtype=mm)
+        return {f: getattr(rb, f).cpu() for f in fields}
+
+    bf16_gpu, bf16_cpu = nn_blocks("cuda", "bfloat16"), nn_blocks(
+        "cpu", "bfloat16")
+    plain_gpu = nn_blocks("cuda", None)
+    errs = []
+    for f in fields:
+        scale = float(bf16_cpu[f].abs().max())
+        errs.append(check_close(f"surface: nn_bf16 {f}", bf16_gpu[f],
+                                bf16_cpu[f], SURFACE_BF16_TOL * scale) / scale)
+        if torch.equal(bf16_gpu[f], plain_gpu[f]):
+            raise AssertionError(f"surface: nn_bf16 left {f} unchanged")
+    out["bf16_rel_err"] = max(errs)
+    print(f"surface: 10-DoF manipulability gradient (float64, "
+          f"{SURFACE_CONFIGS} configurations) max |err| against the CPU "
+          f"{out['grad_err']:.3e} (tol {SURFACE_GRAD_TOL}); unencoded NN "
+          f"outputs and Jacobians (float64, {SURFACE_LANES * KNOTS} points) "
+          f"{out['unencoded_rel_err']:.3e} of scale (tol {SURFACE_JAC_TOL}); "
+          f"nn_bf16 RobotData (float32, {SURFACE_LANES} x {KNOTS} knots) "
+          f"{out['bf16_rel_err']:.3e} of scale (tol {SURFACE_BF16_TOL:.3e}), "
+          f"every block moved by bf16")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3293,6 +3411,7 @@ def main() -> int:
     timed("gates", lambda: phase_gates(card, device))
     timed("sharded", lambda: phase_sharded(problem, mproblem, device, card))
     timed("routes", lambda: phase_routes(problem, mproblem, device, card))
+    timed("surface", lambda: phase_surface(card))
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
 

@@ -1,18 +1,30 @@
 """Static problem dimensions and index maps (`mpcc_manipulator_tpu/config.py`).
 
 State ``x = [q1..q7, s, vs]``, input ``u = [dq1..dq7, dVs]`` for the
-fixed-base Franka Panda; all shapes are fixed Python integers.
+fixed-base Franka Panda at N = 10; all shapes are fixed Python integers.
+The dims below are the reference's surface, read off ``system.PANDA``: the
+port's modules take their shapes from a :class:`~.system.System`.
 """
 
 from __future__ import annotations
 
-from .system import PANDA
+from .system import INF, N_SPLINE, PANDA  # noqa: F401  (re-exported)
 
-PANDA_DOF = 7          # number of revolute joints
-PANDA_NUM_LINKS = 9    # link0..link7 + hand frames tracked for env collision
+PANDA_DOF = PANDA.arm_dof          # number of revolute joints
+PANDA_NUM_LINKS = PANDA.num_links  # link0..link7 + hand (env collision)
 
-N_SPLINE = 100         # arc-length spline resampling points
-INF = 1e30             # "infinity" used in constraint bounds (matches reference)
+NX = PANDA.nx          # state dim:  [q(7), s, vs]
+NU = PANDA.nu          # input dim:  [dq(7), dVs]
+NPC = PANDA.npc        # polytopic rows a knot: self-, singularity, 9x env
+N = PANDA.horizon      # horizon length (knots 0..N)
+
+# the dense decision vector z = [x_0 .. x_N, u_0 .. u_{N-1}] and its rows
+N_VAR = PANDA.n_var        # 179
+N_EQ = PANDA.n_eq          # x_0 pinned + N dynamics defects
+N_INEQB = PANDA.n_ineqb    # state boxes + input boxes + ddq rate rows
+N_INEQP = PANDA.n_ineqp    # polytopic rows
+N_CONSTR = PANDA.n_constr  # 479
+
 
 class StateIndex:
     """Index of each state component inside an ``(nx,)`` vector."""

@@ -567,7 +567,7 @@ def rti_vs_converged(dtype=torch.float32, device="cuda", lanes: int = LANES,
                 seconds=r["seconds"])
 
 
-def rti_vs_converged_jax_route(dtype=torch.float64, device="cpu",
+def rti_vs_converged_jax_route(dtype=torch.float64, device="cuda",
                                lanes: int = 1, n: int = 60) -> dict:
     """The same A/B on :data:`JAX_ROUTE`, the JAX test's own settings
     (`test_rti.py:23-24`), held in float64: every lane within 1e-4 in q

@@ -87,16 +87,20 @@ def _mm(a: torch.Tensor, b: torch.Tensor, mm_dtype) -> torch.Tensor:
     return out.to(a.dtype)
 
 
-def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None):
+def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None,
+                         *, is_nerf: bool = True):
     """Forward pass + analytic input Jacobian.
 
     ``x`` (B, n_in) -> ``(y (B, n_out), dy/dx (B, n_out, n_in))``;
-    ``mm_dtype``: ``None`` (the pipeline dtype) or ``"bfloat16"``.
+    ``mm_dtype``: ``None`` (the pipeline dtype) or ``"bfloat16"``; with
+    ``is_nerf=False`` the input goes to the first layer unencoded.
+    ``is_nerf`` is keyword-only: JAX's third positional parameter is
+    ``is_nerf``, the port's ``mm_dtype``, and a bool there raises.
     """
     if mm_dtype not in MM_DTYPES:
         raise ValueError(f"mm_dtype {mm_dtype!r}: expected one of "
                          f"{MM_DTYPES}")
-    h = nerf_encode(x)
+    h = nerf_encode(x) if is_nerf else x
     last = net.layers[-1]
     if last.out_features >= h.shape[-1]:
         raise ValueError("output-side Jacobian accumulation needs fewer "
@@ -119,6 +123,8 @@ def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None):
             rows = (jac * mask[:, None, :]).reshape(-1, lin.out_features)
             jac = _mm(rows, lin.weight, mm_dtype).reshape(
                 x.shape[0], -1, lin.in_features)
+    if not is_nerf:
+        return y, jac
     # chain through the encoding: d[x, sin x, cos x]/dx = [I; diag(cos); -diag(sin)]
     n = x.shape[-1]
     jac = (jac[..., :n] + jac[..., n:2 * n] * torch.cos(x)[:, None, :]

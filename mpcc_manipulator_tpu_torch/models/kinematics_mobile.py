@@ -1,9 +1,9 @@
 """Mobile-base (Husky + Panda) kinematics: planar base + 7-DOF arm, batched
 over leading dims (`mpcc_manipulator_tpu/models/kinematics_mobile.py`).
 
-Generalized coordinates ``q_m = [x_b, y_b, th_b, q1..q7]``: the base is
-planar prismatic-x / prismatic-y / revolute-z, with the Panda chain mounted
-at the base origin.
+Generalized coordinates ``q_m = [x_b, y_b, th_b, q1..q7]`` (NQ_MOBILE =
+10): the base is planar prismatic-x / prismatic-y / revolute-z, with the
+Panda chain mounted at the base origin.
 """
 
 from __future__ import annotations
@@ -11,7 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import PANDA_DOF
 from .kinematics import _det_psd6, fk_chain
+
+NQ_MOBILE = 3 + PANDA_DOF
 
 
 def _base_transform(base_pose: torch.Tensor):
@@ -85,3 +88,11 @@ def manipulability(q_m: torch.Tensor) -> torch.Tensor:
     `ocp/robot_data.py`)."""
     j = ee_jacobian(q_m)
     return torch.sqrt(_det_psd6(j @ j.transpose(-1, -2)))
+
+
+def manipulability_gradient(q_m: torch.Tensor) -> torch.Tensor:
+    """Exact gradient of :func:`manipulability` (the full 6x10 Jacobian's)
+    by autodiff, q_m (..., 10) -> (..., 10).  RobotData's mobile gradient
+    is the arm's, with zero base columns (`ocp/robot_data.py`)."""
+    grad = torch.func.vmap(torch.func.grad(manipulability))
+    return grad(q_m.reshape(-1, NQ_MOBILE)).reshape(q_m.shape)

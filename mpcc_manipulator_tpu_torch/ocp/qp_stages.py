@@ -35,6 +35,10 @@ from .cost import stage_cost
 from .qp_data import _discrete_ab, _is_terminal, split_z, us_padded
 from .robot_data import RobotData
 
+NXT = PANDA.nxt             # augmented state dim (17)
+NZT = PANDA.nzt             # stage variable dim (25)
+NC_STAGE = PANDA.nc_stage   # 59
+
 
 def _cost_blocks_raw(track: TrackSpline, z: torch.Tensor, rb: RobotData,
                      params: MPCCParams, current_u: torch.Tensor, ts,

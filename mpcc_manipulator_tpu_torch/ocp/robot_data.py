@@ -67,11 +67,11 @@ def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
     q_flat = qs.reshape(b * k, dof)
     q_arm = q_flat[:, system.arm_slice]
     obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
-    sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm, nn_mm_dtype)
+    sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm, mm_dtype=nn_mm_dtype)
     d_sel = d_sel[:, 0]
     if system.base_dof == 0:
         env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs], dim=-1), nn_mm_dtype)
+            env_nn, torch.cat([q_arm, obs], dim=-1), mm_dtype=nn_mm_dtype)
         # the joint columns only (the reference slices off the obstacle ones)
         d_env = d_env_full[:, :, :dof]
     else:
@@ -80,7 +80,8 @@ def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
         rbt = rb.transpose(-1, -2)
         obs_local = (rbt @ rel[..., None])[..., 0]
         env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs_local], dim=-1), nn_mm_dtype)
+            env_nn, torch.cat([q_arm, obs_local], dim=-1),
+            mm_dtype=nn_mm_dtype)
         arm = system.arm_dof
         d_env_q, d_env_o = d_env_full[:, :, :arm], d_env_full[:, :, arm:]
         # d obs_local / d(x_b, y_b, th_b): -R_b' on the translations, and

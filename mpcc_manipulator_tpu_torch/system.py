@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 N = 10
+N_SPLINE = 100         # arc-length spline resampling points
+INF = 1e30             # "infinity" in constraint bounds (the reference's)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +77,20 @@ class System:
         return self.nx * (self.horizon + 1)
 
     @property
+    def n_ineqb(self) -> int:
+        """Bound rows: state boxes, input boxes, rate rows (nu-strided,
+        dof used a knot)."""
+        return (self.nx * (self.horizon + 1) + self.nu * self.horizon
+                + self.nu * self.horizon)
+
+    @property
+    def n_ineqp(self) -> int:
+        """Polytopic rows."""
+        return self.npc * (self.horizon + 1)
+
+    @property
     def n_constr(self) -> int:
-        return (self.n_eq + self.nx * (self.horizon + 1)
-                + 2 * self.nu * self.horizon + self.npc * (self.horizon + 1))
+        return self.n_eq + self.n_ineqb + self.n_ineqp
 
     @property
     def nxt(self) -> int:
