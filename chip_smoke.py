@@ -157,7 +157,19 @@ Phases (the first failure exits non-zero and prints no result line):
     (``mlp_forward_jacobian(..., is_nerf=False)``) in float64 within 1e-10
     of the CPU's, and RobotData's bf16 GEMMs (``nn_bf16``) in float32
     within 2^-9 of each block's scale of the CPU's, and not equal to the
-    float32 GEMMs'.
+    float32 GEMMs';
+24. JAX's interpret switches, as routes named to each kernel's plain
+    version (`ops/cuda_build.kernel_route`): the bench configuration at
+    ``ipm_interpret`` None, True and False, 3 RTI ticks each at Panda/1024
+    and Husky+Panda/4096: K1-K4 launched once a tick under None and False,
+    never under True; False bit-identical to None; True's states within
+    the closed-loop envelope of None's; the ADMM RTI path with
+    ``qp_backend="pallas_interpret"`` against ``"pallas"`` (1024 x 3): K5
+    launched twice a tick under ``"pallas"``, never under
+    ``"pallas_interpret"``, states within the envelope; then
+    ``compute_robot_data`` with JAX's defaults (fd, plain kinematics) in
+    float64 on the card against the CPU, both systems at (1024, 11) knots,
+    within 1e-10 of each field's scale, no kernel launched.
 
 Every phase's seconds are printed as it ends.
 
@@ -549,7 +561,8 @@ def main_path_inputs(problem, device, system=None, batch=BATCH):
     obs = torch.tensor([[3.0, 3.0, 3.0]], **f32)
     rb = compute_robot_data(xs[..., :system.dof].contiguous(),
                             obs.expand(batch, 3), torch.zeros(batch, **f32),
-                            sel_nn, env_nn, system)
+                            sel_nn, env_nn, mani_grad="analytic",
+                            system=system, kin_backend="pallas")
     return z, zt, zc, cu, rb
 
 
@@ -814,7 +827,7 @@ def region_inputs(aproblem, region: str, device):
     rb = compute_robot_data(xs[..., :7].contiguous(),
                             torch.tensor(obs, **f32).expand(BATCH, 3),
                             torch.full((BATCH,), radius, **f32), sel_nn,
-                            env_nn)
+                            env_nn, mani_grad="analytic", kin_backend="pallas")
     return z, zt, cu, rb
 
 
@@ -1563,20 +1576,21 @@ def phase_cpu_check_mehrotra(x0_gpu, inputs, states_gpu, iters_gpu,
     from mpcc_manipulator_tpu_torch.params import SQPConfig
     from mpcc_manipulator_tpu_torch.problem import build_problem
     from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import (
-        solve_qp_ipm_plain)
+        solve_qp_ipm_k)
     f64 = lambda t: (t.cpu().to(torch.float64)
                      if t is not None and t.is_floating_point() else t)
     split = {"kernel": 0, "plain": 0}
     gap = {"kernel": 0.0, "plain": 0.0}
     lanes, plain_split = 0, []
     for t, (rep, kw, sol) in enumerate(solves):
-        opts = {k: v for k, v in kw.items() if k not in ("warm_s", "warm_lam")}
-        plain = solve_qp_ipm_plain(rep, warm_s=kw["warm_s"],
-                                   warm_lam=kw["warm_lam"], **opts)
-        ref = solve_qp_ipm_plain(
+        # K1's plain version, named (interpret=True): on the card in
+        # float32, and on the CPU in float64
+        plain = solve_qp_ipm_k(rep, **dict(kw, interpret=True))
+        ref = solve_qp_ipm_k(
             type(rep)(**{f.name: f64(getattr(rep, f.name))
                          for f in dataclasses.fields(rep)}),
-            warm_s=f64(kw["warm_s"]), warm_lam=f64(kw["warm_lam"]), **opts)
+            **dict(kw, warm_s=f64(kw["warm_s"]), warm_lam=f64(kw["warm_lam"]),
+                   interpret=True))
         for name, got in (("kernel", sol), ("plain", plain)):
             split[name] += int((got.iters.cpu() != ref.iters).sum())
             gap[name] = max(gap[name], float((f64(got.du) - ref.du).abs().max()))
@@ -3303,7 +3317,7 @@ def phase_surface(card) -> dict:
         sel = cnn.load_self_collision_nn(f32, device)
         env = cnn.load_env_collision_nn(f32, device)
         rb = compute_robot_data(qs.to(device), obs.to(device), rad.to(device),
-                                sel, env, PANDA, mani_grad="ad",
+                                sel, env, mani_grad="ad", system=PANDA,
                                 kin_backend="xla", nn_mm_dtype=mm)
         return {f: getattr(rb, f).cpu() for f in fields}
 
@@ -3326,6 +3340,139 @@ def phase_surface(card) -> dict:
           f"nn_bf16 RobotData (float32, {SURFACE_LANES} x {KNOTS} knots) "
           f"{out['bf16_rel_err']:.3e} of scale (tol {SURFACE_BF16_TOL:.3e}), "
           f"every block moved by bf16")
+    return out
+
+
+# the interpret phase: RTI ticks of each route
+INTERPRET_TICKS = 3
+ROBOT_DATA_TOL = 1e-10   # card against CPU, float64, of each field's scale
+
+
+def interpret_runs(prob, system, batch, cfgs: dict, device) -> dict:
+    """``INTERPRET_TICKS`` closed-loop ticks of each configuration from the
+    same perturbed states, the counts set to 0 just before each and read
+    just after: name -> (host times, ok, states, launches, iterations)."""
+    x0 = perturbed_states(batch, torch.float32, device, system)
+    runs = {}
+    for name, cfg in cfgs.items():
+        runs[name] = route_ticks(prob, x0, cfg, INTERPRET_TICKS, system)
+        check_ok(f"interpret, {system.name} {name}", runs[name][1],
+                 runs[name][2])
+    return runs
+
+
+def state_gaps(states, ref, dof: int) -> dict:
+    d = (states - ref).abs()
+    return {"q": float(d[..., :dof].max()), "s": float(d[..., dof].max()),
+            "vs": float(d[..., dof + 1].max())}
+
+
+def robot_data_defaults(device, card) -> dict:
+    """``compute_robot_data`` with JAX's defaults (the plain kinematics,
+    the fd gradient) on the card in float64 against the CPU, both systems,
+    every field within ``ROBOT_DATA_TOL`` of its scale; no kernel runs."""
+    from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
+    from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for system in (PANDA, mobile_system()):
+        qs = torch.tensor(home(system)[:system.dof] + 0.05
+                          * rng.standard_normal((BATCH, KNOTS, system.dof)))
+        obs = torch.tensor(np.array([0.5, 0.1, 0.4]) + 0.1
+                           * rng.standard_normal((BATCH, 3)))
+        rad = torch.full((BATCH,), 0.05, dtype=torch.float64)
+        got = {}
+        for where, dev in (("card", device), ("cpu", "cpu")):
+            nets = (cnn.load_self_collision_nn(torch.float64, dev),
+                    cnn.load_env_collision_nn(torch.float64, dev))
+            reset_counts()
+            rb = compute_robot_data(qs.to(dev), obs.to(dev), rad.to(dev),
+                                    *nets, system=system)
+            if any(read_counts().values()):
+                raise AssertionError(f"interpret: RobotData with JAX's "
+                                     f"defaults launched {read_counts()}")
+            got[where] = {
+                f.name: getattr(rb, f.name).cpu()
+                for f in dataclasses.fields(rb)}
+        err = 0.0
+        for name, ref in got["cpu"].items():
+            scale = max(1.0, float(ref.abs().max()))
+            err = max(err, check_close(
+                f"interpret: RobotData defaults {system.name} {name}",
+                got["card"][name], ref, ROBOT_DATA_TOL * scale) / scale)
+        out[system.name] = err
+    print(f"interpret: compute_robot_data with JAX's defaults (fd, plain "
+          f"kinematics) float64 on {card} at ({BATCH}, {KNOTS}) knots "
+          f"against the CPU: max |err| of scale "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+          + f" (tol {ROBOT_DATA_TOL}); no kernel launched")
+    return out
+
+
+def phase_interpret(problem, mproblem, device, card) -> dict:
+    """JAX's interpret switches as named routes (docstring, item 24)."""
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    out = {}
+    ticks = INTERPRET_TICKS
+    cfgs = {flag: SQPConfig(ipm_interpret=flag) for flag in (None, True,
+                                                               False)}
+    for name, system, prob in (("panda", PANDA, problem),
+                               ("husky_panda", mobile_system(), mproblem)):
+        batch = ROUTE_BATCHES[name]
+        runs = interpret_runs(prob, system, batch, cfgs, device)
+        _, ok_n, st_n, l_n, it_n = runs[None]
+        _, _, st_t, l_t, _ = runs[True]
+        _, ok_f, st_f, l_f, it_f = runs[False]
+        bench = dict(K1=ticks, K2=ticks, K3=ticks, K4=ticks, K5=0)
+        if l_n != bench or l_f != bench:
+            raise AssertionError(f"interpret, {name}: launches None {l_n}, "
+                                 f"False {l_f}, expected {bench}")
+        if any(l_t.values()):
+            raise AssertionError(f"interpret, {name}: ipm_interpret=True "
+                                 f"launched {l_t}")
+        if not (torch.equal(st_f, st_n) and torch.equal(ok_f, ok_n)
+                and all(torch.equal(a, b) for a, b in zip(it_f, it_n))):
+            raise AssertionError(f"interpret, {name}: ipm_interpret=False "
+                                 "is not bit-identical to None")
+        gaps = state_gaps(st_t, st_n, system.dof)
+        if any(gaps[k] >= ENVELOPE[k] for k in ENVELOPE):
+            raise AssertionError(f"interpret, {name}: the plain versions' "
+                                 f"states leave the kernels' by {gaps} "
+                                 f"(envelope {ENVELOPE})")
+        med = {str(k): statistics.median(v[0][1:]) * 1e3
+               for k, v in runs.items()}
+        print(f"interpret, {name} {batch} x {ticks} RTI ticks on {card}: all "
+              f"ok; median tick ms None {med['None']:.3f}, True "
+              f"{med['True']:.3f}, False {med['False']:.3f}; launches None "
+              f"{l_n}, True {l_t}, False {l_f}; False bit-identical to "
+              f"None; True against None max |dq| {gaps['q']:.3e}, |ds| "
+              f"{gaps['s']:.3e}, |dvs| {gaps['vs']:.3e} (envelope)")
+        out[name] = dict(tick_ms=med, gaps=gaps)
+
+    # K5: qp_backend "pallas_interpret" against "pallas", ADMM RTI
+    admm = {b: SQPConfig(**dict(ADMM_RTI, qp_backend=b))
+            for b in ("pallas", "pallas_interpret")}
+    runs = interpret_runs(problem, PANDA, BATCH, admm, device)
+    l_k, l_p = runs["pallas"][3], runs["pallas_interpret"][3]
+    if l_k != dict(K1=0, K2=0, K3=0, K4=ticks, K5=2 * ticks) \
+            or l_p != dict(l_k, K5=0):
+        raise AssertionError(f"interpret, ADMM: launches pallas {l_k}, "
+                             f"pallas_interpret {l_p}")
+    gaps = state_gaps(runs["pallas_interpret"][2], runs["pallas"][2],
+                      PANDA.dof)
+    if any(gaps[k] >= ENVELOPE[k] for k in ENVELOPE):
+        raise AssertionError(f"interpret, ADMM: K5's plain version leaves "
+                             f"the kernel's states by {gaps}")
+    med = {b: statistics.median(v[0][1:]) * 1e3 for b, v in runs.items()}
+    print(f"interpret, ADMM RTI {BATCH} x {ticks} ticks on {card}: all ok; "
+          f"median tick ms pallas {med['pallas']:.3f}, pallas_interpret "
+          f"{med['pallas_interpret']:.3f}; launches pallas {l_k}, "
+          f"pallas_interpret {l_p}; max |dq| {gaps['q']:.3e}, |ds| "
+          f"{gaps['s']:.3e}, |dvs| {gaps['vs']:.3e} (envelope)")
+    out["admm"] = dict(tick_ms=med, gaps=gaps)
+    out["robot_data"] = robot_data_defaults(device, card)
     return out
 
 
@@ -3412,6 +3559,8 @@ def main() -> int:
     timed("sharded", lambda: phase_sharded(problem, mproblem, device, card))
     timed("routes", lambda: phase_routes(problem, mproblem, device, card))
     timed("surface", lambda: phase_surface(card))
+    timed("interpret", lambda: phase_interpret(problem, mproblem, device,
+                                               card))
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
 

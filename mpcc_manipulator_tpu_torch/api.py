@@ -58,7 +58,7 @@ class MPCC:
 
     def __init__(self, param_dir: str | None = None,
                  track_path: str | None = None, dtype=torch.float64,
-                 device="cuda", exact_heading_jac: bool = False):
+                 exact_heading_jac: bool = False, device="cuda"):
         with open(os.path.join(param_dir or DEFAULT_PARAM_DIR,
                                "config.json")) as f:
             self.jsonConfig = json.load(f)

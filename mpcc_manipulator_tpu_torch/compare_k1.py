@@ -58,7 +58,8 @@ def stage_qps(system, batch: int, dev):
     rb = compute_robot_data(
         xs[..., :system.dof].contiguous(),
         torch.tensor([[3.0, 3.0, 3.0]], **f32).expand(batch, 3),
-        torch.zeros(batch, **f32), sel_nn, env_nn, system)
+        torch.zeros(batch, **f32), sel_nn, env_nn, mani_grad="analytic",
+        system=system, kin_backend="pallas")
     u0 = torch.zeros(batch, system.nu, **f32)
     return qp_stages.build_qp_stages_k(track, z, rb, params, u0, TS,
                                        system=system)

@@ -83,7 +83,8 @@ def inputs(system, batch: int, dev, pkg: str = __package__):
     rb = mod("ocp.robot_data").compute_robot_data(
         xs[..., :system.dof].contiguous(),
         torch.tensor([[3.0, 3.0, 3.0]], **f32).expand(batch, 3),
-        torch.zeros(batch, **f32), sel_nn, env_nn, system)
+        torch.zeros(batch, **f32), sel_nn, env_nn, mani_grad="analytic",
+        system=system, kin_backend="pallas")
     return track, params, z, zt, zc, cu, rb
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -474,9 +475,11 @@ def tick0_filter(track, params, sel, env, x0_updated, z_first, z_second,
     xs0, _ = split_z(z0)
     rb = compute_robot_data(xs0[..., :7].contiguous(), obs, rad, sel, env,
                             mani_grad=cfg.mani_grad,
-                            kin_backend=cfg.kin_backend)
-    evaluate = (eval_point_kernel if cfg.qp_assembly == "pallas"
-                else eval_point_plain)
+                            kin_backend=cfg.kin_backend,
+                            kin_interpret=cfg.ipm_interpret)
+    evaluate = (functools.partial(eval_point_kernel,
+                                  interpret=cfg.ipm_interpret)
+                if cfg.qp_assembly == "pallas" else eval_point_plain)
     u = torch.zeros(b, 8, dtype=x0_updated.dtype, device=x0_updated.device)
     return (evaluate(track, z_first, rb, params, u, TS),
             evaluate(track, z_second, rb, params, u, TS))

@@ -154,9 +154,10 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
         # --- 4. per-tick RobotData (frozen linearization cache)
         xs0, _ = qp_data.split_z(z0, system)
         rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos,
-                                obs_radius, sel_nn, env_nn, system,
-                                mani_grad=cfg.mani_grad,
+                                obs_radius, sel_nn, env_nn,
+                                mani_grad=cfg.mani_grad, system=system,
                                 kin_backend=cfg.kin_backend,
+                                kin_interpret=cfg.ipm_interpret,
                                 nn_mm_dtype="bfloat16" if cfg.nn_bf16
                                 else None)
 

@@ -7,7 +7,8 @@ manipulability and its gradient) takes one of two routes, as in JAX
 (``kin_backend``):
 
 * ``"pallas"``: the K4 sweep (`ops/kinematics_kernel.py`: the CUDA kernel
-  for CUDA tensors, its plain version on the CPU), analytic gradient only;
+  for CUDA tensors, its plain version on the CPU, or as ``kin_interpret``
+  names it), analytic gradient only;
 * ``"xla"``: plain PyTorch on any device, with the gradient ``mani_grad``
   names (``"fd"``, ``"ad"`` or ``"analytic"``; JAX `_single_knot`).  The
   mobile system takes the arm's autodiff gradient whatever ``mani_grad``
@@ -145,15 +146,18 @@ def _kin_half_plain(qs: torch.Tensor, mani_grad: str, system: System):
 
 def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
                        obs_radius: torch.Tensor, sel_nn: cnn.CollisionMLP,
-                       env_nn: cnn.CollisionMLP, system: System = PANDA,
-                       mani_grad: str = "analytic",
-                       kin_backend: str = "pallas",
+                       env_nn: cnn.CollisionMLP, mani_grad: str = "fd",
+                       system: System = PANDA, kin_backend: str = "xla",
+                       kin_interpret: bool | None = None,
                        nn_mm_dtype: str | None = None) -> RobotData:
     """The full cache for joint configurations ``qs`` (B, K, dof), one
     obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,)); the
     kinematic half by the ``kin_backend`` route with the ``mani_grad``
-    gradient, the NN GEMMs in ``nn_mm_dtype`` (``"bfloat16"``:
-    ``SQPConfig.nn_bf16``)."""
+    gradient, K4 (``"pallas"``) on the route ``kin_interpret`` names
+    (`ops/cuda_build.kernel_route`), the NN GEMMs in ``nn_mm_dtype``
+    (``"bfloat16"``: ``SQPConfig.nn_bf16``).  JAX's order and defaults:
+    the plain kinematics with the finite-difference gradient; the bench
+    route is ``mani_grad="analytic", kin_backend="pallas"``."""
     if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
         raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
                          f"{kin_backend!r}: the port runs {MANI_GRADS} / "
@@ -161,7 +165,8 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
     check_kin_route(mani_grad, kin_backend, system)
     b, k, _ = qs.shape
     if kin_backend == "pallas":
-        p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system)
+        p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system,
+                                                     kin_interpret)
     else:
         # contiguous, as K2 and K3 read them
         p_ee, r_ee, jv, jw, mani, d_mani = (

@@ -8,7 +8,8 @@ warm iterates x/z/y) and runs ``check_every``-iteration chunks, testing the
 unscaled OSQP residuals at entry and after each chunk, each scenario until
 it converges or has run ``max_iter`` iterations.  On CUDA tensors it
 launches the kernel (or raises); on CPU tensors it runs the plain version,
-:func:`fused_admm_plain`.  Both compute in float32, as the JAX wrapper
+:func:`fused_admm_plain`; ``interpret=True`` runs that on either device
+(`cuda_build.kernel_route`).  Both compute in float32, as the JAX wrapper
 casts; nothing is padded (the TPU kernel's 256/512 tiles were a Mosaic
 constraint).  The kernel runs one thread block cluster per scenario, with A
 and K^-1 split over the cluster's blocks and held on chip for the whole
@@ -94,13 +95,16 @@ def fused_admm_plain(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
 def fused_admm(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
                *, max_iter: int = 400, check_every: int = 25,
                sigma: float = 1e-6, alpha: float = 1.6,
-               eps_abs: float = 1e-4, eps_rel: float = 1e-5):
+               eps_abs: float = 1e-4, eps_rel: float = 1e-5,
+               interpret: bool | None = None):
     """K5 on CUDA (every input float32 and contiguous, shapes as in
-    :func:`fused_admm_plain`); the plain version on CPU."""
+    :func:`fused_admm_plain`); the plain version on CPU.  ``interpret``
+    names the route (`cuda_build.kernel_route`)."""
     kw = dict(max_iter=max_iter, check_every=check_every, sigma=sigma,
               alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel)
     args = (kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0)
-    if kinv.device.type == "cpu":
+    if cuda_build.kernel_route(interpret, kinv.device,
+                               "fused_admm") == "plain":
         return fused_admm_plain(*args, **kw)
     return _launch(0, args, **kw)
 

@@ -9,7 +9,9 @@ iterates per scenario (``z`` of shape (B, A, n_var), all against the
 scenario's one RobotData: the merit line search's step lengths).  On CUDA
 tensors each launches its kernel (or raises); on CPU tensors each runs its
 plain version, :func:`build_qp_stages_k_plain` /
-:func:`eval_point_plain`.
+:func:`eval_point_plain`.  ``interpret=True`` runs the plain versions on
+either device, ``interpret=False`` the kernels only
+(`cuda_build.kernel_route`).
 
 The kernels read the track, the parameters and the dynamics from one packed
 float32 table (:func:`pack_tables`), built once per ``(track, params, ts)``
@@ -280,12 +282,15 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
                              rb: RobotData, params: MPCCParams,
                              current_u: torch.Tensor, ts,
                              exact_heading_jac: bool = False,
-                             system: System = PANDA) -> StageQPK:
-    """Assemble the batch's StageQPK: K2 on CUDA, the plain version on CPU.
+                             system: System = PANDA,
+                             interpret: bool | None = None) -> StageQPK:
+    """Assemble the batch's StageQPK: K2 on CUDA, the plain version on CPU
+    (``interpret``: the route, `cuda_build.kernel_route`).
 
     ``z`` (B, n_var), ``current_u`` (B, nu), ``rb`` over the N+1 knots."""
     dev = z.device
-    if dev.type == "cpu":
+    if cuda_build.kernel_route(interpret, dev,
+                               "build_qp_stages_k_kernel") == "plain":
         return build_qp_stages_k_plain(track, z, rb, params, current_u, ts,
                                        exact_heading_jac, system)
     sid = cuda_build.system_id(system, "K2")
@@ -323,12 +328,14 @@ build_qp_stages_k_kernel.launches = 0
 
 def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
                       params: MPCCParams, current_u: torch.Tensor, ts,
-                      system: System = PANDA):
+                      system: System = PANDA,
+                      interpret: bool | None = None):
     """``(objective, l1 violation)`` at ``z`` (B, n_var) -> (B,) each, or
     at ``A`` candidates per scenario, ``z`` (B, A, n_var) -> (B, A) each:
-    K3 on CUDA, the plain version on CPU."""
+    K3 on CUDA, the plain version on CPU (``interpret``: the route,
+    `cuda_build.kernel_route`)."""
     dev = z.device
-    if dev.type == "cpu":
+    if cuda_build.kernel_route(interpret, dev, "eval_point_kernel") == "plain":
         return eval_point_plain(track, z, rb, params, current_u, ts, system)
     sid = cuda_build.system_id(system, "K3")
     if dev.type != "cuda":

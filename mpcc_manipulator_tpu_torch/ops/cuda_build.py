@@ -7,6 +7,10 @@ first use, from the sources in this checkout only, into
 ``build/torch_kernels/`` at the repository root; the library name carries a
 hash of the sources, so an edited source never loads a stale build.
 Nothing here runs at import time.
+
+:func:`kernel_route` is the one rule by which every kernel wrapper picks
+its kernel or its plain version: JAX's ``interpret`` switch, with the plain
+version in the place of the Pallas interpreter.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -98,6 +104,44 @@ def system_id(system, what: str) -> int:
             f"arm_dof, num_links) = {key}; the kernels are instantiated for "
             f"{sorted(_INSTANTIATIONS)}")
     return _INSTANTIATIONS[key]
+
+
+INTERPRET = (None, True, False)
+
+
+def check_interpret(interpret, what: str = "interpret") -> None:
+    """Raise ``ValueError`` unless ``interpret`` is one of JAX's three
+    values: ``None``, ``True`` or ``False``."""
+    if interpret is not None and not isinstance(interpret, bool):
+        raise ValueError(f"{what}={interpret!r}: expected one of {INTERPRET}")
+
+
+def kernel_route(interpret, device, what: str = "kernel") -> str:
+    """``"kernel"`` or ``"plain"``: what a wrapper runs for ``interpret`` on
+    tensors on ``device``, JAX's ``interpret`` with the plain version in the
+    place of the Pallas interpreter.
+
+    * ``None``: the kernel on a CUDA device, the plain version on the CPU
+      (JAX: compiled on a TPU, the interpreter elsewhere);
+    * ``True``: the plain version on either device (JAX: the interpreter,
+      the kernel's arithmetic step by step on any backend);
+    * ``False``: the kernel; on the CPU ``ValueError``, as JAX's
+      ``interpret=False`` raises off a TPU.
+
+    Any other value raises ``ValueError``.  Another device gets
+    ``"kernel"``, which the wrapper refuses unless it is CUDA.  The route
+    is the caller's to name: no wrapper gives way to its plain version
+    because a build or a launch failed."""
+    check_interpret(interpret, f"{what}: interpret")
+    if interpret:
+        return "plain"
+    if torch.device(device).type != "cpu":
+        return "kernel"
+    if interpret is None:
+        return "plain"
+    raise ValueError(f"{what}: interpret=False runs the kernel, which needs "
+                     "a CUDA device; on the CPU only the plain version runs "
+                     "(interpret=None or True)")
 
 
 _P = ctypes.c_void_p

@@ -9,7 +9,9 @@ composed with the planar base (the manipulability is the arm's, with a zero
 gradient on the base columns).  On CUDA tensors it launches the kernel's
 instantiation for the system (or raises); on CPU tensors it runs the plain
 version, :func:`kin_sweep_plain` (`models/kinematics.py` and
-`models/kinematics_mobile.py` batched).
+`models/kinematics_mobile.py` batched).  ``interpret=True`` runs the plain
+version on either device and ``interpret=False`` the kernel only, as JAX's
+``interpret`` switch does (`cuda_build.kernel_route`).
 """
 
 from __future__ import annotations
@@ -116,9 +118,12 @@ def _system_id(system: System) -> int:
     return cuda_build.system_id(system, "K4")
 
 
-def kin_sweep(qs: torch.Tensor, system: System = PANDA):
-    """K4 on CUDA (qs (B, K, dof) float32, contiguous); plain on CPU."""
-    if qs.device.type == "cpu":
+def kin_sweep(qs: torch.Tensor, system: System = PANDA,
+              interpret: bool | None = None):
+    """K4 on CUDA (qs (B, K, dof) float32, contiguous); plain on CPU.
+    ``interpret`` names the route (`cuda_build.kernel_route`): ``True``
+    runs the plain version on either device, ``False`` the kernel only."""
+    if cuda_build.kernel_route(interpret, qs.device, "kin_sweep") == "plain":
         return kin_sweep_plain(qs, system)
     sid = _system_id(system)
     if qs.device.type != "cuda":

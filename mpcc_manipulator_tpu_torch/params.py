@@ -141,8 +141,13 @@ class SQPConfig:
     ``max_iter`` up to 20 (the bench's ``MPCC_RTI=0``).
     ``qp_solver="admm"`` (with ``qp_assembly="xla"``) selects the dense
     ADMM path: ``qp_backend="pallas"`` runs the K5 route (its plain version
-    for CPU tensors), ``"xla"`` the plain loop in the caller's dtype on any
-    device; ``use_BFGS`` is an option of this path.  The JAX package's own
+    for CPU tensors), ``"pallas_interpret"`` K5's plain version on any
+    device, ``"xla"`` the plain loop in the caller's dtype on any device;
+    ``use_BFGS`` is an option of this path.  ``ipm_interpret`` names the
+    route of K1-K4 as JAX's switch names the Pallas interpreter
+    (`ops/cuda_build.kernel_route`): ``None`` the kernels on CUDA tensors
+    and their plain versions on CPU tensors, ``True`` the plain versions on
+    either device, ``False`` the kernels only.  The JAX package's own
     default, which its ``api.MPCC`` runs, is :func:`reference_sqp_config`.
     """
 
@@ -243,8 +248,8 @@ def load_cost_params(file: str, overrides: Mapping[str, float] | None = None,
 
 
 def load_bounds_params(file: str, overrides: Mapping[str, float] | None = None,
-                       dtype=torch.float64, device="cuda",
-                       system: System = PANDA) -> BoundsParams:
+                       dtype=torch.float64, system: System = PANDA,
+                       device="cuda") -> BoundsParams:
     js = _merge_mobile(_load_json(file), file, system)
     xk, uk, ddk = _sys_keys(system)
     vec = lambda keys, suffix: _tensor(
@@ -256,8 +261,8 @@ def load_bounds_params(file: str, overrides: Mapping[str, float] | None = None,
 
 def load_normalization_params(file: str,
                               overrides: Mapping[str, float] | None = None,
-                              dtype=torch.float64, device="cuda",
-                              system: System = PANDA) -> NormalizationParams:
+                              dtype=torch.float64, system: System = PANDA,
+                              device="cuda") -> NormalizationParams:
     js = _merge_mobile(_load_json(file), file, system)
     xk, uk, _ = _sys_keys(system)
     vec = lambda keys: _tensor([float(_get(js, overrides, k)) for k in keys],
@@ -287,16 +292,20 @@ def load_sqp_params(file: str, overrides: Mapping[str, float] | None = None,
 
 def load_params(param_dir: str | None = None,
                 overrides: Mapping[str, Mapping[str, float]] | None = None,
-                dtype=torch.float64, device="cuda",
-                system: System = PANDA) -> tuple[MPCCParams, SQPConfig]:
+                dtype=None, system: System = PANDA,
+                device="cuda") -> tuple[MPCCParams, SQPConfig]:
     """Load the full parameter set.
 
     ``overrides`` is a dict of groups (``param``, ``cost``, ``bounds``,
     ``normalization``, ``sqp``), each a ``{key: value}`` map merged over the
     JSON defaults.  The returned :class:`SQPConfig` carries the sqp.json
     structure keys (``max_iter``, ``line_search_max_iter``, ``do_SOC``,
-    ``use_BFGS``); everything else keeps its default.
+    ``use_BFGS``); everything else keeps its default.  ``dtype=None`` is
+    PyTorch's default float dtype (``torch.get_default_dtype()``), as JAX's
+    is its default float dtype (float64 only under ``jax_enable_x64``).
     """
+    if dtype is None:
+        dtype = torch.get_default_dtype()
     ov = overrides or {}
     path = lambda name: param_path(name, param_dir)
     sqp, cfg = load_sqp_params(path("sqp.json"), ov.get("sqp"), dtype, device)
@@ -306,8 +315,8 @@ def load_params(param_dir: str | None = None,
         cost=load_cost_params(path("cost.json"), ov.get("cost"), dtype,
                               device),
         bounds=load_bounds_params(path("bounds.json"), ov.get("bounds"),
-                                  dtype, device, system),
+                                  dtype, system, device),
         normalization=load_normalization_params(
             path("normalization.json"), ov.get("normalization"), dtype,
-            device, system),
+            system, device),
         sqp=sqp), cfg

@@ -137,12 +137,12 @@ class IsaacBridge:
 
     Telemetry dicts carry the channels the reference publishes as path
     topics; the transport decides where they go.  The controller is
-    ``MPCC(dtype=dtype, device=device)`` (the card unless ``device``
-    says otherwise).
+    ``MPCC(dtype=dtype or torch.float64, device=device)`` (the card unless
+    ``device`` says otherwise).
     """
 
     def __init__(self, transport: Transport, ts: float = 0.01,
-                 dtype=torch.float64, pad_wheels: bool = True,
+                 dtype=None, pad_wheels: bool = True,
                  real_time: bool = False, device="cuda"):
         from ..api import MPCC
 
@@ -150,7 +150,7 @@ class IsaacBridge:
         self.ts = ts
         self.pad_wheels = pad_wheels
         self.real_time = real_time
-        self.mpc = MPCC(dtype=dtype, device=device)
+        self.mpc = MPCC(dtype=dtype or torch.float64, device=device)
         self._state = None
         self._input = np.zeros(8)
         self._log = {"s": [], "solve_time": [], "q": [], "ok": []}

@@ -19,6 +19,9 @@ Two routes run the iteration chunks (``backend``):
   and one for phase 2, in float32, with the kernel's own entry test; the
   residuals are then recomputed in the caller's dtype to decide ``done``.
   On CPU tensors the kernel's plain version runs.
+* ``"pallas_interpret"``: the same with K5's plain version on either
+  device (`ops/admm_kernel.fused_admm_plain`; JAX runs its kernel in the
+  Pallas interpreter).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ RHO_MIN, RHO_MAX = 1e-6, 1e6
 EPS_ABS = 1e-4
 EPS_REL = 1e-5
 RUIZ_ITERS = 10
-BACKENDS = ("xla", "pallas")
+BACKENDS = ("xla", "pallas", "pallas_interpret")
 
 
 @dataclasses.dataclass
@@ -53,12 +56,12 @@ class QPSolution:
 
 
 def check_route(backend: str) -> None:
-    """Raise unless ``backend`` is one the port runs: ``"xla"`` (the plain
-    loop) or ``"pallas"`` (K5, or its plain version for CPU tensors), on
-    any device."""
+    """Raise unless ``backend`` is one of JAX's: ``"xla"`` (the plain
+    loop), ``"pallas"`` (K5, or its plain version for CPU tensors) or
+    ``"pallas_interpret"`` (K5's plain version), each on any device."""
     if backend not in BACKENDS:
-        raise ValueError(f"qp_backend {backend!r}: the port runs "
-                         f"{BACKENDS} (no interpret mode exists)")
+        raise ValueError(f"qp_backend {backend!r}: expected one of "
+                         f"{BACKENDS}")
 
 
 def _tT(m: torch.Tensor) -> torch.Tensor:
@@ -182,13 +185,14 @@ def solve_qp(p, q, a, l, u, max_iter: int = 400, check_every: int = 25,
     def run_chunks(x, z, y, rho, kinv, budget: int, done):
         """Chunks of ``check_every`` until converged or ``budget`` spent;
         returns (x, z, y, iterations used, done)."""
-        if backend == "pallas":
+        if backend.startswith("pallas"):
             f32 = lambda t: t.to(torch.float32).contiguous()
             x, z, y, it = admm_kernel.fused_admm(
                 f32(kinv), f32(p_s), f32(a_s), f32(q_s), f32(rho), f32(l_s),
                 f32(u_s), f32(d_scl), f32(e_scl), f32(c_scl), f32(x),
                 f32(z), f32(y), max_iter=budget, check_every=check_every,
-                sigma=SIGMA, alpha=ALPHA, eps_abs=EPS_ABS, eps_rel=EPS_REL)
+                sigma=SIGMA, alpha=ALPHA, eps_abs=EPS_ABS, eps_rel=EPS_REL,
+                interpret=True if backend == "pallas_interpret" else None)
             x, z, y = x.to(dtype), z.to(dtype), y.to(dtype)
             return x, z, y, it, converged(x, z, y)
         it = torch.zeros(b, dtype=torch.long, device=p.device)

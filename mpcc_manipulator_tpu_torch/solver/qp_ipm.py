@@ -243,10 +243,9 @@ def _newton_loop(scheme, max_iter, fixed_iters, dx, du, s, lam, newton,
 
 
 def solve_qp_ipm_s(qp: StageQPS, max_iter: int = 25,
+                   scheme: str = "adaptive", fixed_iters: bool = False,
                    warm_s: torch.Tensor | None = None,
-                   warm_lam: torch.Tensor | None = None,
-                   scheme: str = "adaptive",
-                   fixed_iters: bool = False) -> IPMSolution:
+                   warm_lam: torch.Tensor | None = None) -> IPMSolution:
     """Interior-point solve of a batch of structured stage QPs.
 
     ``scheme``: ``"adaptive"`` (one fused matrix + vector sweep per Newton

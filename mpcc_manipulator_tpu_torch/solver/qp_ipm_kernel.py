@@ -5,9 +5,10 @@
 :func:`solve_qp_ipm_k` takes the kernel-direct :class:`StageQPK` blocks.
 On CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
 the plain version, :func:`solve_qp_ipm_plain` (the structured IPM of
-`solver/qp_ipm.py` on the repacked QP).  Inputs and outputs keep the JAX
-wrapper's layout, so the packed ``s_rows``/``lam_rows`` carry unchanged
-from solve to solve.
+`solver/qp_ipm.py` on the repacked QP); ``interpret=True`` runs the plain
+version on either device (`ops/cuda_build.kernel_route`).  Inputs and
+outputs keep the JAX wrapper's layout, so the packed ``s_rows`` /
+``lam_rows`` carry unchanged from solve to solve.
 """
 
 from __future__ import annotations
@@ -90,15 +91,18 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
                    warm_s: torch.Tensor | None = None,
                    warm_lam: torch.Tensor | None = None,
                    system: System = PANDA,
-                   scheme: str = "adaptive") -> IPMSolution:
+                   scheme: str = "adaptive",
+                   interpret: bool | None = None) -> IPMSolution:
     """Solve a batch of stage QPs: K1 on CUDA, the plain version on CPU.
 
     ``warm_s``/``warm_lam``: packed (B, N+1, nc_stage) warm-start iterates;
     ``None`` is the cold start (all ones).  ``scheme``: ``"adaptive"`` or
-    ``"mehrotra"`` (:func:`~.qp_ipm.solve_qp_ipm_s`).
+    ``"mehrotra"`` (:func:`~.qp_ipm.solve_qp_ipm_s`).  ``interpret`` names
+    the route (`ops/cuda_build.kernel_route`): ``True`` runs the plain
+    version on either device, ``False`` the kernel only.
     """
     dev = qp.e.device
-    if dev.type == "cpu":
+    if cuda_build.kernel_route(interpret, dev, "solve_qp_ipm_k") == "plain":
         return solve_qp_ipm_plain(qp, max_iter, warm_s, warm_lam, system,
                                   scheme)
     if scheme not in SCHEMES:

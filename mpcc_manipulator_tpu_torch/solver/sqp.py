@@ -19,8 +19,9 @@ Two bodies, routed by ``cfg.qp_solver``:
   requires);
 * ``"admm"``: the dense QP (``build_qp``) -> optional damped BFGS update of
   the Lagrangian Hessian -> NaN / positive-definiteness guard (jittered
-  Cholesky) -> ADMM QP solve (K5 for ``qp_backend="pallas"``, the plain
-  loop for ``"xla"``), warm-started from the last QP's primal
+  Cholesky) -> ADMM QP solve (K5 for ``qp_backend="pallas"``, its plain
+  version for ``"pallas_interpret"``, the plain loop for ``"xla"``),
+  warm-started from the last QP's primal
   and dual -> optional second-order correction (a cold re-solve) -> filter
   or l1-merit line search on the plain evaluation -> step and dual update;
 
@@ -52,6 +53,7 @@ from ..ocp.robot_data import (KIN_BACKENDS, MANI_GRADS, RobotData,
                               check_kin_route)
 from ..ops import assembly_kernel as ak
 from ..ops.admm_kernel import mv
+from ..ops.cuda_build import check_interpret
 from ..params import MPCCParams, SQPConfig
 from ..splines.arc_length import TrackSpline
 from ..system import PANDA, System
@@ -93,10 +95,10 @@ def no_phase(name: str):
 
 def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
     """Raise the JAX package's ``ValueError`` for an inconsistent
-    configuration, a ``ValueError`` for a value no route has, and
-    ``NotImplementedError`` for ``ipm_interpret``: it forces the Pallas
-    interpreter, which has no counterpart here (a setting is never
-    silently ignored)."""
+    configuration, and a ``ValueError`` for a value no route has (a
+    setting is never silently ignored).  ``ipm_interpret`` takes JAX's
+    three values; it names the route of K1-K4
+    (`ops/cuda_build.kernel_route`)."""
     if system.name != "panda" and cfg.qp_solver == "admm":
         raise ValueError(
             "the dense ADMM backend is Panda-only (OSQP-conformance path); "
@@ -125,11 +127,7 @@ def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
             raise ValueError(f"{name}={value!r}: expected one of {known}")
     if cfg.max_iter < 0:
         raise ValueError(f"max_iter={cfg.max_iter} < 0")
-    if cfg.ipm_interpret is not None:
-        raise NotImplementedError(
-            "not ported: ipm_interpret (it forces the Pallas interpreter; "
-            "the port's kernels have no interpret mode, and on CPU tensors "
-            "every kernel wrapper runs its plain version)")
+    check_interpret(cfg.ipm_interpret, "ipm_interpret")
 
 
 # the per-lane l1 violation of l <= c <= u (JAX `sqp.constraint_norm`)
@@ -208,15 +206,19 @@ def _stage_model_terms(rep, sol, solver: str = "riccati_pallas",
 
 def _riccati_route(cfg: SQPConfig, system: System):
     """``(assemble, NaN-guarded fields, solve)`` of the Riccati route
-    ``cfg.qp_solver``; ``solve(rep, warm_s, warm_lam)``."""
+    ``cfg.qp_solver``; ``solve(rep, warm_s, warm_lam)``.  K1 and K2 take
+    the route ``cfg.ipm_interpret`` names."""
     kw = dict(max_iter=cfg.ipm_max_iter, scheme=cfg.ipm_scheme)
     if cfg.qp_solver == "riccati_pallas":
         # K1 keeps its per-scenario loop on the device: no fixed_iters
-        return ((ak.build_qp_stages_k_kernel if cfg.qp_assembly == "pallas"
+        return ((functools.partial(ak.build_qp_stages_k_kernel,
+                                   interpret=cfg.ipm_interpret)
+                 if cfg.qp_assembly == "pallas"
                  else ak.build_qp_stages_k_plain),
                 ("hxx", "gx", "cpx", "d_p", "d_xu", "d_xl"),
                 lambda r, ws, wl: solve_qp_ipm_k(
-                    r, warm_s=ws, warm_lam=wl, system=system, **kw))
+                    r, warm_s=ws, warm_lam=wl, system=system,
+                    interpret=cfg.ipm_interpret, **kw))
     if cfg.qp_solver == "riccati_struct":
         return (qps.build_qp_stages_s,
                 ("h", "g", "cpx", "d_p", "d_xu", "d_xl"),
@@ -315,8 +317,9 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     nanany = lambda t: torch.isnan(t).flatten(1).any(-1)
     alpha_fail = sqp.line_search_tau ** cfg.line_search_max_iter
     riccati = cfg.qp_solver != "admm"
-    evaluate = (ak.eval_point_kernel if cfg.qp_assembly == "pallas"
-                else ak.eval_point_plain)
+    evaluate = (functools.partial(ak.eval_point_kernel,
+                                  interpret=cfg.ipm_interpret)
+                if cfg.qp_assembly == "pallas" else ak.eval_point_plain)
     if riccati:
         assemble, nan_fields, solve_route = _riccati_route(cfg, system)
     clip = lambda a: torch.clamp(a, cfg.ipm_warm_clip_lo,

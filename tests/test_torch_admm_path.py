@@ -97,7 +97,7 @@ def _robot_data(port, z, obs, radius):
     xs, _ = qp_data.split_z(torch.tensor(z))
     return compute_robot_data(xs[..., :7].contiguous(), torch.tensor(obs),
                               torch.tensor(radius), port["sel_nn"],
-                              port["env_nn"])
+                              port["env_nn"], mani_grad="analytic", kin_backend="pallas")
 
 
 def test_build_qp_matches_jax(problem):

@@ -126,7 +126,7 @@ def region(request, setup):
     rb = compute_robot_data(xs[..., :7].contiguous(),
                             torch.tensor(obs).expand(b, 3),
                             torch.full((b,), radius, dtype=torch.float64),
-                            port["sel"], port["env"])
+                            port["sel"], port["env"], mani_grad="analytic", kin_backend="pallas")
     return dict(jref=jref, z=z, zt=torch.tensor(zt), zc=torch.tensor(zc),
                 rb=rb, cu=torch.tensor(cu), track=port["track"],
                 params=port["params"], region=request.param)
@@ -281,7 +281,8 @@ def _stage_qp(system, b, params=None):
     rb = compute_robot_data(xs[..., :system.dof].contiguous(),
                             torch.full((b, 3), 3.0, dtype=torch.float64),
                             torch.zeros(b, dtype=torch.float64), sel, env,
-                            system)
+                            mani_grad="analytic", system=system,
+                            kin_backend="pallas")
     cu = torch.zeros(b, system.nu, dtype=torch.float64)
     return track, params, tqs.build_qp_stages_k(track, z, rb, params, cu, TS,
                                                 system=system)

@@ -114,7 +114,8 @@ def stage_cases(problems):
         rb = compute_robot_data(
             xs[..., :sy.dof].contiguous(),
             torch.tensor(np.asarray(obs)).expand(3, 3),
-            torch.zeros(3, dtype=torch.float64), sel, env, sy)
+            torch.zeros(3, dtype=torch.float64), sel, env,
+            mani_grad="analytic", system=sy, kin_backend="pallas")
         qpk = ak.build_qp_stages_k_plain(track, z, rb, params,
                                          torch.tensor(cu), TS, system=sy)
         out[name, n] = ref, qpk

@@ -93,7 +93,7 @@ def test_robot_data_matches_jax(obs):
     got = compute_robot_data(
         torch.tensor(qs), torch.tensor([obs] * 3, dtype=torch.float64),
         torch.tensor(radius), cnn.load_self_collision_nn(device="cpu"),
-        cnn.load_env_collision_nn(device="cpu"))
+        cnn.load_env_collision_nn(device="cpu"), mani_grad="analytic", kin_backend="pallas")
     for f in ref.__dataclass_fields__:
         r = np.asarray(getattr(ref, f), dtype=np.float64)
         g = getattr(got, f).numpy()

@@ -140,7 +140,8 @@ def test_mobile_robot_data_matches_jax(where):
     got = compute_robot_data(
         torch.tensor(qs), torch.tensor([obs] * B, dtype=torch.float64),
         torch.tensor(radius), cnn.load_self_collision_nn(device="cpu"),
-        cnn.load_env_collision_nn(device="cpu"), system=SYS)
+        cnn.load_env_collision_nn(device="cpu"), mani_grad="analytic",
+        system=SYS, kin_backend="pallas")
     for f in ref.__dataclass_fields__:
         r = np.asarray(getattr(ref, f), dtype=np.float64)
         g = getattr(got, f).numpy()
@@ -205,7 +206,8 @@ def stage_case(request):
     rb = compute_robot_data(
         xs[..., :SYS.dof].contiguous(), torch.tensor(obs).expand(B, 3),
         torch.tensor(radius), convert.mlp(_np(jsel), device="cpu"),
-        convert.mlp(_np(jenv), device="cpu"), system=SYS)
+        convert.mlp(_np(jenv), device="cpu"), mani_grad="analytic",
+        system=SYS, kin_backend="pallas")
     return _np(ref), (track, z, rb, params, torch.tensor(cu))
 
 
@@ -268,7 +270,8 @@ def test_build_problem_matches_jax():
 def test_mobile_load_params_matches_jax(overrides):
     jp, _ = j_load_params(overrides=overrides, dtype=jnp.float64,
                           system=JSYS)
-    p, _ = load_params(overrides=overrides, device="cpu", system=SYS)
+    p, _ = load_params(overrides=overrides, dtype=torch.float64,
+                       device="cpu", system=SYS)
     for group, sizes in (("bounds", dict(x_l=12, x_u=12, u_l=11, u_u=11,
                                          ddq_l=10, ddq_u=10)),
                          ("normalization", dict(t_x=12, t_u=11))):

@@ -146,18 +146,22 @@ def test_rti_passes_oracle_conformance_gate():
     assert x_o[7] > 0.15 and float(x_p[0, 7]) > 0.15
 
 
-@pytest.mark.parametrize("change", [dict(ipm_interpret=True)],
+@pytest.mark.parametrize("change", [
+    dict(ipm_interpret="True"), dict(ipm_interpret=1),
+    dict(qp_backend="pallas_gpu"), dict(kin_backend="cuda")],
                          ids=lambda c: "-".join(f"{k}={v}"
                                                 for k, v in c.items()))
 def test_off_slice_settings_raise(change):
-    """A setting the port does not run raises; none is ignored.  Only
-    ``ipm_interpret`` is left: it forces the Pallas interpreter.  (The
-    plain assembly is the base: with the kernel assembly, a solver other
-    than 'riccati_pallas' raises the JAX package's ValueError first.)"""
+    """A value JAX's ``SQPConfig`` has not raises ``ValueError`` naming
+    the setting; none is ignored.  Every value JAX has runs
+    (``ipm_interpret`` is None, True or False, ``qp_backend`` also
+    ``"pallas_interpret"``).  (The plain assembly is the base: with the
+    kernel assembly, a solver other than 'riccati_pallas' raises the JAX
+    package's ValueError first.)"""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(SQPConfig())
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=next(iter(change))):
         check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
                                             **change))
 
@@ -168,14 +172,17 @@ def test_off_slice_settings_raise(change):
     dict(qp_solver="admm", use_BFGS=True), dict(ipm_scheme="mehrotra"),
     dict(mani_grad="fd", kin_backend="xla"), dict(kin_backend="xla"),
     dict(fleet_mode=True), dict(nn_bf16=True), dict(qp_solver="riccati"),
-    dict(qp_solver="riccati_struct")],
+    dict(qp_solver="riccati_struct"), dict(ipm_interpret=True),
+    dict(ipm_interpret=False),
+    dict(qp_solver="admm", qp_backend="pallas_interpret")],
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_slice_settings_are_supported(change):
     """The kernel assembly route, SOC, the merit line search, the converged
     mode, the dense ADMM path with BFGS, Mehrotra's centering, the plain
     kinematics route with the finite-difference manipulability gradient,
-    fleet mode, the bf16 NN GEMMs and the packed and structured solver
-    routes run in the port (the kernel routes are the default)."""
+    fleet mode, the bf16 NN GEMMs, the packed and structured solver routes
+    and the interpret routes run in the port (the kernel routes are the
+    default)."""
     import dataclasses
     from mpcc_manipulator_tpu_torch.solver.sqp import check_supported
     check_supported(dataclasses.replace(SQPConfig(qp_assembly="xla"),
@@ -303,7 +310,8 @@ def _cpu_stage_qpk(problem):
     xs, _ = qp_data.split_z(z)
     rb = compute_robot_data(xs[..., :7].contiguous(),
                             torch.tensor([[3.0, 3.0, 3.0]], dtype=z.dtype),
-                            torch.zeros(1, dtype=z.dtype), sel_nn, env_nn)
+                            torch.zeros(1, dtype=z.dtype), sel_nn, env_nn,
+                            mani_grad="analytic", kin_backend="pallas")
     return qp_stages.build_qp_stages_k(track, z, rb, params,
                                        torch.zeros(1, 8, dtype=z.dtype), TS)
 

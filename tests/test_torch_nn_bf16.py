@@ -85,8 +85,9 @@ def test_bf16_robot_data_matches_jax(nets, system):
             q, o, jnp.float32(0.03), jsel, jenv, mani_grad="ad",
             system=jsys, nn_mm_dtype=mm)))(jnp.asarray(qs), jnp.asarray(obs))
         rb = compute_robot_data(torch.tensor(qs), torch.tensor(obs),
-                                torch.full((b,), 0.03), sel, env, sys_,
-                                mani_grad=grad, kin_backend="xla",
+                                torch.full((b,), 0.03), sel, env,
+                                mani_grad=grad, system=sys_,
+                                kin_backend="xla",
                                 nn_mm_dtype=mm)
         for f in NN_FIELDS:
             r = np.asarray(getattr(ref, f))

@@ -83,7 +83,7 @@ def case(request):
     xs, _ = qp_data.split_z(z)
     rb = compute_robot_data(xs[..., :7].contiguous(),
                             torch.tensor(obs).expand(B, 3),
-                            torch.tensor(radius), sel, env)
+                            torch.tensor(radius), sel, env, mani_grad="analytic", kin_backend="pallas")
     port = (track, z, rb, params, torch.tensor(cu))
     return ref, port
 

@@ -306,12 +306,14 @@ def test_nan_lane_stays_unconverged_and_isolated(backend):
 
 
 def test_plain_loop_refuses_cuda_tensors():
-    """Both routes run on any device, the plain ADMM loop on CUDA tensors
+    """Every route runs on any device, the plain ADMM loop on CUDA tensors
     too (the JAX package's ``api.MPCC`` default runs it on the
-    accelerator): no route refuses a device any more; a backend the port
-    does not have raises and names the ones it has."""
+    accelerator): no route refuses a device any more.  The routes are
+    JAX's three (``"pallas_interpret"``: K5's plain version);
+    a backend JAX does not have raises and names the ones there are."""
+    assert qp_admm.BACKENDS == ("xla", "pallas", "pallas_interpret")
     for backend in qp_admm.BACKENDS:
         qp_admm.check_route(backend)
-    for bad in ("pallas_interpret", "osqp"):
+    for bad in ("pallas_gpu", "osqp"):
         with pytest.raises(ValueError, match="qp_backend"):
             qp_admm.check_route(bad)

@@ -21,7 +21,8 @@ on the CPU.
 * `sqp_debug.solve_ocp_timed(_riccati)`: positive phases and the result of
   `solve_ocp`, on ADMM and the three Riccati routes;
 * `ee_position_host` / `ee_orientation_host` of both systems against
-  JAX's; `check_supported` leaving only ``ipm_interpret`` unported.
+  JAX's; `check_supported` accepting every ``SQPConfig`` value JAX has,
+  ``ipm_interpret``'s three among them.
 
 In the converged mode the filter can compare two l1 violations that are
 both rounding (ROADMAP section 3): the two packages' summation orders then
@@ -484,19 +485,28 @@ def test_ee_host_fk_matches_jax(system):
 
 def test_only_ipm_interpret_is_not_ported():
     """Every SQPConfig value JAX runs is accepted on both systems (ADMM on
-    the Panda); ``ipm_interpret`` raises NotImplementedError, an unknown
-    value and the ADMM Husky+Panda JAX's ValueError."""
+    the Panda), ``ipm_interpret`` None, True and False among them (the
+    route of K1-K4, `ops/cuda_build.kernel_route`); a value
+    of ``ipm_interpret`` that is not a bool or None, an unknown value and
+    the ADMM Husky+Panda raise JAX's ValueError."""
     for sys_ in (PANDA, HUSKY_PANDA):
         for route in ("riccati", "riccati_struct", "riccati_pallas"):
             for change in (dict(), dict(fleet_mode=True),
                            dict(nn_bf16=True), dict(ipm_scheme="mehrotra"),
-                           dict(rti=False, max_iter=0)):
+                           dict(rti=False, max_iter=0),
+                           dict(ipm_interpret=True),
+                           dict(ipm_interpret=False)):
                 sqp.check_supported(SQPConfig(
                     qp_solver=route, qp_assembly="xla", **change), sys_)
+        for flag in (None, True, False):
+            sqp.check_supported(SQPConfig(ipm_interpret=flag), sys_)
     sqp.check_supported(SQPConfig(qp_solver="admm", qp_assembly="xla",
                                   fleet_mode=True, nn_bf16=True))
-    with pytest.raises(NotImplementedError, match="ipm_interpret"):
-        sqp.check_supported(SQPConfig(ipm_interpret=True))
+    sqp.check_supported(SQPConfig(qp_solver="admm", qp_assembly="xla",
+                                  qp_backend="pallas_interpret"))
+    for bad in ("yes", 1, 0.0):
+        with pytest.raises(ValueError, match="ipm_interpret"):
+            sqp.check_supported(SQPConfig(ipm_interpret=bad))
     with pytest.raises(ValueError, match="use qp_solver='riccati'"):
         sqp.check_supported(SQPConfig(qp_solver="admm", qp_assembly="xla"),
                             HUSKY_PANDA)

@@ -129,7 +129,7 @@ def stage_solution(problem):
     rb = compute_robot_data(xs[..., :7].contiguous(),
                             torch.tensor([[3.0, 3.0, 3.0]] * BATCH, dtype=dt),
                             torch.zeros(BATCH, dtype=dt), port["sel_nn"],
-                            port["env_nn"])
+                            port["env_nn"], mani_grad="analytic", kin_backend="pallas")
     cu = torch.tensor(0.02 * rng.standard_normal((BATCH, 8)), dtype=dt)
     rep = ak.build_qp_stages_k_kernel(port["track"], z, rb, port["params"],
                                       cu, TS)

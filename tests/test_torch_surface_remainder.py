@@ -106,7 +106,7 @@ def test_group_loaders(group, mobile):
     kw, jkw = {}, {}
     if mobile:
         kw, jkw = dict(system=HUSKY_PANDA), dict(system=JHUSKY)
-    got = port(file, ov, torch.float64, "cpu", **kw)
+    got = port(file, ov, torch.float64, device="cpu", **kw)
     want = ref(file, ov, jnp.float64, **jkw)
     if group == "sqp":
         _same_fields(got[0], want[0])
@@ -140,7 +140,7 @@ def test_index_robot_data():
     rb = rd.compute_robot_data(
         torch.tensor(qs)[None], torch.tensor(obs)[None],
         torch.tensor([rad], dtype=torch.float64), to(jsel), to(jenv),
-        kin_backend="xla")
+        mani_grad="analytic", kin_backend="xla")
     for k in (0, 3, 10):
         got, ref = rd.index_robot_data(rb, k), jrd.index_robot_data(jrb, k)
         for f in dataclasses.fields(got):

@@ -102,8 +102,8 @@ def test_plain_robot_data_matches_jax(name, mani_grad):
     got = compute_robot_data(
         torch.tensor(qs), torch.tensor(obs), torch.tensor(radius),
         cnn.load_self_collision_nn(device="cpu"),
-        cnn.load_env_collision_nn(device="cpu"), sy, mani_grad=mani_grad,
-        kin_backend="xla")
+        cnn.load_env_collision_nn(device="cpu"), mani_grad=mani_grad,
+        system=sy, kin_backend="xla")
     for f in ref.__dataclass_fields__:
         r = np.asarray(getattr(ref, f))
         if f == "obs_radius":
@@ -125,8 +125,8 @@ def test_kin_route_raises_as_in_jax():
     obs, rad = torch.tensor([[3.0, 3.0, 3.0]]), torch.zeros(1)
     for grad in ("fd", "ad"):
         with pytest.raises(ValueError, match="analytic manipulability"):
-            compute_robot_data(qs, obs, rad, *nets, SYSTEMS["panda"],
-                               mani_grad=grad, kin_backend="pallas")
+            compute_robot_data(qs, obs, rad, *nets, mani_grad=grad,
+                               system=SYSTEMS["panda"], kin_backend="pallas")
         with pytest.raises(ValueError, match="analytic manipulability"):
             j_robot_data(jnp.asarray(qs[0].numpy()), jnp.asarray([3.0] * 3),
                          0.0, jcnn.load_self_collision_nn(),
