@@ -365,13 +365,8 @@ def nbytes(*tensors) -> int:
 
 
 def kernel_wrappers() -> dict:
-    from mpcc_manipulator_tpu_torch.ops.admm_kernel import fused_admm
-    from mpcc_manipulator_tpu_torch.ops.assembly_kernel import (
-        build_qp_stages_k_kernel, eval_point_kernel)
-    from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import kin_sweep
-    from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import solve_qp_ipm_k
-    return {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
-            "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm}
+    from mpcc_manipulator_tpu_torch.solver.sqp_debug import KERNEL_WRAPPERS
+    return dict(KERNEL_WRAPPERS)
 
 
 def reset_counts() -> None:

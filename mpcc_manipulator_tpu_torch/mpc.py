@@ -21,6 +21,7 @@ obs_radius (B,); the track, parameters and networks are shared.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -115,80 +116,89 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
              system: System = PANDA, timer=None
              ) -> tuple[MPCCarry, MPCOutput]:
     """One MPC tick for every scenario; returns the new carry and output.
-    ``timer`` (a `solver.sqp_debug.PhaseTimer`) times the tick's phases:
-    set_env (steps 1-4) and the SQP loop's (`solver/sqp.py::solve_ocp`)."""
-    sqp_mod.check_supported(cfg, system)
-    phase = timer.phase if timer is not None else sqp_mod.no_phase
-    dof = system.dof
-    q = x0[:, :dof]
-    dq = u0[:, :dof]
+    ``timer`` (a `solver.sqp_debug.PhaseTimer`) traces the tick: the span
+    ``tick`` around it, ``set_env`` (steps 1-4: ``projection``,
+    ``warm_start``, ``robot_data``) and the SQP loop's
+    (`solver/sqp.py::solve_ocp`)."""
+    phase = timer.phase if timer is not None else contextlib.nullcontext
+    with phase("tick"):
+        sqp_mod.check_supported(cfg, system)
+        dof = system.dof
+        q = x0[:, :dof]
+        dq = u0[:, :dof]
 
-    with phase("set_env"):
-        # --- 1. projection + vs re-derivation
-        last_s = x0[:, system.s_idx]
-        if system.base_dof == 0:
-            p_ee, _, origins, axes = kin.fk_chain(q)
-            jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)
-        else:
-            p_ee = kinm.ee_position(q)
-            jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)      # (B,10,3)
-        s_proj = als.project_on_spline(track, last_s, p_ee,
-                                       params.model.max_dist_proj)
-        vs = ((dq[:, :, None] * jv).sum(1)
-              * als.track_derivative(track, s_proj)).sum(-1)
-        x0_new = x0.clone()
-        x0_new[:, system.s_idx] = s_proj
-        x0_new[:, system.vs_idx] = vs
+        with phase("set_env"):
+            with phase("projection"):
+                # --- 1. projection + vs re-derivation
+                last_s = x0[:, system.s_idx]
+                if system.base_dof == 0:
+                    p_ee, _, origins, axes = kin.fk_chain(q)
+                    jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)
+                else:
+                    p_ee = kinm.ee_position(q)
+                    jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)  # B,10,3
+                s_proj = als.project_on_spline(track, last_s, p_ee,
+                                               params.model.max_dist_proj)
+                vs = ((dq[:, :, None] * jv).sum(1)
+                      * als.track_derivative(track, s_proj)).sum(-1)
+                x0_new = x0.clone()
+                x0_new[:, system.s_idx] = s_proj
+                x0_new[:, system.vs_idx] = vs
 
-        # --- 2. warm-start invalidation on a projection jump
-        jumped = torch.abs(last_s - s_proj) > params.model.max_dist_proj
-        valid = carry.valid_guess & ~jumped
-        n_failed = carry.num_guess_failed + jumped.to(torch.int32)
+            with phase("warm_start"):
+                # --- 2. warm-start invalidation on a projection jump
+                jumped = (torch.abs(last_s - s_proj)
+                          > params.model.max_dist_proj)
+                valid = carry.valid_guess & ~jumped
+                n_failed = carry.num_guess_failed + jumped.to(torch.int32)
 
-        # --- 3. warm start selection
-        z_warm = _unwrap_s(_shift_warm_start(carry.z_guess, x0_new, ts,
-                                             system), track.length, system)
-        z_cold = _unwrap_s(_cold_start(x0_new, system), track.length, system)
-        z0 = torch.where(valid[:, None], z_warm, z_cold)
+                # --- 3. warm start selection
+                z_warm = _unwrap_s(_shift_warm_start(carry.z_guess, x0_new,
+                                                     ts, system),
+                                   track.length, system)
+                z_cold = _unwrap_s(_cold_start(x0_new, system), track.length,
+                                   system)
+                z0 = torch.where(valid[:, None], z_warm, z_cold)
 
-        # --- 4. per-tick RobotData (frozen linearization cache)
-        xs0, _ = qp_data.split_z(z0, system)
-        rb = compute_robot_data(xs0[..., :dof].contiguous(), obs_pos,
-                                obs_radius, sel_nn, env_nn,
-                                mani_grad=cfg.mani_grad, system=system,
-                                kin_backend=cfg.kin_backend,
-                                kin_interpret=cfg.ipm_interpret,
-                                nn_mm_dtype="bfloat16" if cfg.nn_bf16
-                                else None)
+            with phase("robot_data"):
+                # --- 4. per-tick RobotData (frozen linearization cache)
+                xs0, _ = qp_data.split_z(z0, system)
+                rb = compute_robot_data(
+                    xs0[..., :dof].contiguous(), obs_pos, obs_radius, sel_nn,
+                    env_nn, mani_grad=cfg.mani_grad, system=system,
+                    kin_backend=cfg.kin_backend,
+                    kin_interpret=cfg.ipm_interpret,
+                    nn_mm_dtype="bfloat16" if cfg.nn_bf16 else None,
+                    timer=timer)
 
-    # --- 5. SQP (QP and IPM warm state carried across ticks; zeros / ones
-    # on a cold start)
-    v2, v3 = valid[:, None], valid[:, None, None]
-    res = sqp_mod.solve_ocp(
-        track, rb, params, cfg, z0, u0, ts,
-        exact_heading_jac=exact_heading_jac,
-        qp_x0=torch.where(v2, carry.qp_x, torch.zeros_like(carry.qp_x)),
-        qp_y0=torch.where(v2, carry.qp_y, torch.zeros_like(carry.qp_y)),
-        ipm_s0=torch.where(v3, carry.ipm_s, torch.ones_like(carry.ipm_s)),
-        ipm_lam0=torch.where(v3, carry.ipm_lam,
-                             torch.ones_like(carry.ipm_lam)),
-        system=system, timer=timer)
+        # --- 5. SQP (QP and IPM warm state carried across ticks; zeros /
+        # ones on a cold start)
+        v2, v3 = valid[:, None], valid[:, None, None]
+        res = sqp_mod.solve_ocp(
+            track, rb, params, cfg, z0, u0, ts,
+            exact_heading_jac=exact_heading_jac,
+            qp_x0=torch.where(v2, carry.qp_x, torch.zeros_like(carry.qp_x)),
+            qp_y0=torch.where(v2, carry.qp_y, torch.zeros_like(carry.qp_y)),
+            ipm_s0=torch.where(v3, carry.ipm_s, torch.ones_like(carry.ipm_s)),
+            ipm_lam0=torch.where(v3, carry.ipm_lam,
+                                 torch.ones_like(carry.ipm_lam)),
+            system=system, timer=timer)
 
-    # --- 6. status machine
-    solved = res.success
-    n_failed_next = torch.where(solved, torch.zeros_like(n_failed),
-                                n_failed + 1)
-    ok = solved | ((res.status == sqp_mod.Status.MAX_ITER_EXCEEDED)
-                   & (n_failed_next < 5))
-    xs, us = qp_data.split_z(res.z, system)
-    # the ADMM path keeps the carry's IPM slots as they were
-    admm = cfg.qp_solver == "admm"
-    new_carry = MPCCarry(z_guess=res.z, valid_guess=solved,
-                         num_guess_failed=n_failed_next, qp_x=res.qp_x,
-                         qp_y=res.qp_y,
-                         ipm_s=carry.ipm_s if admm else res.ipm_s,
-                         ipm_lam=carry.ipm_lam if admm else res.ipm_lam)
-    out = MPCOutput(u0=us[:, 0], x0_updated=x0_new, horizon_x=xs,
-                    horizon_u=us, status=res.status, ok=ok,
-                    sqp_iters=res.sqp_iters, qp_iters=res.qp_iters)
-    return new_carry, out
+        # --- 6. status machine
+        solved = res.success
+        n_failed_next = torch.where(solved, torch.zeros_like(n_failed),
+                                    n_failed + 1)
+        ok = solved | ((res.status == sqp_mod.Status.MAX_ITER_EXCEEDED)
+                       & (n_failed_next < 5))
+        xs, us = qp_data.split_z(res.z, system)
+        # the ADMM path keeps the carry's IPM slots as they were
+        admm = cfg.qp_solver == "admm"
+        new_carry = MPCCarry(z_guess=res.z, valid_guess=solved,
+                             num_guess_failed=n_failed_next, qp_x=res.qp_x,
+                             qp_y=res.qp_y,
+                             ipm_s=carry.ipm_s if admm else res.ipm_s,
+                             ipm_lam=carry.ipm_lam if admm else res.ipm_lam)
+        out = MPCOutput(u0=us[:, 0], x0_updated=x0_new, horizon_x=xs,
+                        horizon_u=us, status=res.status, ok=ok,
+                        sqp_iters=res.sqp_iters, qp_iters=res.qp_iters)
+        return new_carry, out

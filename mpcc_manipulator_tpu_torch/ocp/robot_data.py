@@ -30,6 +30,7 @@ For the mobile system (JAX `_nn_knot`, ``base_dof != 0``):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -149,7 +150,8 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
                        env_nn: cnn.CollisionMLP, mani_grad: str = "fd",
                        system: System = PANDA, kin_backend: str = "xla",
                        kin_interpret: bool | None = None,
-                       nn_mm_dtype: str | None = None) -> RobotData:
+                       nn_mm_dtype: str | None = None,
+                       timer=None) -> RobotData:
     """The full cache for joint configurations ``qs`` (B, K, dof), one
     obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,)); the
     kinematic half by the ``kin_backend`` route with the ``mani_grad``
@@ -157,22 +159,28 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
     (`ops/cuda_build.kernel_route`), the NN GEMMs in ``nn_mm_dtype``
     (``"bfloat16"``: ``SQPConfig.nn_bf16``).  JAX's order and defaults:
     the plain kinematics with the finite-difference gradient; the bench
-    route is ``mani_grad="analytic", kin_backend="pallas"``."""
+    route is ``mani_grad="analytic", kin_backend="pallas"``.  ``timer``
+    (a `solver.sqp_debug.PhaseTimer`) traces the halves as the spans
+    ``robot_data.kin`` and ``robot_data.nn``."""
     if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
         raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
                          f"{kin_backend!r}: the port runs {MANI_GRADS} / "
                          f"{KIN_BACKENDS}")
     check_kin_route(mani_grad, kin_backend, system)
+    phase = timer.phase if timer is not None else contextlib.nullcontext
     b, k, _ = qs.shape
-    if kin_backend == "pallas":
-        p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system,
-                                                     kin_interpret)
-    else:
-        # contiguous, as K2 and K3 read them
-        p_ee, r_ee, jv, jw, mani, d_mani = (
-            t.contiguous() for t in _kin_half_plain(qs, mani_grad, system))
-    sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn, system,
-                                      nn_mm_dtype)
+    with phase("robot_data.kin"):
+        if kin_backend == "pallas":
+            p_ee, r_ee, jv, jw, mani, d_mani = kin_sweep(qs, system,
+                                                         kin_interpret)
+        else:
+            # contiguous, as K2 and K3 read them
+            p_ee, r_ee, jv, jw, mani, d_mani = (
+                t.contiguous()
+                for t in _kin_half_plain(qs, mani_grad, system))
+    with phase("robot_data.nn"):
+        sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn,
+                                          system, nn_mm_dtype)
     return RobotData(
         q=qs, ee_pos=p_ee, ee_rot=r_ee, jv=jv, jw=jw,
         manipul=mani, d_manipul=d_mani, sel_dist=sel, d_sel_dist=d_sel,

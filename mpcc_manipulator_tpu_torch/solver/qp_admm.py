@@ -26,6 +26,7 @@ Two routes run the iteration chunks (``backend``):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -138,30 +139,45 @@ def residuals(p_s, q_s, a_s, d_scl, e_scl, c_scl, x, z, y):
     return r_prim, r_dual, s_prim, s_dual
 
 
+def _rho0(l_s, u_s):
+    """The OSQP per-row rho: equality rows x 1e3."""
+    full = lambda v: torch.full_like(l_s, v)
+    return torch.where((u_s - l_s).abs() < 1e-12,
+                       full(RHO_BASE * RHO_EQ_SCALE), full(RHO_BASE))
+
+
 def equilibrated(p, q, a, l, u):
     """The scaled problem K5 works on: ``(P_s, q_s, A_s, l_s, u_s, d, e, c,
     rho0, K0^-1)`` with the OSQP per-row rho (equality rows x 1e3)."""
     p_s, q_s, a_s, l_s, u_s, d, e, c = _ruiz_equilibrate(p, q, a, l, u)
-    full = lambda v: torch.full_like(l_s, v)
-    rho0 = torch.where((u_s - l_s).abs() < 1e-12,
-                       full(RHO_BASE * RHO_EQ_SCALE), full(RHO_BASE))
+    rho0 = _rho0(l_s, u_s)
     return p_s, q_s, a_s, l_s, u_s, d, e, c, rho0, _factor(p_s, a_s, rho0)
 
 
 def solve_qp(p, q, a, l, u, max_iter: int = 400, check_every: int = 25,
-             x_warm=None, y_warm=None, backend: str = "xla") -> QPSolution:
+             x_warm=None, y_warm=None, backend: str = "xla",
+             timer=None) -> QPSolution:
     """Solve a batch of dense QPs: p (B, n, n), q (B, n), a (B, m, n),
     l, u (B, m).
 
     The default is the cold start (x = z = y = 0).  ``x_warm``/``y_warm``
-    (unscaled, (B, n) / (B, m)) warm-start the splitting.
+    (unscaled, (B, n) / (B, m)) warm-start the splitting.  ``timer`` (a
+    `sqp_debug.PhaseTimer`) traces the spans ``ruiz``, ``factor`` (each
+    factorization) and ``admm`` (each run of iterations: one K5 launch on
+    the kernel routes), keeping each run's iterations per lane.
     """
     check_route(backend)
+    phase = timer.phase if timer is not None else contextlib.nullcontext
+    keep = timer.keep if timer is not None else lambda key, value: None
     dtype = p.dtype
     b, m, n = a.shape
 
-    (p_s, q_s, a_s, l_s, u_s, d_scl, e_scl, c_scl, rho0,
-     kinv0) = equilibrated(p, q, a, l, u)
+    with phase("ruiz"):
+        p_s, q_s, a_s, l_s, u_s, d_scl, e_scl, c_scl = _ruiz_equilibrate(
+            p, q, a, l, u)
+        rho0 = _rho0(l_s, u_s)
+    with phase("factor"):
+        kinv0 = _factor(p_s, a_s, rho0)
     c_col = c_scl[:, None]
     res = lambda x, z, y: residuals(p_s, q_s, a_s, d_scl, e_scl, c_scl, x,
                                     z, y)
@@ -186,27 +202,32 @@ def solve_qp(p, q, a, l, u, max_iter: int = 400, check_every: int = 25,
         """Chunks of ``check_every`` until converged or ``budget`` spent;
         returns (x, z, y, iterations used, done)."""
         if backend.startswith("pallas"):
-            f32 = lambda t: t.to(torch.float32).contiguous()
-            x, z, y, it = admm_kernel.fused_admm(
-                f32(kinv), f32(p_s), f32(a_s), f32(q_s), f32(rho), f32(l_s),
-                f32(u_s), f32(d_scl), f32(e_scl), f32(c_scl), f32(x),
-                f32(z), f32(y), max_iter=budget, check_every=check_every,
-                sigma=SIGMA, alpha=ALPHA, eps_abs=EPS_ABS, eps_rel=EPS_REL,
-                interpret=True if backend == "pallas_interpret" else None)
-            x, z, y = x.to(dtype), z.to(dtype), y.to(dtype)
+            with phase("admm"):
+                f32 = lambda t: t.to(torch.float32).contiguous()
+                x, z, y, it = admm_kernel.fused_admm(
+                    f32(kinv), f32(p_s), f32(a_s), f32(q_s), f32(rho),
+                    f32(l_s), f32(u_s), f32(d_scl), f32(e_scl), f32(c_scl),
+                    f32(x), f32(z), f32(y), max_iter=budget,
+                    check_every=check_every, sigma=SIGMA, alpha=ALPHA,
+                    eps_abs=EPS_ABS, eps_rel=EPS_REL,
+                    interpret=True if backend == "pallas_interpret" else None)
+                x, z, y = x.to(dtype), z.to(dtype), y.to(dtype)
+                keep("iters", it)
             return x, z, y, it, converged(x, z, y)
-        it = torch.zeros(b, dtype=torch.long, device=p.device)
-        while True:
-            active = ~done & (it < budget)
-            if not bool(active.any()):
-                return x, z, y, it, done
-            xn, zn, yn = admm_iters(x, z, y, rho, kinv, check_every)
-            act = active[:, None]
-            x = torch.where(act, xn, x)
-            z = torch.where(act, zn, z)
-            y = torch.where(act, yn, y)
-            it = torch.where(active, it + check_every, it)
-            done = torch.where(active, converged(x, z, y), done)
+        with phase("admm"):
+            it = torch.zeros(b, dtype=torch.long, device=p.device)
+            while True:
+                active = ~done & (it < budget)
+                if not bool(active.any()):
+                    keep("iters", it)
+                    return x, z, y, it, done
+                xn, zn, yn = admm_iters(x, z, y, rho, kinv, check_every)
+                act = active[:, None]
+                x = torch.where(act, xn, x)
+                z = torch.where(act, zn, z)
+                y = torch.where(act, yn, y)
+                it = torch.where(active, it + check_every, it)
+                done = torch.where(active, converged(x, z, y), done)
 
     if x_warm is None:
         x0 = p.new_zeros(b, n)
@@ -231,7 +252,9 @@ def solve_qp(p, q, a, l, u, max_iter: int = 400, check_every: int = 25,
     rho = torch.where(adapt[:, None],
                       torch.clamp(rho0 * ratio[:, None], RHO_MIN, RHO_MAX),
                       rho0)
-    kinv = torch.where(adapt[:, None, None], _factor(p_s, a_s, rho), kinv0)
+    with phase("factor"):
+        kinv = torch.where(adapt[:, None, None], _factor(p_s, a_s, rho),
+                           kinv0)
 
     # phase 2: the remaining budget
     x, z, y, it2, done = run_chunks(x, z, y, rho, kinv,

@@ -88,11 +88,6 @@ class SQPResult:
     ipm_lam: torch.Tensor           # (B, N+1, nc_stage) IPM duals
 
 
-def no_phase(name: str):
-    """The phase context of an untimed tick: nothing."""
-    return contextlib.nullcontext()
-
-
 def check_supported(cfg: SQPConfig, system: System = PANDA) -> None:
     """Raise the JAX package's ``ValueError`` for an inconsistent
     configuration, and a ``ValueError`` for a value no route has (a
@@ -304,11 +299,13 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     (B, N+1, nc_stage) interior-point iterates, consumed when
     ``cfg.ipm_warm_start`` is set (ones = cold).  Each path passes the
     other's warm state through unchanged.  ``timer`` (a
-    `sqp_debug.PhaseTimer`) times the phases set_qp (assembly), solve_qp
-    (the QP solves) and get_alpha (the line search) of every iteration.
+    `sqp_debug.PhaseTimer`) traces the phases set_qp (the assembly:
+    ``assembly``, or ``build_qp`` and ``hessian_guard``), solve_qp (the QP
+    solves: ``ipm``, or `qp_admm.solve_qp`'s spans) and get_alpha (the
+    line search: ``eval``) of every iteration.
     """
     check_supported(cfg, system)
-    phase = timer.phase if timer is not None else no_phase
+    phase = timer.phase if timer is not None else contextlib.nullcontext
     dtype, dev = z0.dtype, z0.device
     bsz = z0.shape[0]
     n_var, n_constr = system.n_var, system.n_constr
@@ -326,7 +323,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
                                  cfg.ipm_warm_clip_hi)
 
     def eval_point(z):
-        return evaluate(track, z, rb, params, current_u, ts, system)
+        with phase("eval"):
+            return evaluate(track, z, rb, params, current_u, ts, system)
 
     def solve(rep, warm_s, warm_lam):
         if not cfg.ipm_warm_start:
@@ -336,7 +334,7 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     def solve_dense(p, q, a, lo, hi, **warm):
         return qp_admm.solve_qp(p, q, a, lo, hi, max_iter=cfg.qp_max_iter,
                                 check_every=cfg.qp_check_every,
-                                backend=cfg.qp_backend, **warm)
+                                backend=cfg.qp_backend, timer=timer, **warm)
 
     def line_search(z, dz, st, merit_terms):
         """``(alpha, f_obj, f_vio, f_cnt)``: the l1-merit Armijo search
@@ -385,20 +383,23 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     def riccati_iteration(st: _LoopState) -> _LoopState:
         z = st.z
         with phase("set_qp"):
-            rep = assemble(track, z, rb, params, current_u, ts,
-                           exact_heading_jac, system)
+            with phase("assembly"):
+                rep = assemble(track, z, rb, params, current_u, ts,
+                               exact_heading_jac, system)
             has_nan = functools.reduce(operator.or_, (
                 nanany(getattr(rep, f)) for f in nan_fields))
         with phase("solve_qp"):
-            sol = solve(rep, clip(st.ipm_s), clip(st.ipm_lam))
+            with phase("ipm"):
+                sol = solve(rep, clip(st.ipm_s), clip(st.ipm_lam))
             qp_used = sol.iters
             if cfg.do_SOC:
                 # re-solve against the corrected offsets, warm-started from
                 # the first solve; the step is the second solve's
                 rep_soc = _soc_corrected_rep(rep, sol, z, track.length,
                                              params, cfg.qp_solver, system)
-                sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
-                            clip(sol.lam_rows.to(dtype)))
+                with phase("ipm"):
+                    sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
+                                clip(sol.lam_rows.to(dtype)))
                 qp_used = qp_used + sol.iters
         ipm_s, ipm_lam = st.ipm_s, st.ipm_lam
         if cfg.ipm_warm_start:
@@ -438,16 +439,18 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     def admm_iteration(st: _LoopState) -> _LoopState:
         z = st.z
         with phase("set_qp"):
-            p_mat, qvec, a_mat, lvec, uvec, obj, constr = qp_data.build_qp(
-                track, z, rb, params, current_u, ts, exact_heading_jac,
-                system)
+            with phase("build_qp"):
+                p_mat, qvec, a_mat, lvec, uvec, obj, constr = (
+                    qp_data.build_qp(track, z, rb, params, current_u, ts,
+                                     exact_heading_jac, system))
             hess, grad_l = p_mat, st.grad_l
             if cfg.use_BFGS:
                 grad_l = qvec + mv(a_mat.transpose(-1, -2), st.lam)
                 hess = torch.where(
                     (st.it == 0)[:, None, None], p_mat,
                     _bfgs_update(st.hess, st.step_prev, grad_l - st.grad_l))
-            guard_fail, guard_status = _hessian_guard(hess)
+            with phase("hessian_guard"):
+                guard_fail, guard_status = _hessian_guard(hess)
 
         with phase("solve_qp"):
             # QP solve, warm-started from the last QP's primal and dual
