@@ -34,6 +34,16 @@ Phases (the first failure exits non-zero and prints no result line):
    first tick at the 1024 perturbed home states, cold and warm; a NaN lane
    runs to its budget, comes out NaN and leaves the other lanes
    bit-identical;
+7a. K6 (the tick's projection, one thread a lane): its launch for both
+   systems in float32 and float64 at the benchmark cells' batches, 32,768
+   and 4,096 (held: at least one block an SM, no local memory beyond the
+   trig functions' slow path, 40 B), then against its plain version on
+   the bench's draw with s spread over the track and 0.3 past its ends on
+   every fourth lane: the Panda in float32 bit for bit, the rest with the
+   same jump test, s within 1e-5 and vs within 1e-5 of its terms' scale;
+   timed in float32 at both batches for both systems.  Every ``mpc_step``
+   on the card launches K6 once, and the launch counts below hold it
+   beside K1-K5;
 8. the kernels' Husky+Panda instantiations (the 10-DOF mobile manipulator,
    BASELINE config 5): K1's launch configuration at N = 5, 10 and 20 for
    both systems (shared bytes, registers, local bytes, blocks an SM, waves
@@ -99,8 +109,9 @@ Phases (the first failure exits non-zero and prints no result line):
 18. the reference surface ``api.MPCC`` at batch 1, the verify recipe (30
     ticks from home on the repo's track): in JAX's default configuration
     (the converged dense ADMM path with the plain loop, the plain
-    kinematics with the finite-difference gradient, float64: no kernel),
-    and in float32 with ``sqp_cfg = SQPConfig()`` (K1-K4 once a tick);
+    kinematics with the finite-difference gradient, float64: K6 alone),
+    and in float32 with ``sqp_cfg = SQPConfig()`` (K1-K4 and K6 once a
+    tick);
     every tick ok, s strictly increasing, each tick held against
     ``MPCC(device="cpu")`` in float64 from the card's state, input and
     carry (the envelope; the largest gap printed); the tick's median and
@@ -150,7 +161,7 @@ Phases (the first failure exits non-zero and prints no result line):
     same way there), the NN half's device ms both ways;
 23. the surface (the JAX package's names the port gained last):
     ``import mpcc_manipulator_tpu_torch as M`` and one ``M.MPCC()`` tick
-    at batch 1 (JAX's default configuration, no kernel) held to
+    at batch 1 (JAX's default configuration: K6 alone) held to
     ``M.MPCC(device="cpu")``; ``kinematics_mobile.manipulability_gradient``
     (the Husky+Panda's 10-DoF one) in float64 at 64 configurations within
     1e-9 of the CPU's; the collision nets' unencoded Jacobian
@@ -161,8 +172,8 @@ Phases (the first failure exits non-zero and prints no result line):
 24. JAX's interpret switches, as routes named to each kernel's plain
     version (`ops/cuda_build.kernel_route`): the bench configuration at
     ``ipm_interpret`` None, True and False, 3 RTI ticks each at Panda/1024
-    and Husky+Panda/4096: K1-K4 launched once a tick under None and False,
-    never under True; False bit-identical to None; True's states within
+    and Husky+Panda/4096: K1-K4 and K6 launched once a tick under None and
+    False, never under True; False bit-identical to None; True's states within
     the closed-loop envelope of None's; the ADMM RTI path with
     ``qp_backend="pallas_interpret"`` against ``"pallas"`` (1024 x 3): K5
     launched twice a tick under ``"pallas"``, never under
@@ -527,6 +538,127 @@ def print_k4_launches() -> None:
                     or cfg["blocks_per_sm"] < 1 \
                     or (batch == BATCH and cfg["blocks"] < cfg["sms"]):
                 raise AssertionError(f"K4 launch, {sy.name}: {cfg}")
+
+
+# K6: the lanes of the two benchmark cells' batches; its gaps to the plain
+# version off the Panda in float32 (where it is held bit for bit): s within
+# the Newton step's tolerance, vs within 1e-5 of its terms' scale; the
+# stack of the trig functions' slow path (|q| > 1e5), 32 B in float32 and
+# 40 B in float64, is the only local memory allowed
+K6_BATCHES = (32768, 4096)
+K6_DS_TOL = 1e-5
+K6_VS_TOL = 1e-5
+K6_LOCAL_BYTES = 40
+K6_NEWTON_STEPS = 4   # the steps a lane's operation count assumes
+
+
+def k6_lanes(system, track, batch, dtype, device):
+    """The system's home + 0.01 N(0, 1) on every state component (the
+    bench's draw), with s spread over the track and 0.3 past either end on
+    every fourth lane (the waypoint fallback, the track's ends), and inputs
+    0.3 N(0, 1)."""
+    rng = np.random.default_rng(SEED + 6)
+    x = home(system)[None] + 0.01 * rng.standard_normal((batch,
+                                                          system.nx))
+    length = float(track.length)
+    x[::4, system.s_idx] = rng.uniform(-0.3, length + 0.3,
+                                       x[::4].shape[0])
+    u = 0.3 * rng.standard_normal((batch, system.nu))
+    return (torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(u, dtype=dtype, device=device))
+
+
+def phase_k6(device) -> list:
+    """K6's launch, its agreement with the plain version and its times
+    (docstring, item 7a)."""
+    from mpcc_manipulator_tpu_torch.models import kinematics as kin
+    from mpcc_manipulator_tpu_torch.models import kinematics_mobile as kmob
+    from mpcc_manipulator_tpu_torch.ops import projection_kernel as pk
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    from mpcc_manipulator_tpu_torch.splines import arc_length as als
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    rows = []
+    for system in (PANDA, mobile_system()):
+        for dtype in (torch.float32, torch.float64):
+            track, params, _, _ = build_problem(dtype, device, system=system)
+            mdp = params.model.max_dist_proj
+            nk = track.s_knots.numel()
+            exact = system.base_dof == 0 and dtype == torch.float32
+            label = f"K6 {system.name} {str(dtype)[6:]}"
+            for batch in K6_BATCHES:
+                cfg = pk.launch_config(system, dtype, batch, nk)
+                if cfg["local_bytes"] > K6_LOCAL_BYTES \
+                        or cfg["blocks_per_sm"] < 1:
+                    raise AssertionError(f"{label}: launch {cfg}")
+                x0, u0 = k6_lanes(system, track, batch, dtype, device)
+                got = pk.project_and_vs(track, x0, u0, mdp, system)
+                ref = pk.project_and_vs_plain(track, x0, u0, mdp, system)
+                torch.cuda.synchronize()
+                (x_k, s_k), (x_p, s_p) = got, ref
+                q = x0[:, :system.dof].double().cpu()
+                jv = (kin.ee_jacobian(q) if system.base_dof == 0
+                      else kmob.ee_jacobian(q))[:, :3]
+                dq = u0[:, :system.dof].double().cpu()
+                tan = als.track_derivative(track, s_p).double().abs().cpu()
+                scale = ((dq[:, None, :] * jv).abs().sum(-1) * tan).sum(-1)
+                ds = float((s_k - s_p).abs().max())
+                dvs = float(((x_k - x_p)[:, system.vs_idx].double().abs()
+                             .cpu() / (scale + 1e-30)).max())
+                last_s = x0[:, system.s_idx]
+                jumps = int((((last_s - s_k).abs() > mdp)
+                             != ((last_s - s_p).abs() > mdp)).sum())
+                same = torch.equal(x_k, x_p) and torch.equal(s_k, s_p)
+                share = float((s_k == s_p).double().mean())
+                if (exact and not same) or jumps or ds > K6_DS_TOL \
+                        or dvs > K6_VS_TOL:
+                    raise AssertionError(
+                        f"{label} at {batch}: bit-identical {same}, s "
+                        f"bit-identical on {share:.4f} of lanes, |ds| "
+                        f"{ds:.3e}, |dvs| {dvs:.3e} of scale, jump "
+                        f"mismatches {jumps}")
+                text = (f"{label} vs plain at {batch} lanes: "
+                        f"{'bit-identical' if same else 'within tolerance'}"
+                        f" (s equal on {share:.4f} of lanes, |ds| {ds:.3e}, "
+                        f"|dvs| {dvs:.3e} of scale); launch {cfg}")
+                if dtype != torch.float32:
+                    print(text)
+                    continue
+                fn = lambda: pk.project_and_vs(track, x0, u0, mdp, system)
+                t = kernel_times(fn, "proj_kernel<", 50)
+                plain_ms = cuda_time(
+                    lambda: pk.project_and_vs_plain(track, x0, u0, mdp,
+                                                    system), 3)
+                print(f"{text}; {times_text(t)}, plain {plain_ms:.4f} ms")
+                # bytes: x0 and u0 in, x0_updated and s out, the track's
+                # tables; operations: k6_flops a lane
+                rows.append({
+                    "name": f"K6 projection (project_and_vs), {system.name}"
+                            f" at {batch}",
+                    "route": "cuda",
+                    "source": "mpcc_manipulator_tpu_torch/csrc/kinematics.cu",
+                    "replaces": "mpc.py step 1, eager (no TPU kernel)",
+                    "bit_identical": same, "max_ds": ds, "max_dvs": dvs,
+                    **t, "plain_ms": plain_ms,
+                    **bound(nbytes(x0, u0, *got) + 4 * (16 * nk + 96),
+                            k6_flops(system.dof) * batch)})
+    return rows
+
+
+def k6_flops(dof: int) -> int:
+    """K6's operations for one lane, counted from `csrc/kinematics.cu` (a
+    multiply-add counts 2; a division, square root, sine or cosine 1):
+    the plain-rounded FK and Jv, the distance to p(s), K6_NEWTON_STEPS
+    Newton steps and vs; the waypoint scan, which only lanes far from
+    their s run, is left out."""
+    arm = 7
+    fk = arm * (2 + 3 * 5 + 9 * 5 + 3 + 2 * 3) + 3 * 6   # chain, p_ee
+    jv = arm * (3 + 3 * 3)                                 # lever, cross
+    base = 0 if dof == arm else 2 + 4 + 2 + arm * (4 * 3 + 3 + 3 * 3)
+    spline = 5 + 9 + 8 + 4                                 # seg, p, p', p''
+    dist = 3 * spline + 3 + 5 + 1
+    newton = 3 * spline + 3 + 5 * 3 + 6 + 2
+    vs = 3 * 2 * dof + 3 * spline + 5
+    return fk + jv + base + dist + K6_NEWTON_STEPS * newton + vs
 
 
 def main_path_inputs(problem, device, system=None, batch=BATCH):
@@ -1376,10 +1508,10 @@ def phase_closed_loop(problem, device, card):
             raise AssertionError(f"closed loop: {name} launched {n} times "
                                  f"in {TICKS} ticks")
     med = statistics.median(times[1:])
-    print(f"closed loop (RTI, K1-K4) {BATCH} x {TICKS} ticks on {card}: all "
-          f"ok; median tick {med * 1e3:.3f} ms (first {times[0] * 1e3:.1f} "
-          f"ms), {BATCH / med:.1f} solves/s; mean IPM iters "
-          f"{iters.float().mean():.2f}, max {int(iters.max())}; "
+    print(f"closed loop (RTI, K1-K4, K6) {BATCH} x {TICKS} ticks on {card}: "
+          f"all ok; median tick {med * 1e3:.3f} ms (first "
+          f"{times[0] * 1e3:.1f} ms), {BATCH / med:.1f} solves/s; mean IPM "
+          f"iters {iters.float().mean():.2f}, max {int(iters.max())}; "
           f"non-increasing s lane-ticks {int(back.sum())}; "
           f"s {float(s[0].mean()):.5f} -> {float(s[-1].mean()):.5f}; "
           f"launches {launches}")
@@ -1406,7 +1538,7 @@ def phase_converged(problem, x0, card):
         check_ok(label, oks, states)
         run_iters = int(sqp_iters.max(1).values.sum())
         want = {k: per_iter[k] * run_iters for k in per_iter}
-        want.update(K4=ticks, K5=0)
+        want.update(K4=ticks, K5=0, K6=ticks)
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want} for {run_iters} SQP iterations")
@@ -1450,7 +1582,7 @@ def phase_mehrotra_rti(problem, x0, card):
     check_ok("Mehrotra RTI", oks, states)
     run_iters = int(sqp_iters.max(1).values.sum())
     want = dict(K1=run_iters, K2=MEHROTRA_TICKS, K3=MEHROTRA_TICKS,
-                K4=MEHROTRA_TICKS, K5=0)
+                K4=MEHROTRA_TICKS, K5=0, K6=MEHROTRA_TICKS)
     if run_iters != MEHROTRA_TICKS or launches != want:
         raise AssertionError(f"Mehrotra RTI: launches {launches}, expected "
                              f"{want} for {run_iters} SQP iterations")
@@ -1474,7 +1606,8 @@ def phase_admm_rti(problem, x0, card):
         problem, x0, ADMM_TICKS, SQPConfig(**ADMM_RTI), record=CHECK_LANES)
     launches = read_counts()
     check_ok("ADMM RTI", oks, states)
-    want = dict(K1=0, K2=0, K3=0, K4=ADMM_TICKS, K5=2 * ADMM_TICKS)
+    want = dict(K1=0, K2=0, K3=0, K4=ADMM_TICKS, K5=2 * ADMM_TICKS,
+                K6=ADMM_TICKS)
     if launches != want:
         raise AssertionError(f"ADMM RTI: launches {launches}, expected "
                              f"{want}")
@@ -1506,7 +1639,7 @@ def phase_admm_converged(problem, x0, card):
         check_ok(label, oks, states)
         run_iters = int(sqp_iters.max(1).values.sum())
         want = dict(K1=0, K2=0, K3=0, K4=OPTION_TICKS,
-                    K5=per_iter * run_iters)
+                    K5=per_iter * run_iters, K6=OPTION_TICKS)
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want} for {run_iters} SQP iterations")
@@ -2046,7 +2179,7 @@ def phase_mobile_rti(mproblem, device, card) -> dict:
             raise AssertionError(f"Husky RTI, batch {b}: the mean base x "
                                  f"does not grow: {xb.tolist()}")
         want = dict(K1=MOBILE_TICKS, K2=MOBILE_TICKS, K3=MOBILE_TICKS,
-                    K4=MOBILE_TICKS, K5=0)
+                    K4=MOBILE_TICKS, K5=0, K6=MOBILE_TICKS)
         if launches != want:
             raise AssertionError(f"Husky RTI, batch {b}: launches "
                                  f"{launches}, expected {want}")
@@ -2193,14 +2326,14 @@ def profiled_ticks(mpc, x, u, ticks: int, label: str, want: dict) -> dict:
 def phase_api(card) -> dict:
     """(a) ``MPCC()`` on the card in JAX's default configuration (the
     converged dense ADMM path with the plain loop, the plain kinematics with
-    the finite-difference gradient, float64; no kernel on this path), and
-    (b) ``MPCC(dtype=float32)`` with ``sqp_cfg = SQPConfig()`` (the bench
-    configuration at batch 1: K1-K4 once a tick); each held tick by tick
-    against ``MPCC(device="cpu")`` in float64 in its configuration, then
-    profiled."""
+    the finite-difference gradient, float64; of the kernels only K6, once a
+    tick), and (b) ``MPCC(dtype=float32)`` with ``sqp_cfg = SQPConfig()``
+    (the bench configuration at batch 1: K1-K4 and K6 once a tick); each
+    held tick by tick against ``MPCC(device="cpu")`` in float64 in its
+    configuration, then profiled."""
     from mpcc_manipulator_tpu_torch.api import MPCC
     from mpcc_manipulator_tpu_torch.params import SQPConfig
-    none = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+    none = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1)   # K6 on either
     out = {}
     for name, dtype, cfg in (("reference", torch.float64, None),
                              ("bench", torch.float32, SQPConfig())):
@@ -2409,7 +2542,7 @@ def phase_horizons(problem, mproblem, device, card) -> dict:
             launches = read_counts()
             check_ok(f"RTI, {label}", oks, states)
             want = dict(K1=HORIZON_TICKS, K2=HORIZON_TICKS, K3=HORIZON_TICKS,
-                        K4=HORIZON_TICKS, K5=0)
+                        K4=HORIZON_TICKS, K5=0, K6=HORIZON_TICKS)
             if launches != want:
                 raise AssertionError(f"RTI, {label}: launches {launches}, "
                                      f"expected {want}")
@@ -2467,7 +2600,7 @@ def phase_plain_robot_data(problem, device, card) -> None:
     launches = read_counts()
     check_ok("RTI, plain kinematics (fd)", oks, states)
     want = dict(K1=PLAIN_KIN_TICKS, K2=PLAIN_KIN_TICKS, K3=PLAIN_KIN_TICKS,
-                K4=0, K5=0)
+                K4=0, K5=0, K6=PLAIN_KIN_TICKS)
     if launches != want:
         raise AssertionError(f"RTI, plain kinematics (fd): launches "
                              f"{launches}, expected {want}")
@@ -2502,7 +2635,7 @@ def phase_scan(problem, device, card) -> dict:
     secs = time.perf_counter() - t0
     launches = read_counts()
     want = dict(K1=SCAN_TICKS, K2=SCAN_TICKS, K3=SCAN_TICKS, K4=SCAN_TICKS,
-                K5=0)
+                K5=0, K6=SCAN_TICKS)
     if launches != want or not bool(oks.all()):
         raise AssertionError(f"closed_loop_scan: launches {launches} "
                              f"(expected {want}), all ok {bool(oks.all())}")
@@ -2593,7 +2726,8 @@ def phase_checkpoint(problem, device, card) -> dict:
     same = [n for (n, x), (_, y) in zip(a, b)
             if x.device == y.device and torch.equal(x, y)]
     n_ticks = CKPT_TICKS + 2 * CKPT_RESUME
-    want = dict(K1=n_ticks, K2=n_ticks, K3=n_ticks, K4=n_ticks, K5=0)
+    want = dict(K1=n_ticks, K2=n_ticks, K3=n_ticks, K4=n_ticks, K5=0,
+                K6=n_ticks)
     if step != CKPT_TICKS or len(same) != len(a) or launches != want:
         raise AssertionError(
             f"checkpoint resume: step {step}, bit-identical leaves {same} of "
@@ -2867,7 +3001,8 @@ def phase_sharded(problem, mproblem, device, card) -> dict:
                     lambda *a: mpc_step(*a, ts=TS, cfg=cfg, system=system),
                     prob, scen, SHARDED_TICKS)
                 want = dict(K1=SHARDED_TICKS, K2=SHARDED_TICKS,
-                            K3=SHARDED_TICKS, K4=SHARDED_TICKS, K5=0)
+                            K3=SHARDED_TICKS, K4=SHARDED_TICKS, K5=0,
+                            K6=SHARDED_TICKS)
                 same = torch.equal(sh_x, ref_x) and all(
                     torch.equal(getattr(a, f.name), getattr(b, f.name))
                     for a, b in zip(sh_outs, ref_outs)
@@ -3093,7 +3228,7 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     from mpcc_manipulator_tpu_torch.system import PANDA
     out = {}
     cfgs = route_cfgs()
-    no_kernel = dict(K1=0, K2=0, K3=0, K5=0)
+    no_kernel = dict(K1=0, K2=0, K3=0, K5=0, K6=ROUTE_TICKS)
     for name, system, prob in (("panda", PANDA, problem),
                                ("husky_panda", mobile_system(), mproblem)):
         batch = ROUTE_BATCHES[name]
@@ -3118,7 +3253,8 @@ def phase_routes(problem, mproblem, device, card) -> dict:
             final[route] = states
             check_ok(f"route {route} {name}", oks, states)
             want = (dict(K1=ROUTE_TICKS, K2=ROUTE_TICKS, K3=ROUTE_TICKS,
-                         K4=ROUTE_TICKS, K5=0) if route == "riccati_pallas"
+                         K4=ROUTE_TICKS, K5=0, K6=ROUTE_TICKS)
+                    if route == "riccati_pallas"
                     else dict(no_kernel, K4=ROUTE_TICKS))
             if launches != want:
                 raise AssertionError(f"route {route} {name}: launches "
@@ -3154,7 +3290,8 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     same = (torch.equal(st0, st1) and torch.equal(ok0, ok1)
             and all(torch.equal(a, b) for a, b in zip(it0, it1)))
     per = FLEET["max_iter"] * FLEET_TICKS
-    if not same or l1 != dict(K1=per, K2=per, K3=per, K4=FLEET_TICKS, K5=0):
+    if not same or l1 != dict(K1=per, K2=per, K3=per, K4=FLEET_TICKS, K5=0,
+                              K6=FLEET_TICKS):
         raise AssertionError(f"fleet mode: bit-identical {same}, launches "
                              f"{l1} (early exit {l0})")
     # the syncs of one solve_ocp (the first tick's inputs), both modes, on
@@ -3204,7 +3341,7 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     dq_split = float(dq_lane[split].max()) if bool(split.any()) else 0.0
     if (dq >= BF16_DQ or dq_split >= ENVELOPE["q"]
             or l16 != dict(K1=BF16_TICKS, K2=BF16_TICKS, K3=BF16_TICKS,
-                           K4=BF16_TICKS, K5=0)):
+                           K4=BF16_TICKS, K5=0, K6=BF16_TICKS)):
         raise AssertionError(f"nn_bf16: |dq| {dq:.3e} (bound {BF16_DQ}), "
                              f"on lanes with a moved Newton count "
                              f"{dq_split:.3e} (envelope {ENVELOPE['q']}), "
@@ -3267,9 +3404,10 @@ def phase_surface(card) -> dict:
         states.append(sim_time_step(torch.tensor(x_upd, dtype=f64)[None],
                                     torch.tensor(u_out, dtype=f64)[None],
                                     TS))
-    if any(launches.values()):
+    if launches != dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1):
         raise AssertionError(f"surface: JAX's default configuration "
-                             f"launched kernels {launches}")
+                             f"launched kernels {launches}; K6 alone, "
+                             f"once, expected")
     out["mpcc_gaps"] = envelope_gaps("surface, M.MPCC() tick",
                                      states[1][None], states[0][None])
     print(f"surface: M.MPCC() one tick at batch 1 on {card}: ok, "
@@ -3420,7 +3558,7 @@ def phase_interpret(problem, mproblem, device, card) -> dict:
         _, ok_n, st_n, l_n, it_n = runs[None]
         _, _, st_t, l_t, _ = runs[True]
         _, ok_f, st_f, l_f, it_f = runs[False]
-        bench = dict(K1=ticks, K2=ticks, K3=ticks, K4=ticks, K5=0)
+        bench = dict(K1=ticks, K2=ticks, K3=ticks, K4=ticks, K5=0, K6=ticks)
         if l_n != bench or l_f != bench:
             raise AssertionError(f"interpret, {name}: launches None {l_n}, "
                                  f"False {l_f}, expected {bench}")
@@ -3451,7 +3589,7 @@ def phase_interpret(problem, mproblem, device, card) -> dict:
             for b in ("pallas", "pallas_interpret")}
     runs = interpret_runs(problem, PANDA, BATCH, admm, device)
     l_k, l_p = runs["pallas"][3], runs["pallas_interpret"][3]
-    if l_k != dict(K1=0, K2=0, K3=0, K4=ticks, K5=2 * ticks) \
+    if l_k != dict(K1=0, K2=0, K3=0, K4=ticks, K5=2 * ticks, K6=ticks) \
             or l_p != dict(l_k, K5=0):
         raise AssertionError(f"interpret, ADMM: launches pallas {l_k}, "
                              f"pallas_interpret {l_p}")
@@ -3504,10 +3642,10 @@ def main() -> int:
 
     problem = build_problem(torch.float32, device)
     aproblem = assembly_problem(device)
-    kernels = timed("kernels K1-K5", lambda: [
+    kernels = timed("kernels K1-K6", lambda: [
         phase_k1(problem, device), phase_k2(problem, aproblem, device),
         phase_k3(problem, aproblem, device), phase_k4(device),
-        phase_k5(problem, device)])
+        phase_k5(problem, device), *phase_k6(device)])
     mproblem = build_problem(torch.float32, device, system=mobile_system())
     mkernels = timed("kernels -h / -m", lambda: [
         phase_k1_mobile(mproblem, device),

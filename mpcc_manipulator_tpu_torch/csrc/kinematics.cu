@@ -90,11 +90,143 @@ struct Smem {
   static_assert(FLOATS * 4 <= 48 * 1024, "static shared memory");
 };
 
-__device__ __forceinline__ void cross3(const float a[3], const float b[3],
-                                       float out[3]) {
+template <typename T>
+__device__ __forceinline__ void cross3(const T a[3], const T b[3], T out[3]) {
   out[0] = a[1] * b[2] - a[2] * b[1];
   out[1] = a[2] * b[0] - a[0] * b[2];
   out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ void sin_cos(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ void sin_cos(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
+
+// One rounded operation a call: where PyTorch runs each as an op of its
+// own, which rounds its result, nvcc would otherwise contract a product
+// into the next sum.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// a . b over 3 as cuBLAS's small products round it on this card (the
+// port's plain FK, `models/kinematics.py::fk_chain`, measured on an H100):
+// one fused chain from k = 0, a0 b0 rounded first.
+template <typename T>
+__device__ __forceinline__ T dot3_chain(T a0, T a1, T a2, T b0, T b1, T b2) {
+  return fma_rn(a2, b2, fma_rn(a1, b1, mul_rn(a0, b0)));
+}
+
+// torch.linalg.cross's rounding: a1 b2 - a2 b1 with the first product fused.
+template <typename T>
+__device__ __forceinline__ void cross3_plain(const T a[3], const T b[3],
+                                             T out[3]) {
+  out[0] = fma_rn(a[1], b[2], -mul_rn(a[2], b[1]));
+  out[1] = fma_rn(a[2], b[0], -mul_rn(a[0], b[2]));
+  out[2] = fma_rn(a[0], b[1], -mul_rn(a[1], b[0]));
+}
+
+// The arm's FK chain for the 7 joint angles at `qa` with the constants `c`
+// (R_off | p_off | R_post | p_post): p += R p_off[i]; R_fixed = R R_off[i];
+// R = R_fixed Rz(q_i).  World joint origins and axes, the EE position and
+// rotation.  K4 and K6 share it, so the port has one hand-written FK.
+// PLAIN rounds as the plain FK does (each product a `dot3_chain`, each sum
+// of two rounded on its own), so K6 follows the plain route bit for bit;
+// K4 keeps the rounding it always had (its outputs feed K1, ROADMAP F1).
+template <bool PLAIN, typename T>
+__device__ __forceinline__ void fk_arm(const T* __restrict__ qa, const T* c,
+                                       T org[ARM][3], T ax[ARM][3],
+                                       T p_ee[3], T r_ee[9]) {
+  const T* r_off = c;
+  const T* p_off = c + 63;
+  const T* r_post = c + 84;
+  const T* p_post = c + 93;
+  T r[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1};
+  T p[3] = {0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < ARM; ++i) {
+    T pv[3], rf[9];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const T* ra = r + 3 * a;
+      const T* po = p_off + 3 * i;
+      const T* ro = r_off + 9 * i;
+      if constexpr (PLAIN) {
+        pv[a] = dot3_chain(ra[0], ra[1], ra[2], po[0], po[1], po[2]);
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          rf[3 * a + b] = dot3_chain(ra[0], ra[1], ra[2], ro[b], ro[3 + b],
+                                     ro[6 + b]);
+      } else {
+        pv[a] = ra[0] * po[0] + ra[1] * po[1] + ra[2] * po[2];
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          rf[3 * a + b] = ra[0] * ro[b] + ra[1] * ro[3 + b]
+                          + ra[2] * ro[6 + b];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      p[a] = PLAIN ? add_rn(p[a], pv[a]) : p[a] + pv[a];
+      org[i][a] = p[a];
+      ax[i][a] = rf[3 * a + 2];
+    }
+    T cq, sq;
+    sin_cos(qa[i], &sq, &cq);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if constexpr (PLAIN) {   // R_fixed times [[c, -s, 0], [s, c, 0], e_z]
+        r[3 * a] = fma_rn(rf[3 * a + 1], sq, mul_rn(rf[3 * a], cq));
+        r[3 * a + 1] = fma_rn(rf[3 * a + 1], cq, mul_rn(rf[3 * a], -sq));
+      } else {
+        r[3 * a] = rf[3 * a] * cq + rf[3 * a + 1] * sq;
+        r[3 * a + 1] = -rf[3 * a] * sq + rf[3 * a + 1] * cq;
+      }
+      r[3 * a + 2] = rf[3 * a + 2];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T* ra = r + 3 * a;
+    if constexpr (PLAIN) {
+      p_ee[a] = add_rn(p[a], dot3_chain(ra[0], ra[1], ra[2], p_post[0],
+                                        p_post[1], p_post[2]));
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        r_ee[3 * a + b] = dot3_chain(ra[0], ra[1], ra[2], r_post[b],
+                                     r_post[3 + b], r_post[6 + b]);
+    } else {
+      p_ee[a] = p[a] + ra[0] * p_post[0] + ra[1] * p_post[1]
+                + ra[2] * p_post[2];
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        r_ee[3 * a + b] = ra[0] * r_post[b] + ra[1] * r_post[3 + b]
+                          + ra[2] * r_post[6 + b];
+    }
+  }
 }
 
 // `len` floats from shared `src` to global `dst`, all threads of the block,
@@ -133,54 +265,10 @@ kin_kernel(const float* __restrict__ q, const float* __restrict__ consts,
   const int nb = min(K4_THREADS, n - c0);
   const int tl = threadIdx.x;
   const int t = min(c0 + tl, n - 1);
-  const float* r_off = c;
-  const float* p_off = c + 63;
-  const float* r_post = c + 84;
-  const float* p_post = c + 93;
 
-  // ---- 1. FK chain: p += R p_off[i]; R_fixed = R R_off[i];
-  // R = R_fixed Rz(q_i)
-  float r[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
-  float p[3] = {0.f, 0.f, 0.f};
-  float org[ARM][3], ax[ARM][3];
-#pragma unroll
-  for (int i = 0; i < ARM; ++i) {
-    float pv[3], rf[9];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      pv[a] = r[3 * a] * p_off[3 * i] + r[3 * a + 1] * p_off[3 * i + 1]
-              + r[3 * a + 2] * p_off[3 * i + 2];
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        rf[3 * a + b] = r[3 * a] * r_off[9 * i + b]
-                        + r[3 * a + 1] * r_off[9 * i + 3 + b]
-                        + r[3 * a + 2] * r_off[9 * i + 6 + b];
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      p[a] += pv[a];
-      org[i][a] = p[a];
-      ax[i][a] = rf[3 * a + 2];
-    }
-    float cq, sq;
-    sincosf(q[(size_t)t * DOF + BASE_DOF + i], &sq, &cq);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      r[3 * a] = rf[3 * a] * cq + rf[3 * a + 1] * sq;
-      r[3 * a + 1] = -rf[3 * a] * sq + rf[3 * a + 1] * cq;
-      r[3 * a + 2] = rf[3 * a + 2];
-    }
-  }
-  float p_ee[3], r_ee[9];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    p_ee[a] = p[a] + r[3 * a] * p_post[0] + r[3 * a + 1] * p_post[1]
-              + r[3 * a + 2] * p_post[2];
-#pragma unroll
-    for (int b = 0; b < 3; ++b)
-      r_ee[3 * a + b] = r[3 * a] * r_post[b] + r[3 * a + 1] * r_post[3 + b]
-                        + r[3 * a + 2] * r_post[6 + b];
-  }
+  // ---- 1. FK chain
+  float org[ARM][3], ax[ARM][3], p_ee[3], r_ee[9];
+  fk_arm<false>(q + (size_t)t * DOF + BASE_DOF, c, org, ax, p_ee, r_ee);
 
   // ---- 2. arm Jacobian columns J_j = [z_j x (p_e - p_j); z_j], arm frame
   float rel[ARM][3], jvc[ARM][3];
@@ -404,6 +492,351 @@ int launch_config(int n, int* out) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K6: the tick's projection (`mpc.py` step 1) in one launch: FK of x0, the
+// arc-length projection of the EE onto the track
+// (`splines/arc_length.py::project_on_spline`: the waypoint fallback, up to
+// 20 Newton steps) and vs = (Jv dq) . t(s_proj).
+//
+// It replaces no TPU kernel: JAX fuses step 1 with XLA.  Its plain version
+// in eager PyTorch is ~4,600 small ops a tick (~220 a Newton iteration),
+// each a launch the host makes in ~13 us, so the device idles behind the
+// host for ~60 ms a tick at any batch (H100 80GB HBM3, 700 W).  The work is
+// small: a lane's 100 waypoints, 3 cubic channels and at most 20 scalar
+// Newton steps.  So one thread a lane, the track's tables (12 x nk
+// coefficients, the waypoints and knots, ~6.8 KB in float32) staged in
+// shared memory once a block, and nothing read or written but the lane's
+// x0 / u0 rows and its outputs.  Neither bytes nor operations bound it
+// (~0.001 ms of either at 32,768 lanes): a lane's chain of dependent
+// operations does, with a block's staging of the tables.
+//
+// The arithmetic is the plain route's, op for op, so that K6 gives its
+// bits: every PyTorch op there rounds its result, so each product and sum
+// here is rounded on its own (`mul_rn` / `add_rn` / `sub_rn`, never
+// contracted); the FK is K4's code in the rounding of the plain FK's
+// cuBLAS products (`fk_arm<true>`, `cross3_plain`); the spline end-point
+// rules are `splines/cubic.py`'s; the sums take PyTorch's reduction order
+// (`sum3`, `sum_acc4`; each order and the products' were read off PyTorch's
+// results on an H100).  Leaving the Newton loop at the first converged
+// step is the plain route's result: once a lane has converged, its
+// s_result never changes.  The trig functions' slow path (|q| > 1e5) keeps
+// a 32 B (float) / 40 B (double) array on the stack; no lane reaches it.
+
+constexpr int K6_THREADS = 128;
+constexpr int NCHAN = 3;           // the track's position channels x, y, z
+constexpr int NEWTON_STEPS = 20;
+
+// torch.sum over a contiguous last dim of 3: two lanes of a warp split it
+// (lane 0 takes elements 0 and 2), then one shuffle: (x0 + x2) + x1.
+template <typename T>
+__device__ __forceinline__ T sum3(T x0, T x1, T x2) {
+  return add_rn(add_rn(add_rn(T(0), x0), x2), add_rn(T(0), x1));
+}
+
+// torch.sum over a strided dim of N in one thread: four accumulators,
+// element i into i % 4, then ((v0 + v1) + v2) + v3.
+template <int N, typename T>
+__device__ __forceinline__ T sum_acc4(const T x[N]) {
+  T v[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i % 4] = add_rn(v[i % 4], x[i]);
+  return add_rn(add_rn(add_rn(v[0], v[1]), v[2]), v[3]);
+}
+
+// torch.minimum(torch.clamp(s, min=0), hi): a NaN stays NaN.
+template <typename T>
+__device__ __forceinline__ T clamp_s(T s, T hi) {
+  if (s != s || hi != hi) return s != s ? s : hi;
+  s = s > T(0) ? s : T(0);
+  return s < hi ? s : hi;
+}
+
+// torch.argmin's order: a NaN is the least value, ties go to the lower
+// index (the caller scans upward).
+template <typename T>
+__device__ __forceinline__ bool before(T a, T best) {
+  if (a != a) return best == best;
+  return a < best;
+}
+
+// One channel's spline at s (`splines/cubic.py`): the clamped s, the
+// segment floor(s / delta) clamped to [0, nk - 2], and value, derivative
+// and second derivative, with the end-point rules at s >= length (a[-1],
+// 0 and 2 c[-1]).
+template <typename T>
+__device__ __forceinline__ void spline_eval(const T* a, const T* b, const T* c,
+                                            const T* d, T delta, T len,
+                                            int nk, T s_in, T* val, T* der,
+                                            T* sec) {
+  const T s = clamp_s(s_in, len);
+  long long idx = static_cast<long long>(floor(s / delta));
+  idx = idx < 0 ? 0 : (idx > nk - 2 ? nk - 2 : idx);
+  const int i = static_cast<int>(idx);
+  const T dx = sub_rn(s, mul_rn(static_cast<T>(idx), delta));
+  const bool end = s >= len;
+  const T v = add_rn(add_rn(add_rn(a[i], mul_rn(b[i], dx)),
+                            mul_rn(mul_rn(c[i], dx), dx)),
+                     mul_rn(mul_rn(mul_rn(d[i], dx), dx), dx));
+  const T c2 = mul_rn(T(2), c[i]);
+  const T e = add_rn(add_rn(b[i], mul_rn(c2, dx)),
+                     mul_rn(mul_rn(mul_rn(T(3), d[i]), dx), dx));
+  const T f = add_rn(c2, mul_rn(mul_rn(T(6), d[i]), dx));
+  *val = end ? a[nk - 1] : v;
+  *der = end ? T(0) : e;
+  *sec = end ? mul_rn(T(2), c[nk - 1]) : f;
+}
+
+// The track's tables and the lane rows: the C entry fills it from the
+// caller's pointers.
+template <typename T>
+struct ProjArgs {
+  const T* x0;                   // (n, nx), rows x_stride apart
+  const T* u0;                   // (n, nu), rows u_stride apart
+  const T* consts;               // NCONST, K4's layout
+  const T* coef[4 * NCHAN];      // a, b, c, d of x, then y, then z; (nk,)
+  const T* wp;                   // (nk, 3)
+  const T* s_knots;              // (nk,)
+  const T* scal[2 * NCHAN + 2];  // delta and length a channel, the track's
+                                 // length, max_dist_proj (0-d each)
+  T* x0_out;                     // (n, nx): x0 with s and vs replaced
+  T* s_out;                      // (n,)
+  int n;
+  int nk;
+  int x_stride;
+  int u_stride;
+};
+
+template <int BASE_DOF, typename T>
+__global__ void __launch_bounds__(K6_THREADS)
+proj_kernel(const ProjArgs<T> g) {
+  constexpr int DOF = BASE_DOF + ARM;
+  constexpr int NX = DOF + 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nk = g.nk;
+  T* cs = reinterpret_cast<T*>(smem);
+  T* coef = cs + NCONST;
+  T* wp = coef + 4 * NCHAN * nk;
+  T* sk = wp + 3 * nk;
+  for (int i = threadIdx.x; i < NCONST; i += K6_THREADS) cs[i] = g.consts[i];
+#pragma unroll
+  for (int k = 0; k < 4 * NCHAN; ++k)
+    for (int i = threadIdx.x; i < nk; i += K6_THREADS)
+      coef[k * nk + i] = g.coef[k][i];
+  for (int i = threadIdx.x; i < 3 * nk; i += K6_THREADS) wp[i] = g.wp[i];
+  for (int i = threadIdx.x; i < nk; i += K6_THREADS) sk[i] = g.s_knots[i];
+  __syncthreads();
+  const int t = blockIdx.x * K6_THREADS + threadIdx.x;
+  if (t >= g.n) return;
+  T delta[NCHAN], clen[NCHAN];
+#pragma unroll
+  for (int ch = 0; ch < NCHAN; ++ch) {
+    delta[ch] = *g.scal[2 * ch];
+    clen[ch] = *g.scal[2 * ch + 1];
+  }
+  const T length = *g.scal[2 * NCHAN];
+  const T max_dist = *g.scal[2 * NCHAN + 1];
+  const T* x = g.x0 + static_cast<size_t>(t) * g.x_stride;
+  const T* u = g.u0 + static_cast<size_t>(t) * g.u_stride;
+  auto eval = [&](int ch, T s, T* val, T* der, T* sec) {
+    const T* cf = coef + 4 * ch * nk;
+    spline_eval(cf, cf + nk, cf + 2 * nk, cf + 3 * nk, delta[ch], clen[ch],
+                nk, s, val, der, sec);
+  };
+
+  // ---- 1. FK: the EE position and Jv, column j the EE's velocity a unit
+  // of dq_j, rounded as the plain route rounds them: cross(axes, p_ee -
+  // origins) for the Panda; `kinematics_mobile.ee_jacobian`'s world-frame
+  // columns for the Husky+Panda (the base rotation R_b a `dot3_chain`)
+  T org[ARM][3], ax[ARM][3], pa[3], ra[9];
+  fk_arm<true>(x + BASE_DOF, cs, org, ax, pa, ra);
+  T ee[3], jv[DOF][3];
+  if constexpr (BASE_DOF == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) ee[a] = pa[a];
+#pragma unroll
+    for (int j = 0; j < ARM; ++j) {
+      T rel[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) rel[a] = sub_rn(ee[a], org[j][a]);
+      cross3_plain(ax[j], rel, jv[j]);
+    }
+  } else {
+    T cb, sb;
+    sin_cos(x[2], &sb, &cb);
+    // R_b v, R_b = [[c, -s, 0], [s, c, 0], e_z]
+    auto rot = [cb, sb](const T v[3], T out[3]) {
+      out[0] = fma_rn(v[1], -sb, mul_rn(v[0], cb));
+      out[1] = fma_rn(v[1], cb, mul_rn(v[0], sb));
+      out[2] = v[2];
+    };
+    const T pb[3] = {x[0], x[1], T(0)};
+    T pr[3];
+    rot(pa, pr);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) ee[a] = add_rn(pb[a], pr[a]);
+    // base columns: prismatic x, prismatic y, e_z x (p_ee - p_b)
+    const T d0 = sub_rn(ee[0], pb[0]), d1 = sub_rn(ee[1], pb[1]);
+    const T jvb[3][3] = {{1, 0, 0}, {0, 1, 0}, {-d1, d0, 0}};
+#pragma unroll
+    for (int j = 0; j < BASE_DOF; ++j)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) jv[j][a] = jvb[j][a];
+#pragma unroll
+    for (int j = 0; j < ARM; ++j) {
+      T ow[3], aw[3], rel[3];
+      rot(org[j], ow);
+      rot(ax[j], aw);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) rel[a] = sub_rn(ee[a], add_rn(pb[a], ow[a]));
+      cross3_plain(aw, rel, jv[BASE_DOF + j]);
+    }
+  }
+
+  // ---- 2. the distance to p(s_guess); past max_dist_proj, restart from
+  // the nearest waypoint within max_dist_proj of s_guess in s (the
+  // nearest of all where none is)
+  const T s_guess = x[DOF];
+  T e[3];
+#pragma unroll
+  for (int ch = 0; ch < NCHAN; ++ch) {
+    T p0, unused0, unused1;
+    eval(ch, s_guess, &p0, &unused0, &unused1);
+    e[ch] = sub_rn(ee[ch], p0);
+  }
+  const T dist0 = sqrt(sum3(mul_rn(e[0], e[0]), mul_rn(e[1], e[1]),
+                            mul_rn(e[2], e[2])));
+  T s_opt0 = s_guess;
+  if (dist0 >= max_dist) {
+    const T inf = T(1) / T(0);
+    int k_all = 0, k_near = 0;
+    T d_all = inf, d_near = inf;
+    bool any_near = false;
+    for (int k = 0; k < nk; ++k) {
+      const T w0 = sub_rn(wp[3 * k], ee[0]);
+      const T w1 = sub_rn(wp[3 * k + 1], ee[1]);
+      const T w2 = sub_rn(wp[3 * k + 2], ee[2]);
+      const T d2 = sum3(mul_rn(w0, w0), mul_rn(w1, w1), mul_rn(w2, w2));
+      const bool near = fabs(sub_rn(sk[k], s_guess)) <= max_dist;
+      const T masked = near ? d2 : inf;
+      any_near |= near;
+      if (k == 0 || before(d2, d_all)) { d_all = d2; k_all = k; }
+      if (k == 0 || before(masked, d_near)) { d_near = masked; k_near = k; }
+    }
+    s_opt0 = sk[any_near ? k_near : k_all];
+  }
+
+  // ---- 3. Newton on ||p(s) - ee||^2 from s_opt0, clamped to [0, length];
+  // the first step within 1e-5 is the result, the guess where none is; a
+  // restart at the track's end returns the end
+  T s_proj = s_guess;
+  if (s_opt0 >= length) {
+    s_proj = length;
+  } else {
+    T s_cur = s_opt0;
+    for (int it = 0; it < NEWTON_STEPS; ++it) {
+      T p[3], dp[3], ddp[3], df[3];
+#pragma unroll
+      for (int ch = 0; ch < NCHAN; ++ch) {
+        eval(ch, s_cur, &p[ch], &dp[ch], &ddp[ch]);
+        df[ch] = sub_rn(p[ch], ee[ch]);
+      }
+      const T jac = mul_rn(T(2), sum3(mul_rn(df[0], dp[0]),
+                                      mul_rn(df[1], dp[1]),
+                                      mul_rn(df[2], dp[2])));
+      const T hess = add_rn(
+          mul_rn(T(2), sum3(mul_rn(dp[0], dp[0]), mul_rn(dp[1], dp[1]),
+                            mul_rn(dp[2], dp[2]))),
+          mul_rn(T(2), sum3(mul_rn(df[0], ddp[0]), mul_rn(df[1], ddp[1]),
+                            mul_rn(df[2], ddp[2]))));
+      const T s_new = clamp_s(sub_rn(s_cur, jac / hess), length);
+      if (fabs(sub_rn(s_cur, s_new)) <= T(1e-5)) {
+        s_proj = s_new;
+        break;
+      }
+      s_cur = s_new;
+    }
+  }
+
+  // ---- 4. vs = ((dq_j Jv_j summed over j) . t(s_proj))
+  T w[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    T prod[DOF];
+#pragma unroll
+    for (int j = 0; j < DOF; ++j) prod[j] = mul_rn(u[j], jv[j][a]);
+    w[a] = sum_acc4<DOF>(prod);
+  }
+  T tan[3];
+#pragma unroll
+  for (int ch = 0; ch < NCHAN; ++ch) {
+    T unused0, unused1;
+    eval(ch, s_proj, &unused0, &tan[ch], &unused1);
+  }
+  const T vs = sum3(mul_rn(w[0], tan[0]), mul_rn(w[1], tan[1]),
+                    mul_rn(w[2], tan[2]));
+
+  T* xo = g.x0_out + static_cast<size_t>(t) * NX;
+#pragma unroll
+  for (int k = 0; k < DOF; ++k) xo[k] = x[k];
+  xo[DOF] = s_proj;
+  xo[DOF + 1] = vs;
+  g.s_out[t] = s_proj;
+}
+
+template <typename T>
+size_t proj_smem_bytes(int nk) {
+  return sizeof(T) * (NCONST + 16 * static_cast<size_t>(nk));
+}
+
+template <int BASE_DOF, typename T>
+int proj_launch(const void* x0, int x_stride, const void* u0, int u_stride,
+                const void* consts, const void* const* tables, int n, int nk,
+                void* x0_out, void* s_out, cudaStream_t st) {
+  ProjArgs<T> g;
+  g.x0 = static_cast<const T*>(x0);
+  g.u0 = static_cast<const T*>(u0);
+  g.consts = static_cast<const T*>(consts);
+  for (int k = 0; k < 4 * NCHAN; ++k) g.coef[k] = static_cast<const T*>(tables[k]);
+  g.wp = static_cast<const T*>(tables[4 * NCHAN]);
+  g.s_knots = static_cast<const T*>(tables[4 * NCHAN + 1]);
+  for (int k = 0; k < 2 * NCHAN + 2; ++k)
+    g.scal[k] = static_cast<const T*>(tables[4 * NCHAN + 2 + k]);
+  g.x0_out = static_cast<T*>(x0_out);
+  g.s_out = static_cast<T*>(s_out);
+  g.n = n;
+  g.nk = nk;
+  g.x_stride = x_stride;
+  g.u_stride = u_stride;
+  const int blocks = (n + K6_THREADS - 1) / K6_THREADS;
+  proj_kernel<BASE_DOF, T><<<blocks, K6_THREADS, proj_smem_bytes<T>(nk), st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BASE_DOF, typename T>
+int proj_launch_config(int n, int nk, int* out) {
+  const auto fn = proj_kernel<BASE_DOF, T>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0, dev = 0, sms = 0;
+  const size_t smem = proj_smem_bytes<T>(nk);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      K6_THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = K6_THREADS;
+  out[1] = (n + K6_THREADS - 1) / K6_THREADS;
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  out[4] = fa.numRegs;
+  out[5] = static_cast<int>(fa.localSizeBytes);
+  out[6] = sms;
+  return 0;
+}
+
 }  // namespace
 
 // system: the base_dof of the system's instantiation (0 Panda, 3
@@ -432,6 +865,45 @@ extern "C" int mpcc_kin_sweep(const float* q, const float* consts, int n,
 extern "C" int mpcc_kin_launch_config(int system, int n, int* out) {
   if (system == 0) return launch_config<0>(n, out);
   if (system == 3) return launch_config<3>(n, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K6 for `system` (0 Panda, 3 Husky+Panda) in `dtype` (0 float32, 1
+// float64): n lanes of x0 and u0 (rows x_stride / u_stride elements
+// apart), nk knots; `tables` the 22 device pointers of ProjArgs's coef, wp,
+// s_knots and scal in that order; x0_out (n, nx) contiguous.  Returns the
+// cudaError_t of the launch.
+extern "C" int mpcc_project_vs(const void* x0, int x_stride, const void* u0,
+                               int u_stride, const void* consts,
+                               const void* const* tables, int n, int nk,
+                               int system, int dtype, void* x0_out,
+                               void* s_out, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (system == 0 && dtype == 0)
+    return proj_launch<0, float>(x0, x_stride, u0, u_stride, consts, tables,
+                                 n, nk, x0_out, s_out, st);
+  if (system == 0 && dtype == 1)
+    return proj_launch<0, double>(x0, x_stride, u0, u_stride, consts, tables,
+                                  n, nk, x0_out, s_out, st);
+  if (system == 3 && dtype == 0)
+    return proj_launch<3, float>(x0, x_stride, u0, u_stride, consts, tables,
+                                 n, nk, x0_out, s_out, st);
+  if (system == 3 && dtype == 1)
+    return proj_launch<3, double>(x0, x_stride, u0, u_stride, consts, tables,
+                                  n, nk, x0_out, s_out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How K6 launches: out[7] = {threads a block, blocks, dynamic shared bytes
+// a block, blocks an SM holds at once, registers a thread, local-memory
+// bytes a thread, SMs on the card}.  Returns a cudaError_t.
+extern "C" int mpcc_proj_launch_config(int system, int dtype, int n, int nk,
+                                       int* out) {
+  if (system == 0 && dtype == 0) return proj_launch_config<0, float>(n, nk, out);
+  if (system == 0 && dtype == 1) return proj_launch_config<0, double>(n, nk, out);
+  if (system == 3 && dtype == 0) return proj_launch_config<3, float>(n, nk, out);
+  if (system == 3 && dtype == 1) return proj_launch_config<3, double>(n, nk, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,7 +4,7 @@
 Per tick and per scenario:
 
 1. project s onto the track from the current EE position; recompute
-   vs = (Jv dq) . t(s);
+   vs = (Jv dq) . t(s) (K6, `ops/projection_kernel.py`);
 2. invalidate the warm start if the projection jumped > max_dist_proj;
 3. warm start: shift the horizon and RK4-roll the tail knot, or cold start
    with every knot at x0 -- both computed, selected per lane;
@@ -28,13 +28,11 @@ import torch
 
 from .models import collision_nn as cnn
 from .models import dynamics as dyn
-from .models import kinematics as kin
-from .models import kinematics_mobile as kinm
 from .ocp import qp_data
 from .ocp.robot_data import compute_robot_data
+from .ops import projection_kernel
 from .params import MPCCParams, SQPConfig
 from .solver import sqp as sqp_mod
-from .splines import arc_length as als
 from .splines.arc_length import TrackSpline
 from .system import PANDA, System
 
@@ -124,26 +122,14 @@ def mpc_step(track: TrackSpline, params: MPCCParams, sel_nn: cnn.CollisionMLP,
     with phase("tick"):
         sqp_mod.check_supported(cfg, system)
         dof = system.dof
-        q = x0[:, :dof]
-        dq = u0[:, :dof]
 
         with phase("set_env"):
             with phase("projection"):
-                # --- 1. projection + vs re-derivation
+                # --- 1. projection + vs re-derivation (K6 on CUDA tensors)
                 last_s = x0[:, system.s_idx]
-                if system.base_dof == 0:
-                    p_ee, _, origins, axes = kin.fk_chain(q)
-                    jv = torch.linalg.cross(axes, p_ee[:, None, :] - origins)
-                else:
-                    p_ee = kinm.ee_position(q)
-                    jv = kinm.ee_jacobian(q)[:, :3].transpose(-1, -2)  # B,10,3
-                s_proj = als.project_on_spline(track, last_s, p_ee,
-                                               params.model.max_dist_proj)
-                vs = ((dq[:, :, None] * jv).sum(1)
-                      * als.track_derivative(track, s_proj)).sum(-1)
-                x0_new = x0.clone()
-                x0_new[:, system.s_idx] = s_proj
-                x0_new[:, system.vs_idx] = vs
+                x0_new, s_proj = projection_kernel.project_and_vs(
+                    track, x0, u0, params.model.max_dist_proj, system,
+                    interpret=cfg.ipm_interpret)
 
             with phase("warm_start"):
                 # --- 2. warm-start invalidation on a projection jump

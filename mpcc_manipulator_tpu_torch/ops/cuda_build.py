@@ -152,6 +152,9 @@ _F = ctypes.c_float
 _ENTRIES = {
     "mpcc_kin_sweep": ([_P, _P, _I, _I] + [_P] * 7, _I),
     "mpcc_kin_launch_config": ([_I, _I, _P], _I),
+    "mpcc_project_vs": ([_P, _I, _P, _I, _P, ctypes.POINTER(_P)] + [_I] * 4
+                        + [_P] * 3, _I),
+    "mpcc_proj_launch_config": ([_I] * 4 + [_P], _I),
     "mpcc_ipm_solve": ([_P] * 18 + [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
                        _I),
     "mpcc_ipm_launch_config": ([_I, _I, _P], _I),

@@ -50,8 +50,11 @@ def kin_sweep_plain(qs: torch.Tensor, system: System = PANDA):
 
 
 @functools.cache
-def _constants(device: torch.device) -> torch.Tensor:
-    return torch.tensor(kin.kinematics_constants(), dtype=torch.float32,
+def _constants(device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The FK's constant tables on ``device`` (K4 reads float32, K6 the
+    state's dtype)."""
+    return torch.tensor(kin.kinematics_constants(), dtype=dtype,
                         device=device)
 
 

@@ -9,7 +9,7 @@ nothing: every span is a ``contextlib.nullcontext``)::
 
     tick                  mpc_step, the whole tick
       set_env             steps 1-4 of `mpc.py`
-        projection        FK of x0, project_on_spline's Newton loop, vs
+        projection        K6: FK of x0, the projection's Newton loop, vs
         warm_start        the jump test, shift / cold start, unwrap, select
         robot_data        RobotData at the warm start
           robot_data.kin  K4 (or the plain kinematics)
@@ -30,7 +30,7 @@ nothing: every span is a ``contextlib.nullcontext``)::
 Each span records its name, its parent, its tick (the spans under one
 outermost span share one id), its host interval (``time.perf_counter_ns``),
 on a card a CUDA event pair on the current stream, and the hand-written
-kernels it launched (K1-K5's ``launches`` counters).  A timer built with
+kernels it launched (K1-K6's ``launches`` counters).  A timer built with
 ``count_ops=True`` also counts the ATen ops each span dispatched to the
 device (a ``TorchDispatchMode`` entered for each outermost span; views and
 bare allocations, which launch nothing, are left out); counting costs host
@@ -65,6 +65,7 @@ from ..mpc import mpc_step
 from ..ops.admm_kernel import fused_admm
 from ..ops.assembly_kernel import build_qp_stages_k_kernel, eval_point_kernel
 from ..ops.kinematics_kernel import kin_sweep
+from ..ops.projection_kernel import project_and_vs
 from ..params import SQPConfig
 from ..system import PANDA, System
 from .qp_ipm_kernel import solve_qp_ipm_k
@@ -72,7 +73,8 @@ from .sqp import solve_ocp
 
 # the hand-written kernels' wrappers, each counting its launches
 KERNEL_WRAPPERS = {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
-                   "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm}
+                   "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm,
+                   "K6": project_and_vs}
 
 # ATen ops that launch nothing on the device beyond what views do
 _NO_LAUNCH = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
@@ -94,7 +96,7 @@ class ComputeTime:
 
 
 def kernel_launches() -> int:
-    """K1-K5's launches so far in this process."""
+    """K1-K6's launches so far in this process."""
     return sum(fn.launches for fn in KERNEL_WRAPPERS.values())
 
 
@@ -133,7 +135,7 @@ class _Span:
     t0: int = 0              # host ns
     t1: int = 0
     events: tuple | None = None
-    launches: int = 0        # K1-K5 launches inside
+    launches: int = 0        # K1-K6 launches inside
     ops: int | None = None   # ATen ops + launches inside (count_ops)
     kept: dict = dataclasses.field(default_factory=dict)
 
@@ -251,7 +253,7 @@ class PhaseTimer:
         name), ``count`` (spans of that name in the tick), ``host_ms``,
         ``self_host_ms`` (less the union of its children), ``device_ms``
         and ``self_device_ms`` (CUDA events; None off a card),
-        ``launches`` (K1-K5), ``ops`` (ATen ops + launches; None unless
+        ``launches`` (K1-K6), ``ops`` (ATen ops + launches; None unless
         ``count_ops``), and ``kept``: each kept tensor's mean over its
         lanes, a list a key, one entry a span (K5's iterations for each
         ``admm`` span)."""

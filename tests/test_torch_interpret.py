@@ -14,8 +14,8 @@ port, float64 on the CPU:
   x ``{cpu, cuda}`` (devices, no tensor on a card), and on CPU tensors
   each kernel wrapper: ``True`` its plain version (the ``None`` result,
   bit for bit), ``False`` JAX's ``ValueError``, no launch counted;
-* `mpc_step` under ``SQPConfig(ipm_interpret=True)`` (K1-K4's plain
-  versions, named) against JAX's `mpc_step` with ``ipm_interpret=True``
+* `mpc_step` under ``SQPConfig(ipm_interpret=True)`` (K1-K4's and K6's
+  plain versions, named; no launch counted) against JAX's `mpc_step` with ``ipm_interpret=True``
   (the Pallas interpreter), Panda, batch 4, 3 ticks;
 * ``qp_backend="pallas_interpret"`` equal to ``"pallas"`` on the CPU, where
   both run K5's plain version.
@@ -50,6 +50,7 @@ from mpcc_manipulator_tpu_torch.ops import admm_kernel
 from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
 from mpcc_manipulator_tpu_torch.ops import cuda_build
 from mpcc_manipulator_tpu_torch.ops import kinematics_kernel as kk
+from mpcc_manipulator_tpu_torch.ops import projection_kernel as pk
 from mpcc_manipulator_tpu_torch.params import SQPConfig
 from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
                                                 build_problem)
@@ -290,10 +291,12 @@ def kernel_inputs():
                {}),
         "K4": (kk.kin_sweep, (xs[..., :7].contiguous(),), {}),
         "K5": (admm_kernel.fused_admm, tuple(admm), dict(max_iter=100)),
+        "K6": (pk.project_and_vs, (track, x0, torch.zeros(2, 8, dtype=F64),
+                                   params.model.max_dist_proj), {}),
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_wrapper_takes_the_named_route_on_the_cpu(kernel, kernel_inputs):
     """On CPU tensors ``interpret=True`` is the plain version (what
     ``None`` runs there, bit for bit) and ``interpret=False`` raises JAX's
@@ -313,7 +316,7 @@ def test_wrapper_takes_the_named_route_on_the_cpu(kernel, kernel_inputs):
 def test_ipm_interpret_tick_matches_jax_interpreter(problem):  # noqa: F811
     """``SQPConfig(ipm_interpret=True)`` against JAX's bench configuration
     with ``ipm_interpret=True``, 4 lanes x 3 ticks: JAX runs its Pallas
-    kernels in the interpreter, the port K1-K4's plain versions.  Every
+    kernels in the interpreter, the port K1-K4's and K6's plain versions.  Every
     tick's verdicts and Newton counts are JAX's.  JAX's kernels compute in
     float32 (they cast their inputs, `ops/pallas_kinematics.py:279`,
     `ops/pallas_assembly.py:586`) where the port's plain versions keep
@@ -353,7 +356,7 @@ def test_ipm_interpret_tick_matches_jax_interpreter(problem):  # noqa: F811
     rad = torch.zeros(batch, dtype=F64)
     counts = {fn: fn.launches for fn in (
         qk.solve_qp_ipm_k, ak.build_qp_stages_k_kernel,
-        ak.eval_point_kernel, kk.kin_sweep)}
+        ak.eval_point_kernel, kk.kin_sweep, pk.project_and_vs)}
     for t in range(ticks):
         carry, out = mpc_step(port["track"], port["params"], port["sel_nn"],
                               port["env_nn"], carry, x, u, obs_t, rad,

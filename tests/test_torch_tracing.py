@@ -6,7 +6,8 @@ counting ops or not, equals the untimed tick bit for bit on the Riccati
 and dense ADMM routes; the untimed tick opens no profiler range, and a
 traced one opens a range for every span, nested as the spans are; the op
 count of a tick is the same for two ticks from one state; the ADMM
-iterations of each ``admm`` span are kept per lane.
+iterations of each ``admm`` span are kept per lane.  On the card (marker
+``card``, skipped without one): the ``projection`` span is one K6 launch.
 
 Alone: ``python -m pytest tests/test_torch_tracing.py -q``.
 """
@@ -293,3 +294,37 @@ def test_keep_needs_an_open_span():
     assert timer.open_spans() == ()
     (row,) = [r for r in timer.spans() if r["name"] == "admm"]
     assert row["kept"] == {"iters": [2.0]}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 runs only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ["riccati_pallas", "admm_pallas"])
+def test_projection_span_is_one_k6_launch(card, route):
+    """On the card, float32, two ticks after a warm-up one: the
+    ``projection`` span holds one K6 launch and, counted, at most 5 ops (the
+    launch; its outputs' allocations count none)."""
+    dt = torch.float32
+    track, params, sel_nn, env_nn = build_problem(dt, card)
+    gen = torch.Generator().manual_seed(11)
+    x0 = (torch.tensor(np.tile(X0_HOME, (BATCH, 1)), dtype=dt)
+          + 0.01 * torch.randn(BATCH, 9, generator=gen, dtype=dt)).to(card)
+    u0 = torch.zeros(BATCH, 8, dtype=dt, device=card)
+    obs = torch.full((BATCH, 3), 3.0, dtype=dt, device=card)
+    rad = torch.zeros(BATCH, dtype=dt, device=card)
+    carry = init_carry(BATCH, dt, card)
+    timer = PhaseTimer(card, count_ops=True)
+    for t in range(3):
+        carry, out = mpc_step(track, params, sel_nn, env_nn, carry, x0, u0,
+                              obs, rad, cfg=ROUTES[route],
+                              timer=timer if t else None)
+        x0, u0 = out.x0_updated, out.u0
+    rows = [r for r in timer.spans() if r["name"] == "projection"]
+    assert len(rows) == 2
+    for r in rows:
+        assert r["launches"] == 1 and r["ops"] <= 5, r
