@@ -61,48 +61,58 @@ class RobotData:
 
 
 def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
-             system: System, nn_mm_dtype=None):
+             system: System, nn_mm_dtype=None,
+             phase=contextlib.nullcontext):
     """The NN half over (B, K) knots: ``(sel (B,K), d_sel (B,K,dof), env
     (B,K,L), d_env (B,K,L,dof))``; its GEMMs in ``nn_mm_dtype``
-    (`models/collision_nn.py`)."""
+    (`models/collision_nn.py`).  ``phase`` opens the spans
+    ``robot_data.nn.sel`` (the self network) and ``robot_data.nn.env``
+    (the env network, with the base-frame transform and the base columns'
+    chain rule on the mobile system)."""
     b, k, dof = qs.shape
     q_flat = qs.reshape(b * k, dof)
     q_arm = q_flat[:, system.arm_slice]
-    obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
-    sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm, mm_dtype=nn_mm_dtype)
-    d_sel = d_sel[:, 0]
-    if system.base_dof == 0:
-        env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs], dim=-1), mm_dtype=nn_mm_dtype)
-        # the joint columns only (the reference slices off the obstacle ones)
-        d_env = d_env_full[:, :, :dof]
-    else:
-        rb, pb = kinm._base_transform(q_flat[:, :3])
-        rel = obs - pb
-        rbt = rb.transpose(-1, -2)
-        obs_local = (rbt @ rel[..., None])[..., 0]
-        env, d_env_full = cnn.mlp_forward_jacobian(
-            env_nn, torch.cat([q_arm, obs_local], dim=-1),
-            mm_dtype=nn_mm_dtype)
-        arm = system.arm_dof
-        d_env_q, d_env_o = d_env_full[:, :, :arm], d_env_full[:, :, arm:]
-        # d obs_local / d(x_b, y_b, th_b): -R_b' on the translations, and
-        # d(R_b')/dth (obs - p_b) on the yaw
-        c, s = torch.cos(q_flat[:, 2]), torch.sin(q_flat[:, 2])
-        z = torch.zeros_like(c)
-        drt_dth = torch.stack([torch.stack([-s, c, z], -1),
-                               torch.stack([-c, -s, z], -1),
-                               torch.stack([z, z, z], -1)], -2)
-        d_obs_local = torch.cat([-rbt[:, :, :2],
-                                 (drt_dth @ rel[..., None])], dim=-1)
-        d_env = torch.cat([d_env_o @ d_obs_local, d_env_q], dim=-1)
-        d_sel = torch.cat([d_sel.new_zeros(b * k, system.base_dof), d_sel],
-                          dim=-1)
-    n_links = env.shape[-1]
-    return (sel[:, 0].reshape(b, k), d_sel.reshape(b, k, dof),
-            env.reshape(b, k, n_links),
-            # contiguous, as K2 and K3 read it
-            d_env.reshape(b, k, n_links, dof).contiguous())
+    with phase("robot_data.nn.sel"):
+        sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm,
+                                              mm_dtype=nn_mm_dtype)
+        d_sel = d_sel[:, 0]
+        if system.base_dof != 0:
+            d_sel = torch.cat([d_sel.new_zeros(b * k, system.base_dof),
+                               d_sel], dim=-1)
+        sel, d_sel = sel[:, 0].reshape(b, k), d_sel.reshape(b, k, dof)
+    with phase("robot_data.nn.env"):
+        obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
+        if system.base_dof == 0:
+            env, d_env_full = cnn.mlp_forward_jacobian(
+                env_nn, torch.cat([q_arm, obs], dim=-1), mm_dtype=nn_mm_dtype)
+            # the joint columns only (the reference slices off the obstacle
+            # ones)
+            d_env = d_env_full[:, :, :dof]
+        else:
+            rb, pb = kinm._base_transform(q_flat[:, :3])
+            rel = obs - pb
+            rbt = rb.transpose(-1, -2)
+            obs_local = (rbt @ rel[..., None])[..., 0]
+            env, d_env_full = cnn.mlp_forward_jacobian(
+                env_nn, torch.cat([q_arm, obs_local], dim=-1),
+                mm_dtype=nn_mm_dtype)
+            arm = system.arm_dof
+            d_env_q, d_env_o = d_env_full[:, :, :arm], d_env_full[:, :, arm:]
+            # d obs_local / d(x_b, y_b, th_b): -R_b' on the translations,
+            # and d(R_b')/dth (obs - p_b) on the yaw
+            c, s = torch.cos(q_flat[:, 2]), torch.sin(q_flat[:, 2])
+            z = torch.zeros_like(c)
+            drt_dth = torch.stack([torch.stack([-s, c, z], -1),
+                                   torch.stack([-c, -s, z], -1),
+                                   torch.stack([z, z, z], -1)], -2)
+            d_obs_local = torch.cat([-rbt[:, :, :2],
+                                     (drt_dth @ rel[..., None])], dim=-1)
+            d_env = torch.cat([d_env_o @ d_obs_local, d_env_q], dim=-1)
+        n_links = env.shape[-1]
+        env = env.reshape(b, k, n_links)
+        # contiguous, as K2 and K3 read it
+        d_env = d_env.reshape(b, k, n_links, dof).contiguous()
+    return sel, d_sel, env, d_env
 
 
 MANI_GRADS = ("fd", "ad", "analytic")
@@ -161,7 +171,8 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
     the plain kinematics with the finite-difference gradient; the bench
     route is ``mani_grad="analytic", kin_backend="pallas"``.  ``timer``
     (a `solver.sqp_debug.PhaseTimer`) traces the halves as the spans
-    ``robot_data.kin`` and ``robot_data.nn``."""
+    ``robot_data.kin`` and ``robot_data.nn`` (with ``robot_data.nn.sel``
+    and ``robot_data.nn.env`` inside)."""
     if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
         raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
                          f"{kin_backend!r}: the port runs {MANI_GRADS} / "
@@ -180,7 +191,7 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
                 for t in _kin_half_plain(qs, mani_grad, system))
     with phase("robot_data.nn"):
         sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn,
-                                          system, nn_mm_dtype)
+                                          system, nn_mm_dtype, phase)
     return RobotData(
         q=qs, ee_pos=p_ee, ee_rot=r_ee, jv=jv, jw=jw,
         manipul=mani, d_manipul=d_mani, sel_dist=sel, d_sel_dist=d_sel,

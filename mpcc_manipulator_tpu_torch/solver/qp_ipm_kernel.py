@@ -167,6 +167,17 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
 solve_qp_ipm_k.launches = 0
 
 
+def env_rows_active(s_rows: torch.Tensor, lam_rows: torch.Tensor,
+                    system: System = PANDA) -> torch.Tensor:
+    """Each lane's env-collision rows that bind at a solve's returned
+    iterates, summed over the knots: the rows whose dual exceeds its
+    slack.  ``s_rows`` / ``lam_rows`` are the packed (B, N+1, nc_stage)
+    rows K1 and the plain IPMs return; a knot's env rows are the last
+    ``num_links`` of its polytopic group (knots 0..N-1).  (B,) int64."""
+    env = slice(system.nc_stage - system.num_links, system.nc_stage)
+    return (lam_rows[:, :-1, env] > s_rows[:, :-1, env]).sum((1, 2))
+
+
 def launch_config(n_st: int = 10, system: System = PANDA) -> dict:
     """How K1's instantiation for ``system`` launches at horizon ``n_st`` on
     the current card, either scheme (one kernel): dynamic shared memory and

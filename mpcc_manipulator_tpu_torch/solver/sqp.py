@@ -59,7 +59,7 @@ from ..splines.arc_length import TrackSpline
 from ..system import PANDA, System
 from . import qp_admm, qp_ipm
 from .qp_ipm import SCHEMES
-from .qp_ipm_kernel import solve_qp_ipm_k
+from .qp_ipm_kernel import env_rows_active, solve_qp_ipm_k
 
 QP_SOLVERS = ("riccati_pallas", "riccati_struct", "riccati", "admm")
 
@@ -302,7 +302,8 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
     `sqp_debug.PhaseTimer`) traces the phases set_qp (the assembly:
     ``assembly``, or ``build_qp`` and ``hessian_guard``), solve_qp (the QP
     solves: ``ipm``, or `qp_admm.solve_qp`'s spans) and get_alpha (the
-    line search: ``eval``) of every iteration.
+    line search: ``eval``) of every iteration; a counting timer also keeps
+    the Riccati solve's ``env_rows_active`` on its solve_qp span.
     """
     check_supported(cfg, system)
     phase = timer.phase if timer is not None else contextlib.nullcontext
@@ -401,6 +402,9 @@ def solve_ocp(track: TrackSpline, rb: RobotData, params: MPCCParams,
                     sol = solve(rep_soc, clip(sol.s_rows.to(dtype)),
                                 clip(sol.lam_rows.to(dtype)))
                 qp_used = qp_used + sol.iters
+            if timer is not None and timer.count_ops:
+                timer.keep("env_rows_active", env_rows_active(
+                    sol.s_rows, sol.lam_rows, system))
         ipm_s, ipm_lam = st.ipm_s, st.ipm_lam
         if cfg.ipm_warm_start:
             # carry the iterates forward; frozen on a NaN and on a diverged

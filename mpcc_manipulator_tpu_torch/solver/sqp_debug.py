@@ -14,6 +14,10 @@ nothing: every span is a ``contextlib.nullcontext``)::
         robot_data        RobotData at the warm start
           robot_data.kin  K4 (or the plain kinematics)
           robot_data.nn   the two collision MLPs and their Jacobians
+            robot_data.nn.sel  the self network
+            robot_data.nn.env  the env network (on the mobile system with
+                               the obstacle in the moving base frame and
+                               the base columns' chain rule)
       set_qp              the QP assembly, each SQP iteration
         assembly          K2 or the plain stage assembly (Riccati)
         build_qp          the dense QP (ADMM)
@@ -34,7 +38,11 @@ kernels it launched (K1-K6's ``launches`` counters).  A timer built with
 ``count_ops=True`` also counts the ATen ops each span dispatched to the
 device (a ``TorchDispatchMode`` entered for each outermost span; views and
 bare allocations, which launch nothing, are left out); counting costs host
-time, so keep it off where the host clock is read.  Under an active
+time, so keep it off where the host clock is read.  Such a timer also
+keeps the tick's per-lane counters (read by :meth:`PhaseTimer.counter`):
+``env_rows_active``, each lane's env-collision rows that bind at the
+QP's returned step (`solver/sqp.py`, `qp_ipm_kernel.env_rows_active`),
+on the Riccati routes.  Under an active
 ``torch.profiler`` each span is also a ``record_function`` range of its
 name, so the program's spans and the device's kernels stand on one
 timeline (:meth:`PhaseTimer.idle_gaps`).  Nothing is read inside a tick:
@@ -160,6 +168,7 @@ class PhaseTimer:
         self._spans: list[_Span] = []
         self._open: list[int] = []
         self._ticks = 0
+        self.count_ops = count_ops
         self._counter = _OpCounter(dev.type) if count_ops else None
 
     @contextlib.contextmanager
@@ -207,6 +216,22 @@ class PhaseTimer:
         if not self._open:
             raise ValueError(f"keep({key!r}): no span is open")
         self._spans[self._open[-1]].kept.setdefault(key, []).append(value)
+
+    def counter(self, key: str) -> dict | None:
+        """The per-lane counter kept under ``key``, the last value of each
+        tick: ``ticks``, ``lane_ticks``, ``per_lane_tick`` (its mean over
+        the lane-ticks) and ``share`` (the share of the lane-ticks where it
+        is above 0); None where none was kept."""
+        last = {}
+        for s in self._spans:
+            if key in s.kept:
+                last[s.tick] = s.kept[key][-1]
+        if not last:
+            return None
+        v = torch.cat([t.reshape(-1) for t in last.values()]).double()
+        return dict(ticks=len(last), lane_ticks=v.numel(),
+                    per_lane_tick=float(v.mean()),
+                    share=float((v > 0).double().mean()))
 
     def open_spans(self) -> tuple:
         """The names of the open spans, outermost first."""

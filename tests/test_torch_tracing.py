@@ -6,13 +6,19 @@ counting ops or not, equals the untimed tick bit for bit on the Riccati
 and dense ADMM routes; the untimed tick opens no profiler range, and a
 traced one opens a range for every span, nested as the spans are; the op
 count of a tick is the same for two ticks from one state; the ADMM
-iterations of each ``admm`` span are kept per lane.  On the card (marker
-``card``, skipped without one): the ``projection`` span is one K6 launch.
+iterations of each ``admm`` span are kept per lane; on the Husky+Panda
+with the obstacle of the benchmark cell ``husky_panda.fleet-rti-obs-b16384``
+a counting timer's ``env_rows_active`` finds binding env-collision rows,
+none with the obstacle out of reach, and a plain timer computes none.  On
+the card (marker ``card``, skipped without one): the ``projection`` span
+is one K6 launch.
 
 Alone: ``python -m pytest tests/test_torch_tracing.py -q``.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -20,10 +26,13 @@ import torch
 
 from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
 from mpcc_manipulator_tpu_torch.params import SQPConfig
-from mpcc_manipulator_tpu_torch.problem import X0_HOME, build_problem
+from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
+                                                build_problem)
 from mpcc_manipulator_tpu_torch.solver import sqp_debug
+from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import env_rows_active
 from mpcc_manipulator_tpu_torch.solver.sqp_debug import (ComputeTime,
                                                          PhaseTimer)
+from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA
 
 torch.set_num_threads(1)
 
@@ -41,13 +50,16 @@ TREE = {
         "tick": None, "set_env": "tick", "projection": "set_env",
         "warm_start": "set_env", "robot_data": "set_env",
         "robot_data.kin": "robot_data", "robot_data.nn": "robot_data",
+        "robot_data.nn.sel": "robot_data.nn",
+        "robot_data.nn.env": "robot_data.nn",
         "set_qp": "tick", "assembly": "set_qp", "solve_qp": "tick",
         "ipm": "solve_qp", "get_alpha": "tick", "eval": "get_alpha"},
 }
 TREE["admm_pallas"] = TREE["admm_xla"] = {
     **{k: v for k, v in TREE["riccati_pallas"].items()
        if k in ("tick", "set_env", "projection", "warm_start", "robot_data",
-                "robot_data.kin", "robot_data.nn", "set_qp")},
+                "robot_data.kin", "robot_data.nn", "robot_data.nn.sel",
+                "robot_data.nn.env", "set_qp")},
     "build_qp": "set_qp", "hessian_guard": "set_qp", "solve_qp": "tick",
     "ruiz": "solve_qp", "factor": "solve_qp", "admm": "solve_qp",
     "get_alpha": "tick", "eval": "get_alpha"}
@@ -294,6 +306,91 @@ def test_keep_needs_an_open_span():
     assert timer.open_spans() == ()
     (row,) = [r for r in timer.spans() if r["name"] == "admm"]
     assert row["kept"] == {"iters": [2.0]}
+
+
+# the obstacle of the benchmark cell husky_panda.fleet-rti-obs-b16384
+OBS_TRAFFIC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "portbench", "traffic",
+    "fleet-rti-obs-b16384.json")
+
+
+@pytest.fixture(scope="module")
+def mobile():
+    """The Husky+Panda at batch 4 from home + 0.01 N(0, 1), float64."""
+    dt = torch.float64
+    nets = build_problem(dt, "cpu", system=HUSKY_PANDA)
+    gen = torch.Generator().manual_seed(11)
+    x0 = (torch.tensor(np.tile(X0_HOME_MOBILE, (BATCH, 1)), dtype=dt)
+          + 0.01 * torch.randn(BATCH, HUSKY_PANDA.nx, generator=gen,
+                               dtype=dt))
+    return nets, x0, torch.zeros(BATCH, HUSKY_PANDA.nu, dtype=dt)
+
+
+def _mobile_tick(mobile, timer, in_reach: bool):
+    """One RTI tick (`SQPConfig()`) of the Husky+Panda from a cold carry,
+    with the cell's obstacle or with (3, 3, 3) at radius 0."""
+    (track, params, sel_nn, env_nn), x0, u0 = mobile
+    with open(OBS_TRAFFIC) as f:
+        obs = json.load(f)["obstacle"]
+    pos, radius = ((obs["position"], obs["radius"]) if in_reach
+                   else ([3.0, 3.0, 3.0], 0.0))
+    carry = init_carry(BATCH, x0.dtype, "cpu", HUSKY_PANDA)
+    return mpc_step(track, params, sel_nn, env_nn, carry, x0, u0,
+                    torch.tensor([pos] * BATCH, dtype=x0.dtype),
+                    torch.full((BATCH,), radius, dtype=x0.dtype),
+                    system=HUSKY_PANDA, timer=timer)
+
+
+def test_env_rows_active_binds_with_the_cells_obstacle(mobile):
+    """Counting on, the cell's obstacle: ``env_rows_active`` counts
+    binding env rows, kept once on the tick's solve_qp span; the NN half
+    opens ``robot_data.nn.sel`` and ``robot_data.nn.env`` inside
+    ``robot_data.nn``."""
+    timer = PhaseTimer("cpu", count_ops=True)
+    _mobile_tick(mobile, timer, in_reach=True)
+    got = timer.counter("env_rows_active")
+    assert got["ticks"] == 1 and got["lane_ticks"] == BATCH
+    assert got["per_lane_tick"] > 0 and got["share"] > 0, got
+    recs = timer.records()
+    parents = {name: recs[parent][0] for name, parent, *_ in recs
+               if parent >= 0}
+    assert parents["robot_data.nn.sel"] == "robot_data.nn"
+    assert parents["robot_data.nn.env"] == "robot_data.nn"
+    (row,) = [r for r in timer.spans() if r["name"] == "solve_qp"]
+    assert list(row["kept"]) == ["env_rows_active"]
+
+
+def test_env_rows_active_is_zero_out_of_reach(mobile):
+    timer = PhaseTimer("cpu", count_ops=True)
+    _mobile_tick(mobile, timer, in_reach=False)
+    got = timer.counter("env_rows_active")
+    assert got["lane_ticks"] == BATCH
+    assert got["per_lane_tick"] == 0.0 and got["share"] == 0.0
+
+
+def test_plain_timer_computes_no_counter(mobile):
+    """A timer that does not count ops keeps no counter, and ``times()``
+    keeps ``ComputeTime``'s five keys."""
+    timer = PhaseTimer("cpu")
+    _mobile_tick(mobile, timer, in_reach=True)
+    assert timer.counter("env_rows_active") is None
+    assert all(not r["kept"] for r in timer.spans())
+    assert list(timer.times().as_dict()) == ["set_qp", "solve_qp",
+                                             "get_alpha", "set_env", "total"]
+
+
+def test_env_rows_active_reads_the_env_rows_alone():
+    """Crafted packed rows: a row counts where its dual exceeds its slack,
+    on a knot's last ``num_links`` rows of knots 0..N-1 only."""
+    sy = HUSKY_PANDA
+    s = torch.ones(2, sy.horizon + 1, sy.nc_stage)
+    lam = torch.ones_like(s)
+    lam[0, 0, -1] = 2.0          # the hand row of knot 0
+    lam[0, 3, -sy.num_links] = 2.0   # link 0 of knot 3
+    s[1, 5, -2] = 1e-3           # a near-zero slack, its dual above it
+    lam[1, sy.horizon, -1] = 2.0     # row N holds no stage row
+    lam[1, 2, -sy.num_links - 1] = 2.0   # the singularity row
+    assert env_rows_active(s, lam, sy).tolist() == [2, 1]
 
 
 @pytest.fixture
