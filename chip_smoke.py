@@ -44,6 +44,21 @@ Phases (the first failure exits non-zero and prints no result line):
    timed in float32 at both batches for both systems.  Every ``mpc_step``
    on the card launches K6 once, and the launch counts below hold it
    beside K1-K5;
+7b. K7 (the collision networks' forward pass and input Jacobian, one
+   launch a network): its layout and launch for both networks in float32
+   and float64 (held: at least one block an SM; in float32 no local memory
+   beyond the trig functions' slow path, 40 B), then against its plain
+   version (the cuBLAS route) on the three benchmark cells' knots (home +
+   0.01 N(0, 1), a NaN lane) and at batch 1: float32 bit for bit from
+   5,632 knots on, NaN where NaN, the rest within 2e-6 (float32) or 1e-14
+   (float64) of each output's scale, the ``nn_units_active`` counts equal;
+   timed in float32 at the cells' batches beside the plain route and its
+   cuBLAS products (``library_ms``), with the dense and the walked
+   operation counts and their bounds; then 60 closed-loop ticks of each
+   cell's draw with every tick's NN half held bit for bit against the
+   plain route.  Every ``mpc_step`` on the card launches K7 twice (once a
+   network) unless ``ipm_interpret=True`` or ``nn_bf16`` names the plain
+   route;
 8. the kernels' Husky+Panda instantiations (the 10-DOF mobile manipulator,
    BASELINE config 5): K1's launch configuration at N = 5, 10 and 20 for
    both systems (shared bytes, registers, local bytes, blocks an SM, waves
@@ -172,15 +187,16 @@ Phases (the first failure exits non-zero and prints no result line):
 24. JAX's interpret switches, as routes named to each kernel's plain
     version (`ops/cuda_build.kernel_route`): the bench configuration at
     ``ipm_interpret`` None, True and False, 3 RTI ticks each at Panda/1024
-    and Husky+Panda/4096: K1-K4 and K6 launched once a tick under None and
-    False, never under True; False bit-identical to None; True's states within
+    and Husky+Panda/4096: K1-K4 and K6 launched once a tick (K7 twice)
+    under None and False, never under True; False bit-identical to None; True's states within
     the closed-loop envelope of None's; the ADMM RTI path with
     ``qp_backend="pallas_interpret"`` against ``"pallas"`` (1024 x 3): K5
     launched twice a tick under ``"pallas"``, never under
     ``"pallas_interpret"``, states within the envelope; then
     ``compute_robot_data`` with JAX's defaults (fd, plain kinematics) in
     float64 on the card against the CPU, both systems at (1024, 11) knots,
-    within 1e-10 of each field's scale, no kernel launched.
+    within 1e-10 of each field's scale, of the kernels only K7 launched
+    (once a network).
 
 Every phase's seconds are printed as it ends.
 
@@ -659,6 +675,243 @@ def k6_flops(dof: int) -> int:
     newton = 3 * spline + 3 + 5 * 3 + 6 + 2
     vs = 3 * 2 * dof + 3 * spline + 5
     return fk + jv + base + dist + K6_NEWTON_STEPS * newton + vs
+
+
+# K7: the three benchmark cells' knots and batch 1, with a NaN lane; float32
+# bit for bit from K7_EXACT_KNOTS on (where cuBLAS runs the plain route's
+# products as one chain from k = 0), float64 and smaller batches within
+# K7_GAP of each output's scale; the trig slow path's stack the only local
+# memory in float32; then K7_LOOP_TICKS closed-loop ticks of each cell's
+# draw, every tick's NN half held bit for bit against the plain route
+K7_CASES = (("panda", 32768), ("panda", 4096), ("husky_panda", 16384),
+            ("panda", 1))
+K7_EXACT_KNOTS = 5632
+K7_GAP = {torch.float32: 2e-6, torch.float64: 1e-14}
+K7_LOCAL_BYTES = 40
+K7_LOOP_TICKS = 60
+K7_CELLS = (("panda.fleet-rti-b32768", "panda", 32768, {}, (3.0, 3.0, 3.0),
+             0.0),
+            ("panda.fleet-admm-b4096", "panda", 4096,
+             dict(qp_solver="admm", qp_backend="pallas", qp_assembly="xla"),
+             (3.0, 3.0, 3.0), 0.0),
+            ("husky_panda.fleet-rti-obs-b16384", "husky_panda", 16384, {},
+             (0.705, 0.075, 0.809), 0.05))
+
+
+def k7_calls(system, qs, obs_pos, sel_nn, env_nn):
+    """RobotData's two K7 calls for knots ``qs`` (B, K, dof): ``[(net, q,
+    arm_offset, obs, obs_div, cols, offset)]``."""
+    from mpcc_manipulator_tpu_torch.models import kinematics_mobile as kmob
+    b, k, dof = qs.shape
+    q = qs.reshape(b * k, dof)
+    base = system.base_dof
+    if base == 0:
+        env = (env_nn, q, 0, obs_pos, k, dof, 0)
+    else:
+        obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
+        rb, pb = kmob._base_transform(q[:, :3])
+        local = (rb.transpose(-1, -2) @ (obs - pb)[..., None])[..., 0]
+        env = (env_nn, q, base, local.contiguous(), 1, system.arm_dof + 3, 0)
+    return [(sel_nn, q, base, None, 1, system.arm_dof, base), env]
+
+
+def k7_flops(net, masks) -> tuple:
+    """K7's operations (a multiply-add 2) over the rows whose ReLU masks
+    (z > 0, layer by layer) are ``masks``: ``(dense, walked)``.  Dense: the
+    plain route's products.  Walked: the forward over each row's active
+    inputs, the Jacobian's products over the units with z > 0 on both
+    sides (rows of W_l where z_l > 0, columns where z_{l-1} > 0; W_0's
+    every input column)."""
+    ws = [lin.weight for lin in net.layers]
+    n_out, n_enc = ws[-1].shape[0], ws[0].shape[1]
+    rows = masks[0].shape[0]
+    dense = sum(w.numel() for w in ws) + n_out * sum(
+        w.numel() for w in ws[1:-1]) + n_out * ws[0].numel()
+    act = [m.double().sum(-1) for m in masks]
+    walked = rows * n_enc * ws[0].shape[0] + n_out * float(act[-1].sum())
+    for l in range(1, len(act)):
+        walked += float((act[l - 1] * ws[l].shape[0]).sum())
+        walked += n_out * float((act[l] * act[l - 1]).sum())
+    walked += n_out * n_enc * float(act[0].sum())
+    return 2.0 * dense * rows, 2.0 * walked
+
+
+def k7_gemm_ms(fn) -> float:
+    """Device ms of the cuBLAS products one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum((getattr(e, "device_time_total", None) or e.cuda_time_total)
+               for e in prof.events() if e.device_type == DeviceType.CUDA
+               and any(t in e.name.lower() for t in ("gemm", "gemv",
+                                                     "cutlass"))) / 1e3
+
+
+def k7_same(got, ref) -> bool:
+    return got.shape == ref.shape and bool(
+        ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all())
+
+
+def k7_gap(got, ref) -> float:
+    fin = ~torch.isnan(ref)
+    d = (got[fin].double() - ref[fin].double()).abs()
+    return float(d.max() / (ref[fin].double().abs().max() + 1e-300))
+
+
+def phase_k7(device) -> list:
+    """K7's launch, its agreement with the plain version at the cells'
+    shapes, its times and work counts, then the cells' closed loops held
+    bit for bit (docstring, item 7b)."""
+    from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
+    from mpcc_manipulator_tpu_torch.ops import collision_nn_kernel as nnk
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    systems = {"panda": PANDA, "husky_panda": mobile_system()}
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        nets = (cnn.load_self_collision_nn(dtype, device),
+                cnn.load_env_collision_nn(dtype, device))
+        for net in nets:
+            cfg = nnk.launch_config(net, dtype, 32768 * 11)
+            if cfg["blocks_per_sm"] < 1 or (dtype == torch.float32 and
+                                            cfg["local_bytes"]
+                                            > K7_LOCAL_BYTES):
+                raise AssertionError(f"K7 launch, {str(dtype)[6:]}: {cfg}")
+            print(f"K7 {'self' if net is nets[0] else 'env'} "
+                  f"{str(dtype)[6:]}: layout {nnk.layout(net, dtype)}, "
+                  f"launch {cfg}")
+        for sname, batch in K7_CASES:
+            system = systems[sname]
+            rng = np.random.default_rng(SEED + 7 + batch)
+            q0 = home(system)[:system.dof]
+            qs = torch.tensor(q0 + 0.01 * rng.standard_normal(
+                (batch, 11, system.dof)), dtype=dtype, device=device)
+            if batch > 1:
+                qs[batch // 2, 4, system.base_dof + 1] = float("nan")
+            sphere = torch.tensor([0.705, 0.075, 0.809], dtype=dtype,
+                                  device=device)
+            obs = (sphere if system.base_dof else torch.full_like(sphere, 3.0)
+                   ).expand(batch, 3).contiguous()
+            exact = dtype == torch.float32 and batch * 11 >= K7_EXACT_KNOTS
+            label = f"K7 {sname} {str(dtype)[6:]} at {batch}"
+            for args in k7_calls(system, qs, obs, *nets):
+                net, q, off, o, div, cols, offset = args
+                kind = "self" if o is None else "env"
+                run = lambda: nnk.forward_jacobian(
+                    net, q, off, o, div, cols=cols, offset=offset)
+                plain = lambda: nnk.forward_jacobian_plain(
+                    net, q, off, o, div, cols=cols, offset=offset)
+                got = nnk.forward_jacobian(net, q, off, o, div, cols=cols,
+                                           offset=offset, count=True)
+                ref = nnk.forward_jacobian_plain(net, q, off, o, div,
+                                                 cols=cols, offset=offset,
+                                                 count=True)
+                torch.cuda.synchronize()
+                same = all(k7_same(a, b) for a, b in zip(got, ref))
+                gaps = [k7_gap(a, b) for a, b in zip(got[:2], ref[:2])]
+                nan_ok = all(torch.equal(torch.isnan(a), torch.isnan(b))
+                             for a, b in zip(got[:2], ref[:2]))
+                if not nan_ok or not torch.equal(got[2], ref[2]) or (
+                        exact and not same) or max(gaps) > K7_GAP[dtype]:
+                    raise AssertionError(
+                        f"{label} {kind}: bit-identical {same}, gaps of y, "
+                        f"jac {gaps}, NaN pattern equal {nan_ok}")
+                share = float(got[2].double().mean()) / nnk.dense_units(net)
+                text = (f"{label} {kind} vs plain: "
+                        f"{'bit-identical' if same else 'within tolerance'}"
+                        f" (gaps y {gaps[0]:.3e}, jac {gaps[1]:.3e}); "
+                        f"nn_units_active {share:.4f}")
+                if dtype != torch.float32 or batch == 1:
+                    print(text)
+                    continue
+                x = q[:, off:off + 7]
+                if o is not None:
+                    x = torch.cat([x, o.repeat_interleave(div, 0)], -1)
+                masks = cnn.forward_jacobian_masks(net, x)[2]
+                dense, walked = k7_flops(net, masks)
+                t = kernel_times(run, "nn_kernel", 10)
+                plain_ms = cuda_time(plain, 3)
+                nb = nbytes(q, got[0], got[1], nnk.pack(net)) + (
+                    nbytes(o) if o is not None else 0)
+                b_dense, b_walked = bound(nb, dense), bound(nb, walked)
+                lib = k7_gemm_ms(plain)
+                print(f"{text}; {times_text(t)}, plain {plain_ms:.4f} ms, "
+                      f"library (the plain route's cuBLAS products) "
+                      f"{lib:.4f} ms; operations dense {dense:.4e} "
+                      f"(bound {b_dense['bound_ms']:.4f} ms), walked "
+                      f"{walked:.4e} (bound {b_walked['bound_ms']:.4f} ms, "
+                      f"{b_walked['bound_by']})")
+                rows.append({
+                    "name": f"K7 collision network ({kind}, "
+                            f"forward_jacobian), {sname} at {batch}",
+                    "route": "cuda",
+                    "source": "mpcc_manipulator_tpu_torch/csrc/"
+                              "collision_nn.cu",
+                    "replaces": "models/collision_nn.py::"
+                                "mlp_forward_jacobian, cuBLAS + eager (no "
+                                "TPU kernel)",
+                    "bit_identical": same, "nn_units_active": share,
+                    **t, "plain_ms": plain_ms, **b_walked,
+                    "dense_bound_ms": b_dense["bound_ms"],
+                    "library_ms": lib})
+    k7_closed_loops(device)
+    return rows
+
+
+def k7_closed_loops(device) -> None:
+    """Each benchmark cell's draw (home + 0.01 N(0, 1), its obstacle and
+    solver settings) for K7_LOOP_TICKS closed-loop ticks on the bench
+    route, every tick's NN half run again on the plain route from the
+    same knots and held bit for bit."""
+    from mpcc_manipulator_tpu_torch.models.dynamics import sim_time_step
+    from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+    from mpcc_manipulator_tpu_torch.ocp import robot_data as rd
+    from mpcc_manipulator_tpu_torch.params import SQPConfig
+    from mpcc_manipulator_tpu_torch.problem import build_problem
+    from mpcc_manipulator_tpu_torch.system import PANDA
+    systems = {"panda": PANDA, "husky_panda": mobile_system()}
+    real = rd._nn_half
+    for cell, sname, batch, cfg, obs_at, radius in K7_CELLS:
+        system = systems[sname]
+        dt = torch.float32
+        track, params, sel_nn, env_nn = build_problem(dt, device,
+                                                      system=system)
+        x = perturbed_states(batch, dt, device, system)
+        u = torch.zeros(batch, system.nu, dtype=dt, device=device)
+        obs = torch.tensor([obs_at], dtype=dt, device=device).expand(
+            batch, 3).contiguous()
+        rad = torch.full((batch,), radius, dtype=dt, device=device)
+        carry = init_carry(batch, dt, device, system)
+        held = []
+
+        def both(qs, obs_pos, sel, env, sy, mm=None, phase=None,
+                 interpret=None, keep=None):
+            out = real(qs, obs_pos, sel, env, sy, mm, phase, interpret, keep)
+            ref = real(qs, obs_pos, sel, env, sy, mm, interpret=True)
+            held.append(all(k7_same(a, b) for a, b in zip(out, ref)))
+            return out
+
+        rd._nn_half = both
+        try:
+            for _ in range(K7_LOOP_TICKS):
+                carry, out = mpc_step(track, params, sel_nn, env_nn, carry,
+                                      x, u, obs, rad, ts=TS,
+                                      cfg=SQPConfig(**cfg), system=system)
+                u = out.u0
+                x = sim_time_step(out.x0_updated, u, TS)
+        finally:
+            rd._nn_half = real
+        torch.cuda.synchronize()
+        if len(held) != K7_LOOP_TICKS or not all(held):
+            raise AssertionError(f"K7 closed loop, {cell}: NN half "
+                                 f"bit-identical on {sum(held)} of "
+                                 f"{len(held)} ticks")
+        print(f"K7 closed loop, {cell} ({batch} lanes x {K7_LOOP_TICKS} "
+              f"ticks): every tick's NN half bit-identical to the plain "
+              f"route")
 
 
 def main_path_inputs(problem, device, system=None, batch=BATCH):
@@ -1504,7 +1757,7 @@ def phase_closed_loop(problem, device, card):
             f"closed loop: s not strictly increasing after tick "
             f"{S_RISING_FROM}; non-increasing lanes per tick {back.tolist()}")
     for name, n in launches.items():
-        if n != (0 if name == "K5" else TICKS):
+        if n != {"K5": 0, "K7": 2 * TICKS}.get(name, TICKS):
             raise AssertionError(f"closed loop: {name} launched {n} times "
                                  f"in {TICKS} ticks")
     med = statistics.median(times[1:])
@@ -1538,7 +1791,7 @@ def phase_converged(problem, x0, card):
         check_ok(label, oks, states)
         run_iters = int(sqp_iters.max(1).values.sum())
         want = {k: per_iter[k] * run_iters for k in per_iter}
-        want.update(K4=ticks, K5=0, K6=ticks)
+        want.update(K4=ticks, K5=0, K6=ticks, K7=2 * ticks)
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want} for {run_iters} SQP iterations")
@@ -1582,7 +1835,8 @@ def phase_mehrotra_rti(problem, x0, card):
     check_ok("Mehrotra RTI", oks, states)
     run_iters = int(sqp_iters.max(1).values.sum())
     want = dict(K1=run_iters, K2=MEHROTRA_TICKS, K3=MEHROTRA_TICKS,
-                K4=MEHROTRA_TICKS, K5=0, K6=MEHROTRA_TICKS)
+                K4=MEHROTRA_TICKS, K5=0, K6=MEHROTRA_TICKS,
+                K7=2 * MEHROTRA_TICKS)
     if run_iters != MEHROTRA_TICKS or launches != want:
         raise AssertionError(f"Mehrotra RTI: launches {launches}, expected "
                              f"{want} for {run_iters} SQP iterations")
@@ -1607,7 +1861,7 @@ def phase_admm_rti(problem, x0, card):
     launches = read_counts()
     check_ok("ADMM RTI", oks, states)
     want = dict(K1=0, K2=0, K3=0, K4=ADMM_TICKS, K5=2 * ADMM_TICKS,
-                K6=ADMM_TICKS)
+                K6=ADMM_TICKS, K7=2 * ADMM_TICKS)
     if launches != want:
         raise AssertionError(f"ADMM RTI: launches {launches}, expected "
                              f"{want}")
@@ -1639,7 +1893,8 @@ def phase_admm_converged(problem, x0, card):
         check_ok(label, oks, states)
         run_iters = int(sqp_iters.max(1).values.sum())
         want = dict(K1=0, K2=0, K3=0, K4=OPTION_TICKS,
-                    K5=per_iter * run_iters, K6=OPTION_TICKS)
+                    K5=per_iter * run_iters, K6=OPTION_TICKS,
+                    K7=2 * OPTION_TICKS)
         if launches != want:
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"{want} for {run_iters} SQP iterations")
@@ -2179,7 +2434,8 @@ def phase_mobile_rti(mproblem, device, card) -> dict:
             raise AssertionError(f"Husky RTI, batch {b}: the mean base x "
                                  f"does not grow: {xb.tolist()}")
         want = dict(K1=MOBILE_TICKS, K2=MOBILE_TICKS, K3=MOBILE_TICKS,
-                    K4=MOBILE_TICKS, K5=0, K6=MOBILE_TICKS)
+                    K4=MOBILE_TICKS, K5=0, K6=MOBILE_TICKS,
+                    K7=2 * MOBILE_TICKS)
         if launches != want:
             raise AssertionError(f"Husky RTI, batch {b}: launches "
                                  f"{launches}, expected {want}")
@@ -2333,7 +2589,8 @@ def phase_api(card) -> dict:
     configuration, then profiled."""
     from mpcc_manipulator_tpu_torch.api import MPCC
     from mpcc_manipulator_tpu_torch.params import SQPConfig
-    none = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1)   # K6 on either
+    # K6 and K7 (one launch a network) on either
+    none = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1, K7=2)
     out = {}
     for name, dtype, cfg in (("reference", torch.float64, None),
                              ("bench", torch.float32, SQPConfig())):
@@ -2542,7 +2799,8 @@ def phase_horizons(problem, mproblem, device, card) -> dict:
             launches = read_counts()
             check_ok(f"RTI, {label}", oks, states)
             want = dict(K1=HORIZON_TICKS, K2=HORIZON_TICKS, K3=HORIZON_TICKS,
-                        K4=HORIZON_TICKS, K5=0, K6=HORIZON_TICKS)
+                        K4=HORIZON_TICKS, K5=0, K6=HORIZON_TICKS,
+                        K7=2 * HORIZON_TICKS)
             if launches != want:
                 raise AssertionError(f"RTI, {label}: launches {launches}, "
                                      f"expected {want}")
@@ -2600,7 +2858,7 @@ def phase_plain_robot_data(problem, device, card) -> None:
     launches = read_counts()
     check_ok("RTI, plain kinematics (fd)", oks, states)
     want = dict(K1=PLAIN_KIN_TICKS, K2=PLAIN_KIN_TICKS, K3=PLAIN_KIN_TICKS,
-                K4=0, K5=0, K6=PLAIN_KIN_TICKS)
+                K4=0, K5=0, K6=PLAIN_KIN_TICKS, K7=2 * PLAIN_KIN_TICKS)
     if launches != want:
         raise AssertionError(f"RTI, plain kinematics (fd): launches "
                              f"{launches}, expected {want}")
@@ -2635,7 +2893,7 @@ def phase_scan(problem, device, card) -> dict:
     secs = time.perf_counter() - t0
     launches = read_counts()
     want = dict(K1=SCAN_TICKS, K2=SCAN_TICKS, K3=SCAN_TICKS, K4=SCAN_TICKS,
-                K5=0, K6=SCAN_TICKS)
+                K5=0, K6=SCAN_TICKS, K7=2 * SCAN_TICKS)
     if launches != want or not bool(oks.all()):
         raise AssertionError(f"closed_loop_scan: launches {launches} "
                              f"(expected {want}), all ok {bool(oks.all())}")
@@ -2727,7 +2985,7 @@ def phase_checkpoint(problem, device, card) -> dict:
             if x.device == y.device and torch.equal(x, y)]
     n_ticks = CKPT_TICKS + 2 * CKPT_RESUME
     want = dict(K1=n_ticks, K2=n_ticks, K3=n_ticks, K4=n_ticks, K5=0,
-                K6=n_ticks)
+                K6=n_ticks, K7=2 * n_ticks)
     if step != CKPT_TICKS or len(same) != len(a) or launches != want:
         raise AssertionError(
             f"checkpoint resume: step {step}, bit-identical leaves {same} of "
@@ -3002,7 +3260,7 @@ def phase_sharded(problem, mproblem, device, card) -> dict:
                     prob, scen, SHARDED_TICKS)
                 want = dict(K1=SHARDED_TICKS, K2=SHARDED_TICKS,
                             K3=SHARDED_TICKS, K4=SHARDED_TICKS, K5=0,
-                            K6=SHARDED_TICKS)
+                            K6=SHARDED_TICKS, K7=2 * SHARDED_TICKS)
                 same = torch.equal(sh_x, ref_x) and all(
                     torch.equal(getattr(a, f.name), getattr(b, f.name))
                     for a, b in zip(sh_outs, ref_outs)
@@ -3228,7 +3486,8 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     from mpcc_manipulator_tpu_torch.system import PANDA
     out = {}
     cfgs = route_cfgs()
-    no_kernel = dict(K1=0, K2=0, K3=0, K5=0, K6=ROUTE_TICKS)
+    no_kernel = dict(K1=0, K2=0, K3=0, K5=0, K6=ROUTE_TICKS,
+                     K7=2 * ROUTE_TICKS)
     for name, system, prob in (("panda", PANDA, problem),
                                ("husky_panda", mobile_system(), mproblem)):
         batch = ROUTE_BATCHES[name]
@@ -3253,7 +3512,8 @@ def phase_routes(problem, mproblem, device, card) -> dict:
             final[route] = states
             check_ok(f"route {route} {name}", oks, states)
             want = (dict(K1=ROUTE_TICKS, K2=ROUTE_TICKS, K3=ROUTE_TICKS,
-                         K4=ROUTE_TICKS, K5=0, K6=ROUTE_TICKS)
+                         K4=ROUTE_TICKS, K5=0, K6=ROUTE_TICKS,
+                         K7=2 * ROUTE_TICKS)
                     if route == "riccati_pallas"
                     else dict(no_kernel, K4=ROUTE_TICKS))
             if launches != want:
@@ -3291,7 +3551,7 @@ def phase_routes(problem, mproblem, device, card) -> dict:
             and all(torch.equal(a, b) for a, b in zip(it0, it1)))
     per = FLEET["max_iter"] * FLEET_TICKS
     if not same or l1 != dict(K1=per, K2=per, K3=per, K4=FLEET_TICKS, K5=0,
-                              K6=FLEET_TICKS):
+                              K6=FLEET_TICKS, K7=2 * FLEET_TICKS):
         raise AssertionError(f"fleet mode: bit-identical {same}, launches "
                              f"{l1} (early exit {l0})")
     # the syncs of one solve_ocp (the first tick's inputs), both modes, on
@@ -3341,7 +3601,7 @@ def phase_routes(problem, mproblem, device, card) -> dict:
     dq_split = float(dq_lane[split].max()) if bool(split.any()) else 0.0
     if (dq >= BF16_DQ or dq_split >= ENVELOPE["q"]
             or l16 != dict(K1=BF16_TICKS, K2=BF16_TICKS, K3=BF16_TICKS,
-                           K4=BF16_TICKS, K5=0, K6=BF16_TICKS)):
+                           K4=BF16_TICKS, K5=0, K6=BF16_TICKS, K7=0)):
         raise AssertionError(f"nn_bf16: |dq| {dq:.3e} (bound {BF16_DQ}), "
                              f"on lanes with a moved Newton count "
                              f"{dq_split:.3e} (envelope {ENVELOPE['q']}), "
@@ -3404,10 +3664,10 @@ def phase_surface(card) -> dict:
         states.append(sim_time_step(torch.tensor(x_upd, dtype=f64)[None],
                                     torch.tensor(u_out, dtype=f64)[None],
                                     TS))
-    if launches != dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1):
+    if launches != dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=1, K7=2):
         raise AssertionError(f"surface: JAX's default configuration "
-                             f"launched kernels {launches}; K6 alone, "
-                             f"once, expected")
+                             f"launched kernels {launches}; K6 once and "
+                             f"K7 once a network expected")
     out["mpcc_gaps"] = envelope_gaps("surface, M.MPCC() tick",
                                      states[1][None], states[0][None])
     print(f"surface: M.MPCC() one tick at batch 1 on {card}: ok, "
@@ -3503,7 +3763,8 @@ def state_gaps(states, ref, dof: int) -> dict:
 def robot_data_defaults(device, card) -> dict:
     """``compute_robot_data`` with JAX's defaults (the plain kinematics,
     the fd gradient) on the card in float64 against the CPU, both systems,
-    every field within ``ROBOT_DATA_TOL`` of its scale; no kernel runs."""
+    every field within ``ROBOT_DATA_TOL`` of its scale; of the kernels only
+    K7 runs, once a network (the NN half's route on a CUDA tensor)."""
     from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
     from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
     from mpcc_manipulator_tpu_torch.system import PANDA
@@ -3522,9 +3783,12 @@ def robot_data_defaults(device, card) -> dict:
             reset_counts()
             rb = compute_robot_data(qs.to(dev), obs.to(dev), rad.to(dev),
                                     *nets, system=system)
-            if any(read_counts().values()):
+            want = {k: 2 if k == "K7" and where == "card" else 0
+                    for k in read_counts()}
+            if read_counts() != want:
                 raise AssertionError(f"interpret: RobotData with JAX's "
-                                     f"defaults launched {read_counts()}")
+                                     f"defaults launched {read_counts()}, "
+                                     f"expected {want}")
             got[where] = {
                 f.name: getattr(rb, f.name).cpu()
                 for f in dataclasses.fields(rb)}
@@ -3539,7 +3803,8 @@ def robot_data_defaults(device, card) -> dict:
           f"kinematics) float64 on {card} at ({BATCH}, {KNOTS}) knots "
           f"against the CPU: max |err| of scale "
           + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
-          + f" (tol {ROBOT_DATA_TOL}); no kernel launched")
+          + f" (tol {ROBOT_DATA_TOL}); K7 alone launched, once a "
+          f"network")
     return out
 
 
@@ -3558,7 +3823,8 @@ def phase_interpret(problem, mproblem, device, card) -> dict:
         _, ok_n, st_n, l_n, it_n = runs[None]
         _, _, st_t, l_t, _ = runs[True]
         _, ok_f, st_f, l_f, it_f = runs[False]
-        bench = dict(K1=ticks, K2=ticks, K3=ticks, K4=ticks, K5=0, K6=ticks)
+        bench = dict(K1=ticks, K2=ticks, K3=ticks, K4=ticks, K5=0, K6=ticks,
+                     K7=2 * ticks)
         if l_n != bench or l_f != bench:
             raise AssertionError(f"interpret, {name}: launches None {l_n}, "
                                  f"False {l_f}, expected {bench}")
@@ -3589,7 +3855,8 @@ def phase_interpret(problem, mproblem, device, card) -> dict:
             for b in ("pallas", "pallas_interpret")}
     runs = interpret_runs(problem, PANDA, BATCH, admm, device)
     l_k, l_p = runs["pallas"][3], runs["pallas_interpret"][3]
-    if l_k != dict(K1=0, K2=0, K3=0, K4=ticks, K5=2 * ticks, K6=ticks) \
+    if l_k != dict(K1=0, K2=0, K3=0, K4=ticks, K5=2 * ticks, K6=ticks,
+                   K7=2 * ticks) \
             or l_p != dict(l_k, K5=0):
         raise AssertionError(f"interpret, ADMM: launches pallas {l_k}, "
                              f"pallas_interpret {l_p}")
@@ -3642,10 +3909,10 @@ def main() -> int:
 
     problem = build_problem(torch.float32, device)
     aproblem = assembly_problem(device)
-    kernels = timed("kernels K1-K6", lambda: [
+    kernels = timed("kernels K1-K7", lambda: [
         phase_k1(problem, device), phase_k2(problem, aproblem, device),
         phase_k3(problem, aproblem, device), phase_k4(device),
-        phase_k5(problem, device), *phase_k6(device)])
+        phase_k5(problem, device), *phase_k6(device), *phase_k7(device)])
     mproblem = build_problem(torch.float32, device, system=mobile_system())
     mkernels = timed("kernels -h / -m", lambda: [
         phase_k1_mobile(mproblem, device),

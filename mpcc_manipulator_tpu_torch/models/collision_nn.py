@@ -97,6 +97,15 @@ def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None,
     ``is_nerf`` is keyword-only: JAX's third positional parameter is
     ``is_nerf``, the port's ``mm_dtype``, and a bool there raises.
     """
+    y, jac, _ = forward_jacobian_masks(net, x, mm_dtype, is_nerf=is_nerf)
+    return y, jac
+
+
+def forward_jacobian_masks(net: CollisionMLP, x: torch.Tensor, mm_dtype=None,
+                           *, is_nerf: bool = True):
+    """:func:`mlp_forward_jacobian` with the hidden layers' ReLU masks
+    ``z > 0`` (a list of (B, width) tensors in ``x``'s dtype):
+    ``(y, dy/dx, masks)``."""
     if mm_dtype not in MM_DTYPES:
         raise ValueError(f"mm_dtype {mm_dtype!r}: expected one of "
                          f"{MM_DTYPES}")
@@ -124,12 +133,12 @@ def mlp_forward_jacobian(net: CollisionMLP, x: torch.Tensor, mm_dtype=None,
             jac = _mm(rows, lin.weight, mm_dtype).reshape(
                 x.shape[0], -1, lin.in_features)
     if not is_nerf:
-        return y, jac
+        return y, jac, masks
     # chain through the encoding: d[x, sin x, cos x]/dx = [I; diag(cos); -diag(sin)]
     n = x.shape[-1]
     jac = (jac[..., :n] + jac[..., n:2 * n] * torch.cos(x)[:, None, :]
            - jac[..., 2 * n:] * torch.sin(x)[:, None, :])
-    return y, jac
+    return y, jac, masks
 
 
 def _load_npz(kind: str, n_layers: int):

@@ -14,8 +14,12 @@ manipulability and its gradient) takes one of two routes, as in JAX
   mobile system takes the arm's autodiff gradient whatever ``mani_grad``
   says (JAX `_single_knot_mobile`).
 
-The NN half is batched ``torch`` matmuls on either route, in bf16 with a
-float32 product under ``nn_mm_dtype="bfloat16"`` (JAX `_mm`).
+The NN half, both collision networks' outputs and input Jacobians, is K7
+(`ops/collision_nn_kernel.py`) on the route ``kin_interpret`` names: the
+CUDA kernel for CUDA tensors, its plain version (batched ``torch``
+matmuls, `models/collision_nn.py`) on the CPU; under
+``nn_mm_dtype="bfloat16"`` the plain version's products in bf16 with a
+float32 product (JAX `_mm`) on either device.
 
 For the mobile system (JAX `_nn_knot`, ``base_dof != 0``):
 
@@ -32,12 +36,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 
 from ..models import collision_nn as cnn
 from ..models import kinematics as kin
 from ..models import kinematics_mobile as kinm
+from ..ops import collision_nn_kernel as nnk
 from ..ops.kinematics_kernel import kin_sweep, kin_sweep_plain
 from ..system import PANDA, System
 
@@ -62,41 +68,46 @@ class RobotData:
 
 def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
              system: System, nn_mm_dtype=None,
-             phase=contextlib.nullcontext):
+             phase=contextlib.nullcontext, interpret=None, keep=None):
     """The NN half over (B, K) knots: ``(sel (B,K), d_sel (B,K,dof), env
-    (B,K,L), d_env (B,K,L,dof))``; its GEMMs in ``nn_mm_dtype``
-    (`models/collision_nn.py`).  ``phase`` opens the spans
+    (B,K,L), d_env (B,K,L,dof))``, each network by K7 on the route
+    ``interpret`` names (`ops/collision_nn_kernel.forward_jacobian`; its
+    plain version is `models/collision_nn.py`'s, which also runs the
+    ``nn_mm_dtype="bfloat16"`` products).  ``phase`` opens the spans
     ``robot_data.nn.sel`` (the self network) and ``robot_data.nn.env``
     (the env network, with the base-frame transform and the base columns'
-    chain rule on the mobile system)."""
+    chain rule on the mobile system); ``keep`` (a `PhaseTimer.keep`) takes
+    each network's share of its hidden units with ``z > 0`` a knot, as
+    ``nn_units_active``."""
     b, k, dof = qs.shape
+    base, arm = system.base_dof, system.arm_dof
     q_flat = qs.reshape(b * k, dof)
-    q_arm = q_flat[:, system.arm_slice]
+    run = functools.partial(nnk.forward_jacobian, mm_dtype=nn_mm_dtype,
+                            interpret=interpret, count=keep is not None)
+
+    def kept(net, counts):
+        if keep is not None:
+            keep("nn_units_active", counts / nnk.dense_units(net))
+
     with phase("robot_data.nn.sel"):
-        sel, d_sel = cnn.mlp_forward_jacobian(sel_nn, q_arm,
-                                              mm_dtype=nn_mm_dtype)
-        d_sel = d_sel[:, 0]
-        if system.base_dof != 0:
-            d_sel = torch.cat([d_sel.new_zeros(b * k, system.base_dof),
-                               d_sel], dim=-1)
+        # the base columns of the self distance's gradient are zero
+        sel, d_sel, counts = run(sel_nn, q_flat, base, cols=arm,
+                                 offset=base)
+        kept(sel_nn, counts)
         sel, d_sel = sel[:, 0].reshape(b, k), d_sel.reshape(b, k, dof)
     with phase("robot_data.nn.env"):
-        obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
-        if system.base_dof == 0:
-            env, d_env_full = cnn.mlp_forward_jacobian(
-                env_nn, torch.cat([q_arm, obs], dim=-1), mm_dtype=nn_mm_dtype)
+        if base == 0:
             # the joint columns only (the reference slices off the obstacle
             # ones)
-            d_env = d_env_full[:, :, :dof]
+            env, d_env, counts = run(env_nn, q_flat, 0, obs_pos, k, cols=dof)
         else:
+            obs = obs_pos[:, None, :].expand(b, k, 3).reshape(b * k, 3)
             rb, pb = kinm._base_transform(q_flat[:, :3])
             rel = obs - pb
             rbt = rb.transpose(-1, -2)
             obs_local = (rbt @ rel[..., None])[..., 0]
-            env, d_env_full = cnn.mlp_forward_jacobian(
-                env_nn, torch.cat([q_arm, obs_local], dim=-1),
-                mm_dtype=nn_mm_dtype)
-            arm = system.arm_dof
+            env, d_env_full, counts = run(env_nn, q_flat, base, obs_local,
+                                          cols=arm + 3)
             d_env_q, d_env_o = d_env_full[:, :, :arm], d_env_full[:, :, arm:]
             # d obs_local / d(x_b, y_b, th_b): -R_b' on the translations,
             # and d(R_b')/dth (obs - p_b) on the yaw
@@ -108,6 +119,7 @@ def _nn_half(qs: torch.Tensor, obs_pos: torch.Tensor, sel_nn, env_nn,
             d_obs_local = torch.cat([-rbt[:, :, :2],
                                      (drt_dth @ rel[..., None])], dim=-1)
             d_env = torch.cat([d_env_o @ d_obs_local, d_env_q], dim=-1)
+        kept(env_nn, counts)
         n_links = env.shape[-1]
         env = env.reshape(b, k, n_links)
         # contiguous, as K2 and K3 read it
@@ -166,13 +178,15 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
     obstacle per scenario (``obs_pos`` (B, 3), ``obs_radius`` (B,)); the
     kinematic half by the ``kin_backend`` route with the ``mani_grad``
     gradient, K4 (``"pallas"``) on the route ``kin_interpret`` names
-    (`ops/cuda_build.kernel_route`), the NN GEMMs in ``nn_mm_dtype``
-    (``"bfloat16"``: ``SQPConfig.nn_bf16``).  JAX's order and defaults:
+    (`ops/cuda_build.kernel_route`), and the NN half by K7 on that route,
+    or by its plain version's products in ``nn_mm_dtype`` (``"bfloat16"``:
+    ``SQPConfig.nn_bf16``).  JAX's order and defaults:
     the plain kinematics with the finite-difference gradient; the bench
     route is ``mani_grad="analytic", kin_backend="pallas"``.  ``timer``
     (a `solver.sqp_debug.PhaseTimer`) traces the halves as the spans
     ``robot_data.kin`` and ``robot_data.nn`` (with ``robot_data.nn.sel``
-    and ``robot_data.nn.env`` inside)."""
+    and ``robot_data.nn.env`` inside); a counting timer also keeps each
+    network's ``nn_units_active`` on its span."""
     if mani_grad not in MANI_GRADS or kin_backend not in KIN_BACKENDS:
         raise ValueError(f"mani_grad {mani_grad!r} / kin_backend "
                          f"{kin_backend!r}: the port runs {MANI_GRADS} / "
@@ -189,9 +203,11 @@ def compute_robot_data(qs: torch.Tensor, obs_pos: torch.Tensor,
             p_ee, r_ee, jv, jw, mani, d_mani = (
                 t.contiguous()
                 for t in _kin_half_plain(qs, mani_grad, system))
+    keep = timer.keep if timer is not None and timer.count_ops else None
     with phase("robot_data.nn"):
         sel, d_sel, env, d_env = _nn_half(qs, obs_pos, sel_nn, env_nn,
-                                          system, nn_mm_dtype, phase)
+                                          system, nn_mm_dtype, phase,
+                                          kin_interpret, keep)
     return RobotData(
         q=qs, ee_pos=p_ee, ee_rot=r_ee, jv=jv, jw=jw,
         manipul=mani, d_manipul=d_mani, sel_dist=sel, d_sel_dist=d_sel,

@@ -166,6 +166,10 @@ _ENTRIES = {
                                 _I),
     "mpcc_admm_launch_config": ([_I, _I, _I, _P], _I),
     "mpcc_assembly_table_len": ([_I, _I], _I),
+    "mpcc_collision_nn": ([_I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P]
+                          + [_I] * 4 + [_P, _I, _I, _I, _P], _I),
+    "mpcc_nn_layout": ([_I, _I, _P], _I),
+    "mpcc_nn_launch_config": ([_I, _I, _I, _P], _I),
     "mpcc_error_string": ([_I], ctypes.c_char_p),
 }
 

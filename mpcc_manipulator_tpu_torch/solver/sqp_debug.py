@@ -14,8 +14,8 @@ nothing: every span is a ``contextlib.nullcontext``)::
         robot_data        RobotData at the warm start
           robot_data.kin  K4 (or the plain kinematics)
           robot_data.nn   the two collision MLPs and their Jacobians
-            robot_data.nn.sel  the self network
-            robot_data.nn.env  the env network (on the mobile system with
+            robot_data.nn.sel  the self network (K7)
+            robot_data.nn.env  the env network (K7; on the mobile system with
                                the obstacle in the moving base frame and
                                the base columns' chain rule)
       set_qp              the QP assembly, each SQP iteration
@@ -34,7 +34,7 @@ nothing: every span is a ``contextlib.nullcontext``)::
 Each span records its name, its parent, its tick (the spans under one
 outermost span share one id), its host interval (``time.perf_counter_ns``),
 on a card a CUDA event pair on the current stream, and the hand-written
-kernels it launched (K1-K6's ``launches`` counters).  A timer built with
+kernels it launched (K1-K7's ``launches`` counters).  A timer built with
 ``count_ops=True`` also counts the ATen ops each span dispatched to the
 device (a ``TorchDispatchMode`` entered for each outermost span; views and
 bare allocations, which launch nothing, are left out); counting costs host
@@ -42,7 +42,9 @@ time, so keep it off where the host clock is read.  Such a timer also
 keeps the tick's per-lane counters (read by :meth:`PhaseTimer.counter`):
 ``env_rows_active``, each lane's env-collision rows that bind at the
 QP's returned step (`solver/sqp.py`, `qp_ipm_kernel.env_rows_active`),
-on the Riccati routes.  Under an active
+on the Riccati routes, and ``nn_units_active``, each knot's share of a
+collision network's hidden units with ``z > 0`` (the units K7 walks),
+kept on ``robot_data.nn.sel`` and on ``robot_data.nn.env``.  Under an active
 ``torch.profiler`` each span is also a ``record_function`` range of its
 name, so the program's spans and the device's kernels stand on one
 timeline (:meth:`PhaseTimer.idle_gaps`).  Nothing is read inside a tick:
@@ -72,6 +74,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..mpc import mpc_step
 from ..ops.admm_kernel import fused_admm
 from ..ops.assembly_kernel import build_qp_stages_k_kernel, eval_point_kernel
+from ..ops.collision_nn_kernel import forward_jacobian
 from ..ops.kinematics_kernel import kin_sweep
 from ..ops.projection_kernel import project_and_vs
 from ..params import SQPConfig
@@ -82,7 +85,7 @@ from .sqp import solve_ocp
 # the hand-written kernels' wrappers, each counting its launches
 KERNEL_WRAPPERS = {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
                    "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm,
-                   "K6": project_and_vs}
+                   "K6": project_and_vs, "K7": forward_jacobian}
 
 # ATen ops that launch nothing on the device beyond what views do
 _NO_LAUNCH = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
@@ -104,7 +107,7 @@ class ComputeTime:
 
 
 def kernel_launches() -> int:
-    """K1-K6's launches so far in this process."""
+    """K1-K7's launches so far in this process."""
     return sum(fn.launches for fn in KERNEL_WRAPPERS.values())
 
 
@@ -143,7 +146,7 @@ class _Span:
     t0: int = 0              # host ns
     t1: int = 0
     events: tuple | None = None
-    launches: int = 0        # K1-K6 launches inside
+    launches: int = 0        # K1-K7 launches inside
     ops: int | None = None   # ATen ops + launches inside (count_ops)
     kept: dict = dataclasses.field(default_factory=dict)
 
@@ -217,14 +220,15 @@ class PhaseTimer:
             raise ValueError(f"keep({key!r}): no span is open")
         self._spans[self._open[-1]].kept.setdefault(key, []).append(value)
 
-    def counter(self, key: str) -> dict | None:
-        """The per-lane counter kept under ``key``, the last value of each
-        tick: ``ticks``, ``lane_ticks``, ``per_lane_tick`` (its mean over
-        the lane-ticks) and ``share`` (the share of the lane-ticks where it
-        is above 0); None where none was kept."""
+    def counter(self, key: str, span: str | None = None) -> dict | None:
+        """The per-lane counter kept under ``key`` (on spans named ``span``
+        only, where given), the last value of each tick: ``ticks``,
+        ``lane_ticks``, ``per_lane_tick`` (its mean over the lane-ticks)
+        and ``share`` (the share of the lane-ticks where it is above 0);
+        None where none was kept."""
         last = {}
         for s in self._spans:
-            if key in s.kept:
+            if key in s.kept and span in (None, s.name):
                 last[s.tick] = s.kept[key][-1]
         if not last:
             return None
@@ -278,7 +282,7 @@ class PhaseTimer:
         name), ``count`` (spans of that name in the tick), ``host_ms``,
         ``self_host_ms`` (less the union of its children), ``device_ms``
         and ``self_device_ms`` (CUDA events; None off a card),
-        ``launches`` (K1-K6), ``ops`` (ATen ops + launches; None unless
+        ``launches`` (K1-K7), ``ops`` (ATen ops + launches; None unless
         ``count_ops``), and ``kept``: each kept tensor's mean over its
         lanes, a list a key, one entry a span (K5's iterations for each
         ``admm`` span)."""

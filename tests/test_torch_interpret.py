@@ -48,6 +48,7 @@ from mpcc_manipulator_tpu_torch.ocp import qp_data, qp_stages
 from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
 from mpcc_manipulator_tpu_torch.ops import admm_kernel
 from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
+from mpcc_manipulator_tpu_torch.ops import collision_nn_kernel as nnk
 from mpcc_manipulator_tpu_torch.ops import cuda_build
 from mpcc_manipulator_tpu_torch.ops import kinematics_kernel as kk
 from mpcc_manipulator_tpu_torch.ops import projection_kernel as pk
@@ -293,10 +294,14 @@ def kernel_inputs():
         "K5": (admm_kernel.fused_admm, tuple(admm), dict(max_iter=100)),
         "K6": (pk.project_and_vs, (track, x0, torch.zeros(2, 8, dtype=F64),
                                    params.model.max_dist_proj), {}),
+        "K7": (nnk.forward_jacobian, (env, xs[..., :7].reshape(-1, 7), 0,
+                                      torch.full((2, 3), 3.0, dtype=F64),
+                                      11), dict(cols=7)),
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                    "K7"])
 def test_wrapper_takes_the_named_route_on_the_cpu(kernel, kernel_inputs):
     """On CPU tensors ``interpret=True`` is the plain version (what
     ``None`` runs there, bit for bit) and ``interpret=False`` raises JAX's
