@@ -391,18 +391,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_wrappers() -> dict:
-    from mpcc_manipulator_tpu_torch.solver.sqp_debug import KERNEL_WRAPPERS
-    return dict(KERNEL_WRAPPERS)
-
-
 def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    from mpcc_manipulator_tpu_torch.ops import cuda_build
+    cuda_build.LAUNCHES.update(dict.fromkeys(cuda_build.LAUNCHES, 0))
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    from mpcc_manipulator_tpu_torch.ops import cuda_build
+    return dict(cuda_build.LAUNCHES)
 
 
 def home(system=None) -> np.ndarray:

@@ -112,8 +112,8 @@ def fused_admm(kinv, p, a, q, rho, l, u, dscl, escl, cscl, x0, z0, y0,
 def fused_admm_cluster(cluster: int, *args, **kw):
     """K5 on CUDA tensors with ``cluster`` (1, 2, 4 or 8) blocks per
     scenario instead of the smallest cluster that holds the problem, which
-    :func:`fused_admm` takes; arguments as there.  A launch counts on
-    ``fused_admm.launches``."""
+    :func:`fused_admm` takes; arguments as there.  A launch counts as
+    K5's."""
     if cluster not in (1, 2, 4, 8):
         raise ValueError(f"fused_admm_cluster: cluster {cluster} is not "
                          "1, 2, 4 or 8")
@@ -125,8 +125,7 @@ def _launch(cluster, args, *, max_iter: int = 400, check_every: int = 25,
             eps_rel: float = 1e-5):
     kinv, a = args[0], args[2]
     dev = kinv.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_admm: unsupported device {dev}")
+    cuda_build.require_cuda(dev, "fused_admm")
     if kinv.dim() != 3 or a.dim() != 3:
         raise ValueError("fused_admm: need batched kinv (B, n, n) and "
                          f"a (B, m, n), got {tuple(kinv.shape)}, "
@@ -136,12 +135,7 @@ def _launch(cluster, args, *, max_iter: int = 400, check_every: int = 25,
                   rho=(b, m), l=(b, m), u=(b, m), dscl=(b, n), escl=(b, m),
                   cscl=(b,), x0=(b, n), z0=(b, m), y0=(b, m))
     for name, t in zip(_ARGS, args):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"fused_admm {name}: need float32 on {dev}, "
-                             f"got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shapes[name] or not t.is_contiguous():
-            raise ValueError(f"fused_admm {name}: need a contiguous "
-                             f"{shapes[name]}, got {tuple(t.shape)}")
+        cuda_build.check_tensor(f"fused_admm {name}", t, shapes[name], dev)
     if check_every < 1 or max_iter < 0:
         raise ValueError(f"fused_admm: check_every {check_every} must be "
                          f">= 1 and max_iter {max_iter} >= 0")
@@ -149,22 +143,16 @@ def _launch(cluster, args, *, max_iter: int = 400, check_every: int = 25,
     z = torch.empty(b, m, dtype=torch.float32, device=dev)
     y = torch.empty(b, m, dtype=torch.float32, device=dev)
     it = torch.empty(b, dtype=torch.int32, device=dev)
-    lib = cuda_build.library()
-    solve, asked = ((lib.mpcc_admm_solve_cluster, (int(cluster),)) if cluster
-                    else (lib.mpcc_admm_solve, ()))
-    fused_admm.launches += 1
-    err = solve(
-        *(t.data_ptr() for t in args), x.data_ptr(), z.data_ptr(),
-        y.data_ptr(), it.data_ptr(), b, n, m, int(max_iter),
+    entry, asked = (("mpcc_admm_solve_cluster", (int(cluster),)) if cluster
+                    else ("mpcc_admm_solve", ()))
+    cuda_build.launch(
+        "K5", entry, *(t.data_ptr() for t in args), x.data_ptr(),
+        z.data_ptr(), y.data_ptr(), it.data_ptr(), b, n, m, int(max_iter),
         int(check_every), *(ctypes.c_float(v) for v in
                              (sigma, alpha, eps_abs, eps_rel)),
-        *asked, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, f"K5 admm kernel (n={n}, m={m}, cluster "
-                          f"{cluster or 'auto'})")
+        *asked, device=dev,
+        detail=f"admm kernel (n={n}, m={m}, cluster {cluster or 'auto'})")
     return x, z, y, it.long()
-
-
-fused_admm.launches = 0
 
 _LAUNCH_FIELDS = ("cluster", "smem_bytes", "threads", "active_clusters",
                  "registers", "local_bytes")
@@ -175,7 +163,5 @@ def launch_config(n: int, m: int, cluster: int = 0) -> dict:
     size, dynamic shared memory per block, threads per block, clusters the
     card holds at once, and the kernel's registers and local-memory bytes
     (stack and spills) per thread.  Raises where no cluster size holds the problem."""
-    out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
-    cuda_build.check(cuda_build.library().mpcc_admm_launch_config(
-        n, m, cluster, out), f"K5 launch config (n={n}, m={m})")
-    return dict(zip(_LAUNCH_FIELDS, out))
+    return cuda_build.launch_config("mpcc_admm_launch_config",
+                                    _LAUNCH_FIELDS, n, m, cluster)

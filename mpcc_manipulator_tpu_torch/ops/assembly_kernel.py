@@ -33,7 +33,6 @@ and the blocks an SM holds).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -218,7 +217,7 @@ def _cached(track: TrackSpline, params: MPCCParams, ts, system: System,
             raise AssertionError(f"assembly table: {hit.table.numel()} "
                                  f"floats, the kernels read {want}")
         for name, t in [("track", hit.table), *hit.shared.items()]:
-            _check_cuda(f"{name} table", t, tuple(t.shape), dev)
+            cuda_build.check_tensor(f"{name} table", t, t.shape, dev)
         hit.checked.add((sid, dev))
     return hit
 
@@ -239,15 +238,6 @@ def batch_blocks(hit: _Entry, b: int, system: System) -> dict:
     return out
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
-    if t.device != dev or t.dtype != torch.float32:
-        raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on "
-                         f"{t.device}")
-    if tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {shape}, got "
-                         f"{tuple(t.shape)}")
-
-
 def _robot_inputs(rb: RobotData, b: int, k: int, dev, fields,
                   system: System) -> list:
     """The RobotData fields a kernel reads, checked; the obstacle radius is
@@ -260,13 +250,13 @@ def _robot_inputs(rb: RobotData, b: int, k: int, dev, fields,
     out = []
     for f in fields:
         t = getattr(rb, f)
-        _check_cuda(f"RobotData.{f}", t, shapes[f], dev)
+        cuda_build.check_tensor(f"RobotData.{f}", t, shapes[f], dev)
         out.append(t)
     if tuple(rb.obs_radius.shape) != (b, k):
         raise ValueError(f"RobotData.obs_radius: need ({b}, {k}), got "
                          f"{tuple(rb.obs_radius.shape)}")
     radius = rb.obs_radius[:, 0]
-    _check_cuda("RobotData.obs_radius[:, 0]", radius, (b,), dev)
+    cuda_build.check_tensor("RobotData.obs_radius[:, 0]", radius, (b,), dev)
     return out + [radius]
 
 
@@ -293,14 +283,12 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
                                "build_qp_stages_k_kernel") == "plain":
         return build_qp_stages_k_plain(track, z, rb, params, current_u, ts,
                                        exact_heading_jac, system)
-    sid = cuda_build.system_id(system, "K2")
-    if dev.type != "cuda":
-        raise ValueError(f"build_qp_stages_k_kernel: unsupported device {dev}")
+    sid = cuda_build.system_id(system, "K2", dev)
     nx, nu, dof, npc = system.nx, system.nu, system.dof, system.npc
     n_h = system.horizon
     b = z.shape[0]
-    _check_cuda("z", z, (b, system.n_var), dev)
-    _check_cuda("current_u", current_u, (b, nu), dev)
+    cuda_build.check_tensor("z", z, (b, system.n_var), dev)
+    cuda_build.check_tensor("current_u", current_u, (b, nu), dev)
     robot = _robot_inputs(rb, b, n_h + 1, dev, _K2_ROBOT, system)
     hit = _cached(track, params, ts, system, sid, dev)
     kw = dict(dtype=torch.float32, device=dev)
@@ -310,20 +298,14 @@ def build_qp_stages_k_kernel(track: TrackSpline, z: torch.Tensor,
                   d_ru=(n_h, dof), d_rl=(n_h, dof), d_p=(n_h, npc),
                   cpx=(n_h, npc, nx), cpu=(n_h, npc, nu))
     outs = {f: torch.empty((b,) + shapes[f], **kw) for f in _K2_OUT}
-    lib = cuda_build.library()
-    build_qp_stages_k_kernel.launches += 1
-    err = lib.mpcc_assembly(
-        z.data_ptr(), current_u.data_ptr(),
+    cuda_build.launch(
+        "K2", "mpcc_assembly", z.data_ptr(), current_u.data_ptr(),
         *[t.data_ptr() for t in robot], hit.table.data_ptr(),
         *[outs[f].data_ptr() for f in _K2_OUT],
         sid, b, n_h, track.sx.a.shape[0], float(ts),
-        -1.0 if exact_heading_jac else 1.0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "K2 assembly kernel")
+        -1.0 if exact_heading_jac else 1.0, device=dev,
+        detail="assembly kernel")
     return StageQPK(**batch_blocks(hit, b, system), **outs)
-
-
-build_qp_stages_k_kernel.launches = 0
 
 
 def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
@@ -337,34 +319,26 @@ def eval_point_kernel(track: TrackSpline, z: torch.Tensor, rb: RobotData,
     dev = z.device
     if cuda_build.kernel_route(interpret, dev, "eval_point_kernel") == "plain":
         return eval_point_plain(track, z, rb, params, current_u, ts, system)
-    sid = cuda_build.system_id(system, "K3")
-    if dev.type != "cuda":
-        raise ValueError(f"eval_point_kernel: unsupported device {dev}")
+    sid = cuda_build.system_id(system, "K3", dev)
     if z.dim() not in (2, 3):
         raise ValueError(f"eval_point_kernel: z must be (B, n_var) or "
                          f"(B, A, n_var), got {tuple(z.shape)}")
     b = z.shape[0]
     n_cand = z.shape[1] if z.dim() == 3 else 1
-    _check_cuda("z", z, tuple(z.shape[:-1]) + (system.n_var,), dev)
-    _check_cuda("current_u", current_u, (b, system.nu), dev)
+    cuda_build.check_tensor("z", z, tuple(z.shape[:-1]) + (system.n_var,),
+                            dev)
+    cuda_build.check_tensor("current_u", current_u, (b, system.nu), dev)
     robot = _robot_inputs(rb, b, system.horizon + 1, dev, _K3_ROBOT,
                           system)
     table = _cached(track, params, ts, system, sid, dev).table
     obj = torch.empty(z.shape[:-1], dtype=torch.float32, device=dev)
     vio = torch.empty_like(obj)
-    lib = cuda_build.library()
-    eval_point_kernel.launches += 1
-    err = lib.mpcc_eval_point(
-        z.data_ptr(), current_u.data_ptr(),
+    cuda_build.launch(
+        "K3", "mpcc_eval_point", z.data_ptr(), current_u.data_ptr(),
         *[t.data_ptr() for t in robot], table.data_ptr(),
         obj.data_ptr(), vio.data_ptr(), sid, b, n_cand, system.horizon,
-        track.sx.a.shape[0], float(ts),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "K3 eval kernel")
+        track.sx.a.shape[0], float(ts), device=dev, detail="eval kernel")
     return obj, vio
-
-
-eval_point_kernel.launches = 0
 
 
 # How the C entries launch K2 and K3 (`csrc/assembly.cu`): a block holds at
@@ -445,8 +419,6 @@ def launch_config(kernel: int, system: System = PANDA, n_h: int = None,
     the kernel's registers and local-memory (stack and spill) bytes a
     thread, and the card's SM count."""
     n_h = system.horizon if n_h is None else n_h
-    out = (ctypes.c_int * len(_LAUNCH))()
-    cuda_build.check(cuda_build.library().mpcc_assembly_launch_config(
-        kernel, cuda_build.system_id(system, f"K{kernel}"), n_h, n_cand,
-        batch, out), f"K{kernel} launch config")
-    return dict(zip(_LAUNCH, out))
+    return cuda_build.launch_config(
+        "mpcc_assembly_launch_config", _LAUNCH, kernel,
+        cuda_build.system_id(system, f"K{kernel}"), n_h, n_cand, batch)

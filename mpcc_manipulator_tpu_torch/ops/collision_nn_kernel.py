@@ -27,7 +27,6 @@ No TPU kernel stands behind it: the JAX package leaves the networks to XLA.
 
 from __future__ import annotations
 
-import ctypes
 import weakref
 
 import torch
@@ -38,7 +37,6 @@ from . import cuda_build
 SLOT_BYTES = 16 * 1024   # a chunk of the weight stream
 EPAD = 32                # the encoded input's width, padded, in W_0's rows
 ARM = 7                  # the arm's joints, the first inputs of both networks
-_DTYPES = {torch.float32: 0, torch.float64: 1}   # the C entry's dtype codes
 _LAYOUT = ("chunks", "chunk_elems", "resident", "row_quads", "warps",
            "threads", "shared_bytes")
 _LAUNCH = ("threads", "blocks", "shared_bytes", "blocks_per_sm",
@@ -180,10 +178,8 @@ def layout(net: cnn.CollisionMLP, dtype) -> dict:
     (`mpcc_nn_layout`): chunks, elements a chunk, resident elements,
     W_out's row stride, consumer warps, threads and shared bytes a
     block."""
-    out = (ctypes.c_int * len(_LAYOUT))()
-    cuda_build.check(cuda_build.library().mpcc_nn_layout(
-        net_id(net), _DTYPES[dtype], out), "K7 layout")
-    return dict(zip(_LAYOUT, out))
+    return cuda_build.launch_config("mpcc_nn_layout", _LAYOUT, net_id(net),
+                                    cuda_build.DTYPES[dtype])
 
 
 def launch_config(net: cnn.CollisionMLP, dtype, m: int) -> dict:
@@ -191,18 +187,15 @@ def launch_config(net: cnn.CollisionMLP, dtype, m: int) -> dict:
     (`mpcc_nn_launch_config`): threads and blocks, dynamic shared bytes a
     block, the blocks an SM holds at once, registers and local-memory
     bytes a thread, the card's SM count."""
-    out = (ctypes.c_int * len(_LAUNCH))()
-    cuda_build.check(cuda_build.library().mpcc_nn_launch_config(
-        net_id(net), _DTYPES[dtype], m, out), "K7 launch config")
-    return dict(zip(_LAUNCH, out))
+    return cuda_build.launch_config("mpcc_nn_launch_config", _LAUNCH,
+                                    net_id(net), cuda_build.DTYPES[dtype], m)
 
 
 def _check(net, q, arm_offset, obs, obs_div, cols, offset) -> int:
     """Raise unless the kernel takes these arguments; the network id."""
     nid = net_id(net)
-    if q.device.type != "cuda":
-        raise ValueError(f"forward_jacobian: unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
+    cuda_build.require_cuda(q.device, "forward_jacobian")
+    if q.dtype not in cuda_build.DTYPES:
         raise ValueError(f"forward_jacobian: float32 or float64, got "
                          f"{q.dtype}")
     w = net.layers[0].weight
@@ -218,14 +211,12 @@ def _check(net, q, arm_offset, obs, obs_div, cols, offset) -> int:
     if (obs is None) != (n_in == ARM):
         raise ValueError(f"forward_jacobian: the network takes {n_in} "
                          f"inputs: obs {'given' if obs is not None else 'missing'}")
-    if obs is not None and (
-            obs.dim() != 2 or obs.shape[1] != 3 or not obs.is_contiguous()
-            or obs.dtype != q.dtype or obs.device != q.device
-            or obs_div < 1 or obs.shape[0] * obs_div < m):
-        raise ValueError(
-            f"forward_jacobian: obs (rows, 3) contiguous in q's dtype on its "
-            f"device, a row per {obs_div} of q's {m}; got "
-            f"{tuple(obs.shape)} {obs.dtype} on {obs.device}")
+    if obs is not None:
+        cuda_build.check_tensor("forward_jacobian: obs", obs,
+                                (*obs.shape[:1], 3), q.device, (q.dtype,))
+        if obs_div < 1 or obs.shape[0] * obs_div < m:
+            raise ValueError(f"forward_jacobian: obs, a row per {obs_div} "
+                             f"of q's {m}; got {obs.shape[0]} rows")
     if not 0 < cols <= n_in or offset < 0:
         raise ValueError(f"forward_jacobian: cols {cols} of the {n_in} "
                          f"inputs, offset {offset}")
@@ -265,18 +256,14 @@ def forward_jacobian(net: cnn.CollisionMLP, q: torch.Tensor,
     counts = (torch.empty(m, dtype=torch.int32, device=q.device) if count
               else None)
     parts, blocked, tree = out_order(m)
-    forward_jacobian.launches += 1
-    err = cuda_build.library().mpcc_collision_nn(
-        nid, _DTYPES[q.dtype], weights.data_ptr(), q.data_ptr(), q.stride(0),
-        arm_offset, obs.data_ptr() if obs is not None else None, obs_div, m,
+    cuda_build.launch(
+        "K7", "mpcc_collision_nn", nid, cuda_build.DTYPES[q.dtype],
+        weights.data_ptr(), q.data_ptr(), q.stride(0), arm_offset,
+        obs.data_ptr() if obs is not None else None, obs_div, m,
         y.data_ptr(), jac.data_ptr(), n_out * width, width, offset, cols,
         counts.data_ptr() if counts is not None else None, parts, blocked,
-        tree, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(err, "K7 collision network kernel")
+        tree, device=q.device, detail="collision network kernel")
     return y, jac, counts
-
-
-forward_jacobian.launches = 0
 
 
 def _layout_matches(net, dtype) -> None:

@@ -11,6 +11,13 @@ Nothing here runs at import time.
 :func:`kernel_route` is the one rule by which every kernel wrapper picks
 its kernel or its plain version: JAX's ``interpret`` switch, with the plain
 version in the place of the Pallas interpreter.
+
+The rest of the kernels' boundary is here too, so that each wrapper states
+only its own arguments: :func:`system_id` (the system's instantiation, and
+a CUDA device), :func:`check_tensor` (a kernel input's device, dtype, shape
+and layout), :func:`launch` (one C call on the device's current stream,
+counted in :data:`LAUNCHES` under the kernel's name and checked) and
+:func:`launch_config` (a C entry's report of how it launches).
 """
 
 from __future__ import annotations
@@ -94,16 +101,49 @@ def build() -> tuple[str, str]:
 _INSTANTIATIONS = {(0, 7, 9): 0, (3, 7, 9): 3}
 
 
-def system_id(system, what: str) -> int:
-    """The C entries' system argument for ``system``; raises for dims no
-    kernel is instantiated for."""
-    key = (system.base_dof, system.arm_dof, system.num_links)
-    if key not in _INSTANTIATIONS:
+# the C entries' dtype codes
+DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+@functools.cache
+def _instantiation(system):
+    return _INSTANTIATIONS.get(
+        (system.base_dof, system.arm_dof, system.num_links))
+
+
+def system_id(system, what: str, device=None) -> int:
+    """The C entries' system argument for ``system``.  Raises
+    ``NotImplementedError`` for dims no kernel is instantiated for, then,
+    given the inputs' ``device``, ``ValueError`` unless it is CUDA."""
+    sid = _instantiation(system)
+    if sid is None:
+        key = (system.base_dof, system.arm_dof, system.num_links)
         raise NotImplementedError(
             f"{what}: no kernel instantiation for {system.name} (base_dof, "
             f"arm_dof, num_links) = {key}; the kernels are instantiated for "
             f"{sorted(_INSTANTIATIONS)}")
-    return _INSTANTIATIONS[key]
+    if device is not None:
+        require_cuda(device, what)
+    return sid
+
+
+def require_cuda(device, what: str) -> None:
+    """Raise ``ValueError`` unless ``device`` is a CUDA device."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+
+
+def check_tensor(what: str, t: torch.Tensor, shape, device,
+                 dtypes=(torch.float32,)) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``shape`` tensor on
+    ``device`` in one of ``dtypes``."""
+    if t.device != device or t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{what}: need {names} on {device}, got {t.dtype} "
+                         f"on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: need a contiguous {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
 
 
 INTERPRET = (None, True, False)
@@ -219,3 +259,26 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().mpcc_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
+
+
+# Each hand-written kernel's launches so far in this process, by its name;
+# K5 counts both of its C entries.
+LAUNCHES = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), 0)
+
+
+def launch(name: str, entry: str, *args, device, detail: str = "") -> None:
+    """Call the library's C entry ``entry`` with ``args`` and the current
+    stream of ``device``, counted as one launch of kernel ``name``; raise
+    on its error, naming ``name`` and ``detail``."""
+    fn = getattr(library(), entry)
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, f"{name} {detail}".rstrip())
+
+
+def launch_config(entry: str, fields, *args) -> dict:
+    """A C entry's report of how it launches: ``fields`` by name, as it
+    writes them behind ``args``."""
+    out = (ctypes.c_int * len(fields))()
+    check(getattr(library(), entry)(*args, out), f"{entry}{args}")
+    return dict(zip(fields, out))

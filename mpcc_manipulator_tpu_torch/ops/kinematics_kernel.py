@@ -16,7 +16,6 @@ version on either device and ``interpret=False`` the kernel only, as JAX's
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -86,10 +85,8 @@ def launch_config(system: System, n: int) -> dict:
     (`mpcc_kin_launch_config`), with the blocks an SM holds at once, the
     kernel's registers and local-memory (stack and spill) bytes a thread,
     and the card's SM count."""
-    out = (ctypes.c_int * len(_LAUNCH))()
-    cuda_build.check(cuda_build.library().mpcc_kin_launch_config(
-        cuda_build.system_id(system, "K4"), n, out), "K4 launch config")
-    return dict(zip(_LAUNCH, out))
+    return cuda_build.launch_config("mpcc_kin_launch_config", _LAUNCH,
+                                    cuda_build.system_id(system, "K4"), n)
 
 
 @functools.lru_cache(maxsize=64)
@@ -116,11 +113,6 @@ def alloc_outputs(b: int, k: int, dof: int, device) -> tuple:
                  for shape, stride, off in views)
 
 
-@functools.cache
-def _system_id(system: System) -> int:
-    return cuda_build.system_id(system, "K4")
-
-
 def kin_sweep(qs: torch.Tensor, system: System = PANDA,
               interpret: bool | None = None):
     """K4 on CUDA (qs (B, K, dof) float32, contiguous); plain on CPU.
@@ -128,25 +120,15 @@ def kin_sweep(qs: torch.Tensor, system: System = PANDA,
     runs the plain version on either device, ``False`` the kernel only."""
     if cuda_build.kernel_route(interpret, qs.device, "kin_sweep") == "plain":
         return kin_sweep_plain(qs, system)
-    sid = _system_id(system)
-    if qs.device.type != "cuda":
-        raise ValueError(f"kin_sweep: unsupported device {qs.device}")
-    if qs.dtype != torch.float32 or qs.dim() != 3 \
-            or qs.shape[-1] != system.dof or not qs.is_contiguous():
-        raise ValueError(f"kin_sweep: {system.name} needs a contiguous "
-                         f"float32 (B, K, {system.dof}) tensor, got "
-                         f"{qs.dtype} {tuple(qs.shape)}")
+    sid = cuda_build.system_id(system, "K4", qs.device)
+    cuda_build.check_tensor(f"kin_sweep: {system.name}'s (B, K, dof) qs", qs,
+                            (*qs.shape[:2], system.dof), qs.device)
     b, k, dof = qs.shape
     outs = alloc_outputs(b, k, dof, qs.device)
     base = outs[0].data_ptr()
-    lib = cuda_build.library()
-    kin_sweep.launches += 1
-    err = lib.mpcc_kin_sweep(
-        qs.data_ptr(), _constants(qs.device).data_ptr(), b * k, sid,
+    cuda_build.launch(
+        "K4", "mpcc_kin_sweep", qs.data_ptr(),
+        _constants(qs.device).data_ptr(), b * k, sid,
         *(base + 4 * off for _, _, off in _layout(b, k, dof)[1]),
-        torch.cuda.current_stream(qs.device).cuda_stream)
-    cuda_build.check(err, "K4 kinematics kernel")
+        device=qs.device, detail="kinematics kernel")
     return outs
-
-
-kin_sweep.launches = 0

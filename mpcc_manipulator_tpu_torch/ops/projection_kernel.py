@@ -19,7 +19,6 @@ No TPU kernel stands behind it: the JAX package leaves step 1 to XLA.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -32,7 +31,6 @@ from . import cuda_build
 from .kinematics_kernel import NCONST, _constants
 
 SHARED_LIMIT = 48 * 1024   # the kernel's dynamic shared memory, bytes
-_DTYPES = {torch.float32: 0, torch.float64: 1}   # the C entry's dtype codes
 _LAUNCH = ("threads", "blocks", "shared_bytes", "blocks_per_sm",
            "registers", "local_bytes", "sms")
 
@@ -83,23 +81,15 @@ def launch_config(system: System, dtype, n: int, nk: int) -> dict:
     (`mpcc_proj_launch_config`): threads and blocks, dynamic shared bytes a
     block, the blocks an SM holds at once, registers and local-memory bytes
     a thread, the card's SM count."""
-    out = (ctypes.c_int * len(_LAUNCH))()
-    cuda_build.check(cuda_build.library().mpcc_proj_launch_config(
-        _system_id(system), _DTYPES[dtype], n, nk, out), "K6 launch config")
-    return dict(zip(_LAUNCH, out))
-
-
-@functools.cache
-def _system_id(system: System) -> int:
-    return cuda_build.system_id(system, "K6")
+    return cuda_build.launch_config(
+        "mpcc_proj_launch_config", _LAUNCH, cuda_build.system_id(system, "K6"),
+        cuda_build.DTYPES[dtype], n, nk)
 
 
 def _check(x0: torch.Tensor, u0: torch.Tensor, tabs: tuple,
            system: System) -> int:
     """Raise unless the kernel takes these tensors; the knot count."""
-    if x0.device.type != "cuda":
-        raise ValueError(f"project_and_vs: unsupported device {x0.device}")
-    if x0.dtype not in _DTYPES:
+    if x0.dtype not in cuda_build.DTYPES:
         raise ValueError(f"project_and_vs: float32 or float64, got "
                          f"{x0.dtype}")
     b = x0.shape[0]
@@ -108,21 +98,18 @@ def _check(x0: torch.Tensor, u0: torch.Tensor, tabs: tuple,
         raise ValueError(f"project_and_vs: {system.name} needs x0 (B, "
                          f"{system.nx}) and u0 (B, {system.nu}), got "
                          f"{tuple(x0.shape)} and {tuple(u0.shape)}")
+    if u0.dtype != x0.dtype or u0.device != x0.device \
+            or any(t.stride(-1) != 1 and t.shape[-1] != 1 for t in (x0, u0)):
+        raise ValueError(
+            "project_and_vs: x0 and u0 with contiguous rows, in one dtype on "
+            f"one device; got u0 {u0.dtype} on {u0.device}, strides "
+            f"{x0.stride()} and {u0.stride()}")
     nk = tabs[0].shape[0]
-    shapes = [(nk,)] * 12 + [(nk, 3), (nk,)] + [()] * 8
-    for t, shape in zip((x0, u0) + tabs, [None, None] + shapes):
-        if not isinstance(t, torch.Tensor) or t.dtype != x0.dtype \
-                or t.device != x0.device \
-                or not (t.is_contiguous() if shape is not None
-                        else t.stride(-1) == 1 or t.shape[-1] == 1) \
-                or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(
-                "project_and_vs: the track contiguous, x0 and u0 with "
-                "contiguous rows, all on the state's device and in its "
-                f"dtype ({x0.dtype}), the track of {nk} knots; got "
-                f"{getattr(t, 'dtype', type(t))} "
-                f"{tuple(getattr(t, 'shape', ()))} on "
-                f"{getattr(t, 'device', None)}")
+    what = f"project_and_vs: the track ({nk} knots) and max_dist_proj"
+    for t, shape in zip(tabs, [(nk,)] * 12 + [(nk, 3), (nk,)] + [()] * 8):
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{what} as tensors, got {type(t)}")
+        cuda_build.check_tensor(what, t, shape, x0.device, (x0.dtype,))
     if nk < 2 or shared_bytes(nk, x0.dtype) > SHARED_LIMIT:
         raise ValueError(f"project_and_vs: {nk} knots; the kernel takes 2 "
                          f"to what {SHARED_LIMIT} B of shared memory holds")
@@ -140,21 +127,16 @@ def project_and_vs(track: TrackSpline, x0: torch.Tensor, u0: torch.Tensor,
     if cuda_build.kernel_route(interpret, x0.device,
                                "project_and_vs") == "plain":
         return project_and_vs_plain(track, x0, u0, max_dist_proj, system)
-    sid = _system_id(system)
+    sid = cuda_build.system_id(system, "K6", x0.device)
     tabs = tables(track, max_dist_proj)
     nk = _check(x0, u0, tabs, system)
     b = x0.shape[0]
     x0_new = torch.empty(b, system.nx, dtype=x0.dtype, device=x0.device)
     s_proj = torch.empty(b, dtype=x0.dtype, device=x0.device)
     ptrs = (ctypes.c_void_p * len(tabs))(*(t.data_ptr() for t in tabs))
-    project_and_vs.launches += 1
-    err = cuda_build.library().mpcc_project_vs(
-        x0.data_ptr(), x0.stride(0), u0.data_ptr(), u0.stride(0),
-        _constants(x0.device, x0.dtype).data_ptr(), ptrs, b, nk, sid,
-        _DTYPES[x0.dtype], x0_new.data_ptr(), s_proj.data_ptr(),
-        torch.cuda.current_stream(x0.device).cuda_stream)
-    cuda_build.check(err, "K6 projection kernel")
+    cuda_build.launch(
+        "K6", "mpcc_project_vs", x0.data_ptr(), x0.stride(0), u0.data_ptr(),
+        u0.stride(0), _constants(x0.device, x0.dtype).data_ptr(), ptrs, b,
+        nk, sid, cuda_build.DTYPES[x0.dtype], x0_new.data_ptr(),
+        s_proj.data_ptr(), device=x0.device, detail="projection kernel")
     return x0_new, s_proj
-
-
-project_and_vs.launches = 0

@@ -108,19 +108,12 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
     if scheme not in SCHEMES:
         raise ValueError(f"unknown IPM scheme {scheme!r}; expected one of "
                          f"{SCHEMES}")
-    sid = cuda_build.system_id(system, "K1")
-    if dev.type != "cuda":
-        raise ValueError(f"solve_qp_ipm_k: unsupported device {dev}")
+    sid = cuda_build.system_id(system, "K1", dev)
     b, n_st = qp.e.shape[:2]
     nx, nc = system.nx, system.nc_stage
     for name, shape in _expected_shapes(b, n_st, system).items():
-        t = getattr(qp, name)
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"StageQPK.{name}: need float32 on {dev}, got "
-                             f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"StageQPK.{name}: need a contiguous {shape}, "
-                             f"got {tuple(t.shape)}")
+        cuda_build.check_tensor(f"StageQPK.{name}", getattr(qp, name), shape,
+                                dev)
     warm = []
     for w in (warm_s, warm_lam):
         if w is None:
@@ -152,19 +145,14 @@ def solve_qp_ipm_k(qp: StageQPK, max_iter: int = 25,
              warm[0].data_ptr(), warm[1].data_ptr()]
     ptrs += [t.data_ptr() for t in (dx, du, lam, s, iters, solved, mu)]
     ptrs.append(None if scratch is None else scratch.data_ptr())
-    lib = cuda_build.library()
-    solve_qp_ipm_k.launches += 1
-    err = lib.mpcc_ipm_solve(*ptrs, sid, b, n_st, int(max_iter),
-                             ctypes.c_float(EPS_IPM), SCHEMES.index(scheme),
-                             torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "K1 qp_ipm kernel")
+    cuda_build.launch("K1", "mpcc_ipm_solve", *ptrs, sid, b, n_st,
+                      int(max_iter), ctypes.c_float(EPS_IPM),
+                      SCHEMES.index(scheme), device=dev,
+                      detail="qp_ipm kernel")
     return IPMSolution(dx_tilde=dx, du=du, lam=groups_to_rows(lam, 0.0, nx),
                        iters=iters.long(), solved=solved > 0, mu=mu,
                        s_rows=groups_to_rows(s, 1.0, nx),
                        lam_rows=groups_to_rows(lam, 1.0, nx))
-
-
-solve_qp_ipm_k.launches = 0
 
 
 def env_rows_active(s_rows: torch.Tensor, lam_rows: torch.Tensor,
@@ -184,9 +172,5 @@ def launch_config(n_st: int = 10, system: System = PANDA) -> dict:
     threads per block (one block per scenario), the blocks an SM holds at
     once, the kernel's registers and local-memory bytes (stack and spills)
     per thread, and the card's SM count."""
-    out = (ctypes.c_int * len(_LAUNCH_FIELDS))()
-    sid = cuda_build.system_id(system, "K1")
-    cuda_build.check(
-        cuda_build.library().mpcc_ipm_launch_config(sid, n_st, out),
-        "K1 launch config")
-    return dict(zip(_LAUNCH_FIELDS, out))
+    return cuda_build.launch_config("mpcc_ipm_launch_config", _LAUNCH_FIELDS,
+                                    cuda_build.system_id(system, "K1"), n_st)

@@ -34,7 +34,8 @@ nothing: every span is a ``contextlib.nullcontext``)::
 Each span records its name, its parent, its tick (the spans under one
 outermost span share one id), its host interval (``time.perf_counter_ns``),
 on a card a CUDA event pair on the current stream, and the hand-written
-kernels it launched (K1-K7's ``launches`` counters).  A timer built with
+kernels it launched (K1-K7, as `ops/cuda_build.launch` counts them in
+``cuda_build.LAUNCHES``; the tracer knows no kernel).  A timer built with
 ``count_ops=True`` also counts the ATen ops each span dispatched to the
 device (a ``TorchDispatchMode`` entered for each outermost span; views and
 bare allocations, which launch nothing, are left out); counting costs host
@@ -72,20 +73,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..mpc import mpc_step
-from ..ops.admm_kernel import fused_admm
-from ..ops.assembly_kernel import build_qp_stages_k_kernel, eval_point_kernel
-from ..ops.collision_nn_kernel import forward_jacobian
-from ..ops.kinematics_kernel import kin_sweep
-from ..ops.projection_kernel import project_and_vs
+from ..ops import cuda_build
 from ..params import SQPConfig
 from ..system import PANDA, System
-from .qp_ipm_kernel import solve_qp_ipm_k
 from .sqp import solve_ocp
-
-# the hand-written kernels' wrappers, each counting its launches
-KERNEL_WRAPPERS = {"K1": solve_qp_ipm_k, "K2": build_qp_stages_k_kernel,
-                   "K3": eval_point_kernel, "K4": kin_sweep, "K5": fused_admm,
-                   "K6": project_and_vs, "K7": forward_jacobian}
 
 # ATen ops that launch nothing on the device beyond what views do
 _NO_LAUNCH = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
@@ -104,11 +95,6 @@ class ComputeTime:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
-
-
-def kernel_launches() -> int:
-    """K1-K7's launches so far in this process."""
-    return sum(fn.launches for fn in KERNEL_WRAPPERS.values())
 
 
 def _first_device(values):
@@ -192,7 +178,7 @@ class PhaseTimer:
             rng.__enter__()
         counter = self._counter
         ops0 = counter.n if counter is not None else 0
-        launches0 = kernel_launches()
+        launches0 = sum(cuda_build.LAUNCHES.values())
         if self._cuda:
             span.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
@@ -204,7 +190,7 @@ class PhaseTimer:
             span.t1 = time.perf_counter_ns()
             if self._cuda:
                 span.events[1].record()
-            span.launches = kernel_launches() - launches0
+            span.launches = sum(cuda_build.LAUNCHES.values()) - launches0
             if counter is not None:
                 span.ops = counter.n - ops0 + span.launches
             if rng is not None:

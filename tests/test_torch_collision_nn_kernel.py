@@ -42,11 +42,13 @@ from mpcc_manipulator_tpu_torch.models import kinematics_mobile as kinm
 from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
 from mpcc_manipulator_tpu_torch.ocp import robot_data as rd
 from mpcc_manipulator_tpu_torch.ops import collision_nn_kernel as nnk
+from mpcc_manipulator_tpu_torch.ops import cuda_build
 from mpcc_manipulator_tpu_torch.params import SQPConfig
 from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
                                                 build_problem)
 from mpcc_manipulator_tpu_torch.solver import sqp_debug
 from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA, PANDA
+from test_torch_tracing import fake_card
 
 torch.set_num_threads(1)
 
@@ -147,7 +149,7 @@ def test_route_is_plain_on_the_cpu(system, flag):
     bit for bit; no launch counts."""
     sel_nn, env_nn = nets()
     qs = knots(system, 3)
-    before = nnk.forward_jacobian.launches
+    before = cuda_build.LAUNCHES["K7"]
     for net, q, off, obs, div, cols, offset in calls(system, qs,
                                                      obstacles(3), sel_nn,
                                                      env_nn):
@@ -156,7 +158,7 @@ def test_route_is_plain_on_the_cpu(system, flag):
         ref = nnk.forward_jacobian_plain(net, q, off, obs, div, cols=cols,
                                          offset=offset, count=True)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert nnk.forward_jacobian.launches == before
+    assert cuda_build.LAUNCHES["K7"] == before
 
 
 @pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
@@ -329,9 +331,12 @@ def test_pack_read_as_the_kernel_reads_it_gives_the_plain_outputs():
         assert not torch.isnan(jac[3, :, :2]).any()
 
 
-def test_layouts_and_registration():
+def test_layouts_and_registration(monkeypatch):
     """The pack's layout for both networks in both dtypes, the row-quad
-    order, the gemv orders by size, K7 among the traced kernels."""
+    order, the gemv orders by size; on the kernel route (a stand-in
+    library, `test_torch_tracing.fake_card`) a call asks the kernel's
+    layout once and is one launch of `mpcc_collision_nn`, counted as
+    K7's."""
     sel_nn, env_nn = nets(torch.float32)
     assert nnk.pack_layout(env_nn, torch.float32) == dict(
         chunks=100, chunk_elems=4096, resident=9 * 256 + 1024 + 9,
@@ -349,7 +354,14 @@ def test_layouts_and_registration():
     assert nnk.out_order(34848) == (16, 0, 0)
     assert nnk.out_order(34859) == (2, 0, 0)
     assert nnk.dense_units(env_nn) == 1024 and nnk.dense_units(sel_nn) == 320
-    assert sqp_debug.KERNEL_WRAPPERS["K7"] is nnk.forward_jacobian
+    lib = fake_card(monkeypatch)
+    monkeypatch.setattr(nnk, "_LAYOUT_SEEN", set())
+    meta_nn = nets(torch.float32, "meta")[0]
+    lib.replies["mpcc_nn_layout"] = tuple(
+        nnk.pack_layout(meta_nn, torch.float32).values())
+    nnk.forward_jacobian(meta_nn, torch.zeros(33, 7, device="meta"), cols=7)
+    assert [e for e, _ in lib.calls] == ["mpcc_nn_layout", "mpcc_collision_nn"]
+    assert cuda_build.LAUNCHES["K7"] == sum(cuda_build.LAUNCHES.values()) == 1
     bad = cnn.CollisionMLP([np.zeros((8, 21)), np.zeros((1, 8))],
                            [np.zeros(8), np.zeros(1)], device="cpu")
     with pytest.raises(NotImplementedError, match="no kernel instantiation"):
@@ -392,7 +404,7 @@ def test_k7_matches_plain_lane_by_lane(card, system, dtype):
         obs = obstacles(b, dtype, card)
         exact = dtype == torch.float32 and b * 11 >= 5632
         tol = 2e-6 if dtype == torch.float32 else 1e-14
-        before = nnk.forward_jacobian.launches
+        before = cuda_build.LAUNCHES["K7"]
         for args in calls(system, qs, obs, sel_nn, env_nn):
             net, q, off, o, div, cols, offset = args
             got = nnk.forward_jacobian(net, q, off, o, div, cols=cols,
@@ -405,7 +417,7 @@ def test_k7_matches_plain_lane_by_lane(card, system, dtype):
                 assert torch.equal(torch.isnan(g), torch.isnan(r))
                 assert _equal(g, r) if exact else gap(g, r) <= tol, (
                     b, dtype, gap(g, r))
-        assert nnk.forward_jacobian.launches == before + 2
+        assert cuda_build.LAUNCHES["K7"] == before + 2
 
 
 @pytest.mark.card
@@ -457,11 +469,11 @@ def test_one_launch_a_network_a_tick_and_no_sync_in_nn(card, system):
         torch.cuda.synchronize()
 
     ticks(SQPConfig())   # warm-up: the library and the packs
-    before = nnk.forward_jacobian.launches
+    before = cuda_build.LAUNCHES["K7"]
     ticks(SQPConfig(), StrictTimer(card))
-    assert nnk.forward_jacobian.launches == before + 6
+    assert cuda_build.LAUNCHES["K7"] == before + 6
     ticks(SQPConfig(ipm_interpret=True))
-    assert nnk.forward_jacobian.launches == before + 6
+    assert cuda_build.LAUNCHES["K7"] == before + 6
 
 
 @pytest.mark.card

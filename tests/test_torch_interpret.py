@@ -307,12 +307,12 @@ def test_wrapper_takes_the_named_route_on_the_cpu(kernel, kernel_inputs):
     ``None`` runs there, bit for bit) and ``interpret=False`` raises JAX's
     ValueError; no call counts a launch."""
     fn, args, kw = kernel_inputs[kernel]
-    before = fn.launches
+    before = cuda_build.LAUNCHES[kernel]
     ref = fn(*args, **kw)
     assert _equal(fn(*args, interpret=True, **kw), ref)
     with pytest.raises(ValueError, match="CUDA device"):
         fn(*args, interpret=False, **kw)
-    assert fn.launches == before
+    assert cuda_build.LAUNCHES[kernel] == before
 
 
 # ------------------------------------------------------------ ipm_interpret
@@ -359,9 +359,7 @@ def test_ipm_interpret_tick_matches_jax_interpreter(problem):  # noqa: F811
     u = torch.zeros(batch, 8, dtype=F64)
     obs_t = torch.tensor(np.asarray(obs), dtype=F64).expand(batch, 3)
     rad = torch.zeros(batch, dtype=F64)
-    counts = {fn: fn.launches for fn in (
-        qk.solve_qp_ipm_k, ak.build_qp_stages_k_kernel,
-        ak.eval_point_kernel, kk.kin_sweep, pk.project_and_vs)}
+    counts = dict(cuda_build.LAUNCHES)
     for t in range(ticks):
         carry, out = mpc_step(port["track"], port["params"], port["sel_nn"],
                               port["env_nn"], carry, x, u, obs_t, rad,
@@ -377,7 +375,7 @@ def test_ipm_interpret_tick_matches_jax_interpreter(problem):  # noqa: F811
         assert plain_gap < STATE_TOL, (t, plain_gap)
         assert interp_gap <= jax_gap + STATE_TOL, (t, interp_gap, jax_gap)
     assert bool(out.ok.all())
-    assert all(fn.launches == n for fn, n in counts.items())
+    assert cuda_build.LAUNCHES == counts
 
 
 # ------------------------------------------------------------ K5's route
@@ -394,7 +392,7 @@ def test_pallas_interpret_backend_is_pallas_on_the_cpu():
     a = torch.tensor(rng.standard_normal((b, m, n)))
     q = torch.tensor(rng.standard_normal((b, n)))
     lo, hi = -torch.ones(b, m, dtype=F64), torch.ones(b, m, dtype=F64)
-    before = admm_kernel.fused_admm.launches
+    before = cuda_build.LAUNCHES["K5"]
     for warm in ({}, dict(x_warm=torch.full((b, n), 0.1, dtype=F64),
                           y_warm=torch.zeros(b, m, dtype=F64))):
         sols = [qp_admm.solve_qp(p, q, a, lo, hi, max_iter=150,
@@ -402,4 +400,4 @@ def test_pallas_interpret_backend_is_pallas_on_the_cpu():
                 for backend in ("pallas", "pallas_interpret")]
         assert _equal(*sols)
         assert bool(sols[0].solved.any())
-    assert admm_kernel.fused_admm.launches == before
+    assert cuda_build.LAUNCHES["K5"] == before

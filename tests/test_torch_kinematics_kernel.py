@@ -25,6 +25,7 @@ from mpcc_manipulator_tpu.ocp.robot_data import \
 from mpcc_manipulator_tpu.ops import pallas_kinematics as pkin
 from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
 from mpcc_manipulator_tpu_torch.ocp.robot_data import compute_robot_data
+from mpcc_manipulator_tpu_torch.ops import cuda_build
 from mpcc_manipulator_tpu_torch.ops.kinematics_kernel import (
     alloc_outputs, kin_sweep, kin_sweep_plain, launch_geometry)
 from mpcc_manipulator_tpu_torch.problem import X0_HOME, X0_HOME_MOBILE
@@ -72,10 +73,10 @@ def test_wrapper_takes_plain_version_on_cpu():
     """On a CPU tensor the wrapper runs the plain version and launches
     nothing."""
     qs = torch.tensor(_qs(seed=5), dtype=torch.float64)
-    before = kin_sweep.launches
+    before = cuda_build.LAUNCHES["K4"]
     for g, r in zip(kin_sweep(qs), kin_sweep_plain(qs)):
         assert torch.equal(g, r)
-    assert kin_sweep.launches == before
+    assert cuda_build.LAUNCHES["K4"] == before
 
 
 @pytest.mark.parametrize("obs", [[3.0, 3.0, 3.0], [0.45, 0.05, 0.55]],
@@ -158,10 +159,10 @@ def test_wrapper_is_plain_version_on_cpu_f32(system):
     qs = torch.tensor(home[:system.dof]
                       + 0.3 * rng.standard_normal((4, 11, system.dof)),
                       dtype=torch.float32)
-    before = kin_sweep.launches
+    before = cuda_build.LAUNCHES["K4"]
     for g, r in zip(kin_sweep(qs, system), kin_sweep_plain(qs, system)):
         assert g.dtype == torch.float32 and torch.equal(g, r)
-    assert kin_sweep.launches == before
+    assert cuda_build.LAUNCHES["K4"] == before
 
 
 @pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)

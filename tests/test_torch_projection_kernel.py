@@ -36,6 +36,7 @@ from mpcc_manipulator_tpu_torch import mpc as mpc_mod
 from mpcc_manipulator_tpu_torch.models import kinematics as kin
 from mpcc_manipulator_tpu_torch.models import kinematics_mobile as kinm
 from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+from mpcc_manipulator_tpu_torch.ops import cuda_build
 from mpcc_manipulator_tpu_torch.ops import projection_kernel as pk
 from mpcc_manipulator_tpu_torch.params import SQPConfig
 from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
@@ -43,6 +44,8 @@ from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
 from mpcc_manipulator_tpu_torch.solver import sqp_debug
 from mpcc_manipulator_tpu_torch.splines import arc_length as als
 from mpcc_manipulator_tpu_torch.system import HUSKY_PANDA, PANDA
+from mpcc_manipulator_tpu_torch.utils.tree import tree_map
+from test_torch_tracing import fake_card
 
 torch.set_num_threads(1)
 
@@ -169,12 +172,12 @@ def test_crafted_lanes_take_every_branch(system):
 def test_route_is_plain_on_the_cpu(system, flag):
     """On CPU tensors ``interpret=None`` and ``True`` run the plain version
     bit for bit, which is the step-1 code it replaced; no launch counts."""
-    before = pk.project_and_vs.launches
+    before = cuda_build.LAUNCHES["K6"]
     for track, x0, u0, mdp in cases(system, torch.float64):
         got = pk.project_and_vs(track, x0, u0, mdp, system, interpret=flag)
         ref = _parent_step1(track, x0, u0, mdp, system)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert pk.project_and_vs.launches == before
+    assert cuda_build.LAUNCHES["K6"] == before
 
 
 @pytest.mark.parametrize("system", SYSTEMS, ids=lambda s: s.name)
@@ -227,10 +230,12 @@ def test_mpc_step_unchanged_on_the_cpu(monkeypatch, system, cfg):
         assert _same(c1, c0) and _same(o1, o0)
 
 
-def test_tables_and_shared_memory():
+def test_tables_and_shared_memory(monkeypatch):
     """The 22 tables in the C entry's order; the shared bytes a block
     (K4's 96 constants and 16 values a knot) within the kernel's 48 KB at
-    the track's 100 knots in either dtype."""
+    the track's 100 knots in either dtype; on the kernel route (a stand-in
+    library, `test_torch_tracing.fake_card`) a call is one launch of
+    `mpcc_project_vs`, counted as K6's."""
     track, params, _, _ = build_problem(torch.float64, "cpu")
     tabs = pk.tables(track, params.model.max_dist_proj)
     assert len(tabs) == 22
@@ -241,7 +246,14 @@ def test_tables_and_shared_memory():
     assert tabs[21] is params.model.max_dist_proj
     assert pk.shared_bytes(100, torch.float32) == 4 * (96 + 1600)
     assert pk.shared_bytes(100, torch.float64) <= pk.SHARED_LIMIT
-    assert sqp_debug.KERNEL_WRAPPERS["K6"] is pk.project_and_vs
+    lib = fake_card(monkeypatch)
+    meta = lambda t: (t.to("meta", torch.float32)
+                      if isinstance(t, torch.Tensor) else t)
+    pk.project_and_vs(tree_map(meta, track), torch.zeros(3, 9, device="meta"),
+                      torch.zeros(3, 8, device="meta"),
+                      meta(params.model.max_dist_proj))
+    assert [e for e, _ in lib.calls] == ["mpcc_project_vs"]
+    assert cuda_build.LAUNCHES["K6"] == sum(cuda_build.LAUNCHES.values()) == 1
 
 
 # ------------------------------------------------------------------ card
@@ -287,7 +299,7 @@ def agreement(got, ref, x0, u0, track, mdp, system) -> dict:
 def test_k6_matches_plain_lane_by_lane(card, system, dtype):
     median_tol = 1e-6 if dtype == torch.float32 else 1e-12
     exact = system.base_dof == 0 and dtype == torch.float32
-    before = pk.project_and_vs.launches
+    before = cuda_build.LAUNCHES["K6"]
     for track, x0, u0, mdp in cases(system, dtype, card):
         got = pk.project_and_vs(track, x0, u0, mdp, system)
         ref = pk.project_and_vs_plain(track, x0, u0, mdp, system)
@@ -297,7 +309,7 @@ def test_k6_matches_plain_lane_by_lane(card, system, dtype):
         assert gap["jumped"] == 0 and gap["rest_equal"], gap
         assert gap["ds_max"] <= 1e-5 and gap["ds_median"] <= median_tol, gap
         assert gap["dvs_max"] <= 1e-5, gap
-    assert pk.project_and_vs.launches == before + 2
+    assert cuda_build.LAUNCHES["K6"] == before + 2
 
 
 @pytest.mark.card
@@ -330,11 +342,11 @@ def test_one_launch_a_tick_and_no_sync_in_projection(card, system):
         torch.cuda.synchronize()
 
     ticks(SQPConfig())   # warm-up: the library and the constants
-    before = pk.project_and_vs.launches
+    before = cuda_build.LAUNCHES["K6"]
     ticks(SQPConfig(), StrictTimer(card))
-    assert pk.project_and_vs.launches == before + 3
+    assert cuda_build.LAUNCHES["K6"] == before + 3
     ticks(SQPConfig(ipm_interpret=True))
-    assert pk.project_and_vs.launches == before + 3
+    assert cuda_build.LAUNCHES["K6"] == before + 3
 
 
 class _strict:

@@ -9,25 +9,37 @@ count of a tick is the same for two ticks from one state; the ADMM
 iterations of each ``admm`` span are kept per lane; on the Husky+Panda
 with the obstacle of the benchmark cell ``husky_panda.fleet-rti-obs-b16384``
 a counting timer's ``env_rows_active`` finds binding env-collision rows,
-none with the obstacle out of reach, and a plain timer computes none.  On
-the card (marker ``card``, skipped without one): the ``projection`` span
-is one K6 launch.
+none with the obstacle out of reach, and a plain timer computes none.  A
+launch through `ops/cuda_build.launch` of a stand-in C entry (no card:
+:func:`fake_card`) counts under its kernel's name and in the span around
+it, with no edit to the tracer.  On the card (marker ``card``, skipped
+without one): the ``projection`` span is one K6 launch.
 
 Alone: ``python -m pytest tests/test_torch_tracing.py -q``.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from mpcc_manipulator_tpu_torch.models import collision_nn as cnn
 from mpcc_manipulator_tpu_torch.mpc import init_carry, mpc_step
+from mpcc_manipulator_tpu_torch.ops import admm_kernel
+from mpcc_manipulator_tpu_torch.ops import assembly_kernel as ak
+from mpcc_manipulator_tpu_torch.ops import collision_nn_kernel as nnk
+from mpcc_manipulator_tpu_torch.ops import cuda_build
+from mpcc_manipulator_tpu_torch.ops import kinematics_kernel as kk
+from mpcc_manipulator_tpu_torch.ops import projection_kernel as pk
 from mpcc_manipulator_tpu_torch.params import SQPConfig
 from mpcc_manipulator_tpu_torch.problem import (X0_HOME, X0_HOME_MOBILE,
                                                 build_problem)
+from mpcc_manipulator_tpu_torch.solver import qp_ipm_kernel as qk
 from mpcc_manipulator_tpu_torch.solver import sqp_debug
 from mpcc_manipulator_tpu_torch.solver.qp_ipm_kernel import env_rows_active
 from mpcc_manipulator_tpu_torch.solver.sqp_debug import (ComputeTime,
@@ -391,6 +403,110 @@ def test_env_rows_active_reads_the_env_rows_alone():
     lam[1, sy.horizon, -1] = 2.0     # row N holds no stage row
     lam[1, 2, -sy.num_links - 1] = 2.0   # the singularity row
     assert env_rows_active(s, lam, sy).tolist() == [2, 1]
+
+
+class FakeLibrary:
+    """Stands in for the kernel library: each C entry records its name and
+    arguments, writes ``replies[entry]`` into the head of a trailing
+    ``c_int`` array (a launch config's), and returns ``err``.  A call to an entry of
+    `cuda_build._ENTRIES` must bring as many arguments as it declares."""
+
+    def __init__(self):
+        self.calls, self.replies, self.err = [], {}, 0
+
+    def __getattr__(self, entry):
+        def call(*args):
+            if entry == "mpcc_error_string":
+                return b"a stand-in error"
+            declared = cuda_build._ENTRIES.get(entry)
+            assert declared is None or len(args) == len(declared[0]), entry
+            self.calls.append((entry, args))
+            if args and isinstance(args[-1], ctypes.Array):
+                for i, v in zip(range(len(args[-1])),
+                                self.replies.get(entry, ())):
+                    args[-1][i] = v
+            return self.err
+        return call
+
+
+def fake_card(monkeypatch) -> FakeLibrary:
+    """Let a wrapper's kernel route run on the CPU: a :class:`FakeLibrary`
+    in the library's place, every device's current stream 0, any device
+    taken as CUDA (tensors on ``meta`` stand for the card's) and a launch
+    counter at 0, all undone after the test."""
+    lib = FakeLibrary()
+    monkeypatch.setattr(cuda_build, "library", lambda: lib)
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda device, what: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(cuda_build, "LAUNCHES",
+                        dict.fromkeys(cuda_build.LAUNCHES, 0))
+    return lib
+
+
+def test_a_launch_counts_under_its_name_and_in_its_span(monkeypatch):
+    """A stand-in kernel "K8" launched through ``cuda_build.launch``: its
+    entry gets the arguments and the device's stream, the launch counts
+    once under "K8" and in the spans around it (the tracer knows no
+    kernel); a failed launch raises, naming the kernel and its detail."""
+    lib = fake_card(monkeypatch)
+    cpu = torch.device("cpu")
+    timer = PhaseTimer(cpu)
+    with timer.phase("tick"):
+        with timer.phase("k8"):
+            cuda_build.launch("K8", "mpcc_k8", 3, 0.5, device=cpu)
+        with timer.phase("idle"):
+            pass
+    assert lib.calls == [("mpcc_k8", (3, 0.5, 0))]
+    assert cuda_build.LAUNCHES["K8"] == 1
+    assert sum(cuda_build.LAUNCHES.values()) == 1
+    launches = {r["name"]: r["launches"] for r in timer.spans()}
+    assert launches == {"tick": 1, "k8": 1, "idle": 0}
+    lib.err = 700
+    with pytest.raises(RuntimeError,
+                       match="K8 probe: CUDA error 700 at launch"):
+        cuda_build.launch("K8", "mpcc_k8", device=cpu, detail="probe")
+    assert cuda_build.LAUNCHES["K8"] == 2
+
+
+def test_launch_config_and_system_id(monkeypatch):
+    """``cuda_build.launch_config`` reads a C entry's report by field name,
+    raising on its error; ``system_id`` refuses dims without an
+    instantiation before a device that is not CUDA; the wrappers' seven
+    readers of a launch config ask their C entries through it, with the
+    system's and the dtype's codes.  No reader counts a launch."""
+    assert cuda_build.system_id(HUSKY_PANDA, "K1") == 3
+    odd = dataclasses.replace(HUSKY_PANDA, base_dof=2)
+    with pytest.raises(NotImplementedError, match="K1: no kernel inst"):
+        cuda_build.system_id(odd, "K1", torch.device("meta"))
+    with pytest.raises(ValueError, match="K1: unsupported device meta"):
+        cuda_build.system_id(HUSKY_PANDA, "K1", torch.device("meta"))
+    lib = fake_card(monkeypatch)
+    lib.replies["mpcc_x_config"] = (7, 9)
+    assert cuda_build.launch_config("mpcc_x_config", ("a", "b"), 4) == dict(
+        a=7, b=9)
+    sel_nn = cnn.load_self_collision_nn(torch.float32, "cpu")
+    readers = [(qk.launch_config, (10, HUSKY_PANDA)),
+               (ak.launch_config, (3, HUSKY_PANDA, 10, 5, 64)),
+               (kk.launch_config, (HUSKY_PANDA, 64)),
+               (admm_kernel.launch_config, (179, 479)),
+               (pk.launch_config, (HUSKY_PANDA, torch.float64, 64, 100)),
+               (nnk.layout, (sel_nn, torch.float64)),
+               (nnk.launch_config, (sel_nn, torch.float32, 64))]
+    for fn, args in readers:
+        assert all(v >= 0 for v in fn(*args).values())
+    assert [(e, a[:-1]) for e, a in lib.calls[1:]] == [
+        ("mpcc_ipm_launch_config", (3, 10)),
+        ("mpcc_assembly_launch_config", (3, 3, 10, 5, 64)),
+        ("mpcc_kin_launch_config", (3, 64)),
+        ("mpcc_admm_launch_config", (179, 479, 0)),
+        ("mpcc_proj_launch_config", (3, 1, 64, 100)),
+        ("mpcc_nn_layout", (0, 1)), ("mpcc_nn_launch_config", (0, 0, 64))]
+    lib.err = 2
+    with pytest.raises(RuntimeError, match=r"mpcc_x_config\(4,\): CUDA"):
+        cuda_build.launch_config("mpcc_x_config", ("a",), 4)
+    assert sum(cuda_build.LAUNCHES.values()) == 0
 
 
 @pytest.fixture
